@@ -25,6 +25,8 @@
 //  * No sequential grid: each block writes its partial (obj, reg) to a
 //    (num_blocks, 2) scratch and a second one-block kernel sums them in a fixed
 //    order, so two runs give the same bits (no float atomics).
+//  * The projection itself is the device function of project_block.cuh, which
+//    the panel kernel (panel_matching.cu) shares.
 //  * Exact numerics of _project_block: 30 bisection steps on [-1, 0] of the
 //    max-shifted, radius-normalised, pre-clamped values with the "s > 1" test;
 //    the top-2 vertex shortcut with argmax taking the FIRST maximum; the
@@ -36,20 +38,15 @@
 // C interface: dualip_fused_tile_eval(...) launches on the given stream and
 // returns cudaGetLastError(); it allocates nothing and does not synchronise.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "project_block.cuh"
 
 namespace {
+
+using namespace dualip;
 
 constexpr int THREADS = 128;       // columns per block, per-column kernels
 constexpr int REG_L_CAP = 64;      // largest L kept in registers
 constexpr int WIDE_THREADS = 256;  // threads per column, wide kernel
-constexpr int REDUCE_THREADS = 1024;
-constexpr int BISECTION_ITERS = 30;
-constexpr unsigned FULL = 0xffffffffu;
-
-enum Kind { CLAMP = 0, SIMPLEX = 1, BOXCUT = 2 };
 
 struct Args {
   const float* lam_g;
@@ -71,38 +68,6 @@ struct Args {
 __device__ __forceinline__ float zval(const Args& p, size_t idx, float nig) {
   // a*lam_g + nig*c, rounded as two products and a sum (no contraction)
   return __fadd_rn(__fmul_rn(p.a[idx], p.lam_g[idx]), __fmul_rn(nig, p.c[idx]));
-}
-
-__device__ __forceinline__ float clip(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(FULL, v, off);
-  return v;
-}
-
-// Block-wide sum of two values; thread 0 gets the result. Whole block calls.
-__device__ void block_sum2(float& u, float& v) {
-  __shared__ float s[2][32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  u = warp_sum(u);
-  v = warp_sum(v);
-  if (lane == 0) {
-    s[0][warp] = u;
-    s[1][warp] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    u = 0.f;
-    v = 0.f;
-    for (int w = 0; w < nwarps; ++w) {
-      u += s[0][w];
-      v += s[1][w];
-    }
-  }
-  __syncthreads();
 }
 
 // Block-wide reductions that every thread receives (wide kernel).
@@ -205,92 +170,13 @@ __global__ void __launch_bounds__(THREADS) column_kernel(Args p) {
   const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   float cx = 0.f, xx = 0.f;
   if (k < p.K) {
-    const int L = p.L;
     const float nig = *p.neg_inv_gamma;
     const int len = p.length[k];
-    float r[LCAP];  // simplex: vn - max(vn); box_cut: z
-    if (KIND == SIMPLEX) {
-      const float radius = p.radius;
-      float vmax = -CUDART_INF_F, sumv = 0.f;
-      int i0 = 0;
-#pragma unroll
-      for (int l = 0; l < LCAP; ++l) {
-        if (l < L) {
-          const float v = fmaxf(zval(p, (size_t)l * p.K + k, nig), 0.f);
-          sumv += v;
-          r[l] = __fdiv_rn(v, radius);
-          if (r[l] > vmax) {  // strict: the first maximum wins
-            vmax = r[l];
-            i0 = l;
-          }
-        }
-      }
-      float v1 = -CUDART_INF_F;
-#pragma unroll
-      for (int l = 0; l < LCAP; ++l) {
-        if (l < L && l != i0) v1 = fmaxf(v1, r[l]);
-      }
-#pragma unroll
-      for (int l = 0; l < LCAP; ++l) {
-        if (l < L) r[l] = r[l] - vmax;
-      }
-      float lo = -1.f, hi = 0.f;
-      for (int it = 0; it < BISECTION_ITERS; ++it) {
-        const float mid = (lo + hi) * 0.5f;
-        float s = 0.f;
-#pragma unroll
-        for (int l = 0; l < LCAP; ++l) {
-          if (l < L) s += fmaxf(r[l] - mid, 0.f);
-        }
-        if (s > 1.0f) lo = mid; else hi = mid;
-      }
-      const float nu = (lo + hi) * 0.5f;
-      const bool shortcut = L > 1 && (vmax - v1) > 1.0f;
-      const bool feasible = p.inequality && sumv <= radius + 1e-6f;
-#pragma unroll
-      for (int l = 0; l < LCAP; ++l) {
-        if (l < L) {
-          const size_t idx = (size_t)l * p.K + k;
-          float w;
-          if (feasible) w = fmaxf(zval(p, idx, nig), 0.f);
-          else if (shortcut) w = (l == i0) ? radius : 0.f;
-          else w = __fmul_rn(fmaxf(r[l] - nu, 0.f), radius);
-          emit<WANT_X>(p, idx, l, len, w, cx, xx);
-        }
-      }
-    } else {  // BOXCUT
-      const float lt = p.lo, ut = p.hi, zcut = p.radius;
-      float zmin = CUDART_INF_F, zmax = -CUDART_INF_F, sumclip = 0.f;
-#pragma unroll
-      for (int l = 0; l < LCAP; ++l) {
-        if (l < L) {
-          const float z = zval(p, (size_t)l * p.K + k, nig);
-          r[l] = z;
-          zmin = fminf(zmin, z);
-          zmax = fmaxf(zmax, z);
-          sumclip += clip(z, lt, ut);
-        }
-      }
-      float lo = zmin - ut, hi = zmax - lt;
-      for (int it = 0; it < BISECTION_ITERS; ++it) {
-        const float mid = (lo + hi) * 0.5f;
-        float s = 0.f;
-#pragma unroll
-        for (int l = 0; l < LCAP; ++l) {
-          if (l < L) s += clip(r[l] - mid, lt, ut);
-        }
-        if (s > zcut) lo = mid; else hi = mid;
-      }
-      const float nu = (lo + hi) * 0.5f;
-      const bool feasible = p.inequality && sumclip <= zcut + 1e-6f;
-#pragma unroll
-      for (int l = 0; l < LCAP; ++l) {
-        if (l < L) {
-          const float w = feasible ? clip(r[l], lt, ut) : clip(r[l] - nu, lt, ut);
-          emit<WANT_X>(p, (size_t)l * p.K + k, l, len, w, cx, xx);
-        }
-      }
-    }
+    const Proj proj{p.inequality, p.lo, p.hi, p.has_lo, p.has_hi, p.radius};
+    project_column<KIND, LCAP>(
+        p.L, proj,
+        [&](int l) { return zval(p, (size_t)l * p.K + k, nig); },
+        [&](int l, float w) { emit<WANT_X>(p, (size_t)l * p.K + k, l, len, w, cx, xx); });
   }
   block_sum2(cx, xx);
   if (threadIdx.x == 0) {
@@ -383,20 +269,6 @@ __global__ void __launch_bounds__(WIDE_THREADS) wide_kernel(Args p) {
   if (t == 0) {
     p.partials[2 * k] = cx;
     p.partials[2 * k + 1] = xx;
-  }
-}
-
-// Second pass: out = sum of the per-block partials, in a fixed order.
-__global__ void __launch_bounds__(REDUCE_THREADS) reduce_partials(const float* partials, int nb, float* out) {
-  float u = 0.f, v = 0.f;
-  for (int i = threadIdx.x; i < nb; i += blockDim.x) {
-    u += partials[2 * i];
-    v += partials[2 * i + 1];
-  }
-  block_sum2(u, v);
-  if (threadIdx.x == 0) {
-    out[0] = u;
-    out[1] = v;
   }
 }
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``build/dualip_tpu_torch/``
 at the repository root, then loaded with ``ctypes``.  The library's file name
-carries a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one loads the existing file.  Nothing is built at import: the
+carries a hash of the source, of every header in ``csrc/`` (``*.cuh``) and of
+the flags, so an edited source or header rebuilds and an unchanged one loads
+the existing file.  Nothing is built at import: the
 first launch builds, or ``build()`` builds ahead of time (all sources in
 parallel, one ``nvcc`` each).
 """
@@ -26,6 +27,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# every kernel source of the port, for ``build(KERNEL_SOURCES)``
+KERNEL_SOURCES = ("fused_matching", "panel_matching", "benes", "segment_sum")
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -41,7 +45,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

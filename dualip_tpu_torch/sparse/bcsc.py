@@ -53,6 +53,14 @@ class TileSpec:
         return project(self.proj_type, **dict(self.proj_params))
 
 
+class RowOrder(NamedTuple):
+    """A tile's valid slots in row-sorted order, for the fixed-order row
+    segment-sum (``ops/segment_sum.py``).  Static: built once with the tile."""
+
+    order: object  # (valid slots,) int32: flat slot index, stable-sorted by row
+    ptr: object  # (m + 1,) int64: row r owns order[ptr[r]:ptr[r + 1]]
+
+
 @dataclass
 class BlockCSC:
     tiles: List[Tile]
@@ -60,6 +68,8 @@ class BlockCSC:
     m: int
     n: int
     nnz: int
+    transposed: bool = False  # tiles hold (L, K) arrays (``transpose_tiles``)
+    row_orders: Optional[List[RowOrder]] = None  # per tile, csc layouts on a device
 
 
 def _pow2_thresholds(max_nnz: int) -> np.ndarray:
@@ -71,6 +81,24 @@ def _pow2_thresholds(max_nnz: int) -> np.ndarray:
         p *= 2
     th.append(max_nnz + 1)
     return np.asarray(th, dtype=np.int64)
+
+
+def _geom_thresholds(max_nnz: int, ratio: float = 1.05) -> np.ndarray:
+    """Geometric bucket boundaries: per-bucket padding bounded by
+    ``ratio - 1`` (the compact layout's row-side bucketing)."""
+    th = [0]
+    v = 1
+    while v <= max_nnz:
+        th.append(v)
+        v = max(v + 1, int(np.ceil(v * ratio)))
+    th.append(max_nnz + 1)
+    return np.unique(np.asarray(th, dtype=np.int64))
+
+
+def _exact_thresholds(lengths: np.ndarray) -> np.ndarray:
+    """One bucket per distinct column degree: no within-bucket padding."""
+    uniq = np.unique(lengths[lengths > 0]).astype(np.int64)
+    return np.concatenate([[0], uniq, [uniq[-1] + 1] if uniq.size else [1]])
 
 
 def _build_tile(
@@ -136,22 +164,23 @@ def build_blockcsc(
 ) -> BlockCSC:
     """Bucket the columns of same-pattern (A, c) into host projection tiles.
 
-    ``batching=True`` groups each entry's columns by pow2 nnz buckets;
-    ``False`` keeps one tile per entry.  Empty columns are dropped; columns no
-    entry covers get the identity projection.  ``bucketing="exact"`` belongs
-    to the compact butterfly layout, a later slice of the port.
+    ``batching=True`` groups each entry's columns by nnz buckets; ``False``
+    keeps one tile per entry.  ``bucketing`` selects the boundaries: ``"pow2"``
+    or ``"exact"`` (one bucket per distinct degree, the compact butterfly
+    layout's column rule).  Empty columns are dropped; columns no entry covers
+    get the identity projection.
     """
-    if bucketing != "pow2":
-        raise NotImplementedError(
-            f"bucketing={bucketing!r} belongs to the compact butterfly layout, "
-            "a later slice of the port"
-        )
     if not same_pattern(A, C):
         raise ValueError("A and c must share the same CSC sparsity pattern")
     m, n = A.shape
     lengths = A.col_lengths
     has_empty = bool((lengths == 0).any())
-    thresholds = _pow2_thresholds(m)
+    if bucketing == "exact":
+        thresholds = _exact_thresholds(lengths)
+    elif bucketing == "pow2":
+        thresholds = _pow2_thresholds(m)
+    else:
+        raise ValueError(f"Unknown bucketing {bucketing!r} (expected 'pow2' or 'exact')")
     # index i with th[i-1] < len <= th[i]
     bucket_ids = np.searchsorted(thresholds, lengths, side="left")
 
@@ -190,12 +219,39 @@ def build_blockcsc(
     return BlockCSC(tiles=tiles, specs=specs, m=m, n=n, nnz=A.nnz)
 
 
-def device_put_blockcsc(bcsc: BlockCSC, device) -> BlockCSC:
-    """Copy every tile array to ``device`` as a tensor (rows widened to int32)."""
+def tile_row_order(rows: np.ndarray, length: np.ndarray, m: int, transposed: bool = False) -> RowOrder:
+    """Host ``RowOrder`` of one tile: the flat indices of its valid slots,
+    stable-sorted by row, and the row pointer.  ``rows`` is (K, L), or (L, K)
+    with ``transposed``."""
+    rows = np.asarray(rows)
+    L = rows.shape[0] if transposed else rows.shape[1]
+    lane = np.arange(L)
+    length = np.asarray(length)
+    valid = (lane[:, None] < length[None, :]) if transposed else (lane[None, :] < length[:, None])
+    slots = np.nonzero(valid.reshape(-1))[0]
+    # a 16-bit key sorts by radix; the order is the same as for the wide key
+    key_dt = np.uint16 if m <= np.iinfo(np.uint16).max else np.int32
+    keys = rows.reshape(-1)[slots].astype(key_dt, copy=False)
+    order = slots[np.argsort(keys, kind="stable")].astype(np.int32)
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(keys, minlength=m))]).astype(np.int64)
+    return RowOrder(order=order, ptr=ptr)
+
+
+def device_put_blockcsc(bcsc: BlockCSC, device, row_orders: bool = False) -> BlockCSC:
+    """Copy every tile array to ``device`` as a tensor (rows widened to int32).
+    ``row_orders=True`` also builds each tile's ``RowOrder`` on the host and
+    places it beside the tile."""
 
     def put(x, dtype=None):
         t = torch.as_tensor(np.ascontiguousarray(x), device=device)
         return t if dtype is None else t.to(dtype)
+
+    orders = None
+    if row_orders:
+        orders = []
+        for t in bcsc.tiles:
+            ro = tile_row_order(t.rows, t.length, bcsc.m, bcsc.transposed)
+            orders.append(RowOrder(order=put(ro.order), ptr=put(ro.ptr)))
 
     tiles = [
         Tile(
@@ -207,16 +263,21 @@ def device_put_blockcsc(bcsc: BlockCSC, device) -> BlockCSC:
         )
         for t in bcsc.tiles
     ]
-    return BlockCSC(tiles=tiles, specs=bcsc.specs, m=bcsc.m, n=bcsc.n, nnz=bcsc.nnz)
+    return BlockCSC(
+        tiles=tiles, specs=bcsc.specs, m=bcsc.m, n=bcsc.n, nnz=bcsc.nnz,
+        transposed=bcsc.transposed, row_orders=orders,
+    )
 
 
-def blockcsc_from_numpy(tiles, specs, m: int, n: int, nnz: int, device) -> BlockCSC:
+def blockcsc_from_numpy(tiles, specs, m: int, n: int, nnz: int, device, transposed: bool = False,
+                        row_orders: bool = False) -> BlockCSC:
     """The port's BlockCSC from another builder's leaves as numpy arrays.
 
     ``tiles`` holds ``(rows, a, c, length, col_ids)`` per tile (the JAX
     package's ``Tile`` fields, e.g. its uint16 ``rows``, which are widened
     to int32); ``specs`` needs ``entry_key, proj_type, proj_params, K, L``
-    and ``flat_idx``.
+    and ``flat_idx``.  ``transposed`` says the arrays are (L, K);
+    ``row_orders`` builds the segment-sum's row-sorted orders as well.
     """
     host_tiles = [Tile(*(np.asarray(x) for x in t)) for t in tiles]
     port_specs = [
@@ -231,7 +292,8 @@ def blockcsc_from_numpy(tiles, specs, m: int, n: int, nnz: int, device) -> Block
         for s in specs
     ]
     return device_put_blockcsc(
-        BlockCSC(tiles=host_tiles, specs=port_specs, m=m, n=n, nnz=nnz), device
+        BlockCSC(tiles=host_tiles, specs=port_specs, m=m, n=n, nnz=nnz, transposed=transposed),
+        device, row_orders=row_orders,
     )
 
 

@@ -172,6 +172,8 @@ def test_beta_seq_step_size_and_cone_match_jax():
 
 
 def test_later_slice_options_raise():
-    for kwargs in ({"layout": "butterfly"}, {"mesh": object()}, {"compact": True}, {"tile_cache_dir": "/tmp/x"}):
+    """What still waits for a later slice: the mesh and the tile cache."""
+    for kwargs in ({"mesh": object()}, {"layout": "butterfly", "mesh": object()}, {"tile_cache_dir": "/tmp/x"},
+                   {"layout": "butterfly", "tile_cache_dir": "/tmp/x"}):
         with pytest.raises(NotImplementedError, match="slice"):
             _scala_objective(**kwargs)

@@ -85,9 +85,18 @@ def test_blockcsc_from_numpy_widens_jax_tiles():
 
 
 def test_build_blockcsc_rejects_exact_bucketing():
+    """Exact bucketing is the compact layout's column rule now; what the
+    function rejects is a bucketing it does not know, as the JAX package does."""
     dense = _problem()
-    with pytest.raises(NotImplementedError, match="butterfly"):
-        build_blockcsc(csc_from_dense(dense), csc_from_dense(-dense), {}, bucketing="exact")
+    n = dense.shape[1]
+    with pytest.raises(ValueError, match="Unknown bucketing"):
+        build_blockcsc(csc_from_dense(dense), csc_from_dense(-dense), {}, bucketing="geometric")
+    with pytest.raises(ValueError, match="Unknown bucketing"):
+        jax_build(jax_csc(dense), jax_csc(-dense), {}, bucketing="geometric")
+    ref = jax_build(jax_csc(dense), jax_csc(-dense), _maps(jax_pm, n), bucketing="exact")
+    port = build_blockcsc(csc_from_dense(dense), csc_from_dense(-dense), _maps(create_projection_map, n), bucketing="exact")
+    _assert_tiles_equal(port, ref)
+    assert len({s.L for s in port.specs if s.entry_key == port.specs[0].entry_key}) > 2  # a tile per distinct degree
 
 
 def test_synthetic_generator_matches_benchmark():
