@@ -10,9 +10,11 @@ result lines at the end are printed only by a full run):
 2. build: compile every hand-written kernel from this checkout (one ``nvcc``
    per source, all started together) and the native Benes router (``g++``);
 3. kernels: the fused tile kernel (K1/K2) against its plain PyTorch version on
-   the card, for every projection kind, at L in {1, 2, 8, 32, 100, 29};
-4. segsum: the fixed-order row segment-sum against a float64 ``index_add_``,
-   and two launches bit for bit;
+   the card, for every projection kind, at L in {1, 2, 8, 16, 32, 100, 29},
+   and its gather form against its lam_g form bit for bit at m = 64, 10,000
+   and 70,000;
+4. segsum: the windowed fixed-order row segment-sum over several tiles at
+   once against a float64 ``index_add_``, and two launches bit for bit;
 5. benes: the three Benes kernels (K5 fine, K6 coarse group, K7 two-axis
    coarse side) against the plain stages with ``torch.equal``, forward and
    reverse, fp32 and bf16, in every regime of the block count;
@@ -23,15 +25,22 @@ result lines at the end are printed only by a full run):
    csc layout and butterfly layout (plain, compact, ``srow_gather``, bf16);
 8. slice: the synthetic matching LP (2,500,000 sources x 10,000 destinations,
    sparsity 1e-3, seed 42) through ``run_solver`` on the csc layout with the
-   fused kernel, its launches counted, its first 20 iterations repeated with
-   the plain version and compared, a repeat that must be bit-identical, the
-   segment-sum held against a float64 ``index_add_`` on each tile's own a*x,
-   and each kernel timed on the slice's tiles beside its plain version and bound;
+   fused kernel in its gather form, its launches counted, its first 20
+   iterations repeated with the plain version and compared, a repeat that must
+   be bit-identical, the gather form held against the lam_g form bit for bit
+   and the segment-sum against a float64 ``index_add_`` on the tiles' own a*x,
+   each kernel timed on the slice's tiles beside its plain version and bound,
+   and a ``torch.profiler`` window over 10 iterations (device busy share,
+   kernels by name, no per-iteration ``index_select``);
 9. butterfly: the same data through ``run_solver`` with
    ``layout="butterfly"``: launches counted, plain versions compared, the csc
    log compared, a bit-identical repeat, a 250,000-source solve (the K6
    regime), then ``compact``, ``carry_dtype=bfloat16`` and ``srow_gather``,
    and each kernel timed at the slice's shapes.
+
+Kernel times (``ms``) are CUDA-graph replays of the wrapper's calls, so the
+host's launch gaps are not in them; each ``[timing]`` line also gives the eager
+loop's device time, the host's time to enqueue it and ``host_bound``.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -50,6 +59,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -107,17 +117,65 @@ def say(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` runs, between CUDA events."""
+class Timing(NamedTuple):
+    ms: float  # device time per run: CUDA-graph replays when graphed, else the eager loop
+    eager_ms: float  # device time per run, launched from Python one run after another
+    host_ms: float  # host time to enqueue one run in that eager loop
+    reps: int
+
+    @property
+    def host_bound(self) -> bool:
+        """The eager loop's device time is the host's: while the host
+        enqueues, the card waits, so the two come out about equal."""
+        return self.host_ms >= 0.9 * self.eager_ms
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2, window_ms: float = 10.0, graph: bool = False) -> Timing:
+    """Device time of ``fn`` between CUDA events, and the host's time to
+    enqueue it, over at least ``reps`` runs and over enough runs to fill
+    ``window_ms``.  ``graph=True`` also captures one run in a CUDA graph and
+    times its replays: the device time without the host's gaps between
+    launches (``fn`` must not synchronise)."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    reps = int(min(5000, max(reps, np.ceil(window_ms / max(start.elapsed_time(end), 1e-3)))))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    eager = start.elapsed_time(end) / reps
+    ms = eager
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        g.replay()
+        start.record()
+        for _ in range(reps):
+            g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+        del g
+    return Timing(ms, eager, host * 1e3 / reps, reps)
+
+
+def timing_kv(t: Timing) -> dict:
+    return {"eager_ms": f"{t.eager_ms:.4f}", "host_enqueue_ms": f"{t.host_ms:.4f}",
+            "host_over_device": f"{t.host_ms / t.eager_ms:.3f}", "reps": t.reps, "host_bound": t.host_bound}
 
 
 def ops_per_slot(kind: str) -> int:
@@ -154,78 +212,111 @@ def rel_dev(got, want):
 
 
 def phase_kernels(widths, dev):
-    """K1/K2: every (kind, params) case at each width and both want_x, kernel vs plain."""
-    from dualip_tpu_torch.ops.fused_matching import fused_tile_eval_T, fused_tile_eval_T_reference
+    """K1/K2: every (kind, params) case at each width and both want_x, kernel
+    vs plain, and the gather form against the lam_g form bit for bit, at
+    m = 64, 10,000 and 70,000 (a 280 KB table, more than L1 holds), the last
+    with K = 4102 (4 B copies and a ragged last slab)."""
+    from dualip_tpu_torch.ops.fused_matching import (
+        fused_tile_eval_T,
+        fused_tile_eval_T_reference,
+        fused_tile_gather_eval_T,
+    )
 
     rng = np.random.default_rng(0)
-    K, m = 4 * 1024, 64
     err = {False: 0.0, True: 0.0}
     n = 0
     for kind, params in CASES:
         for L in widths:
-            a = np.abs(rng.normal(size=(L, K))).astype(np.float32)
-            c = -np.abs(rng.normal(size=(L, K))).astype(np.float32)
-            length = rng.integers(1, L + 1, size=K).astype(np.int32)
-            length[-5:] = 0
-            mask = np.arange(L)[:, None] < length[None, :]
-            a, c = np.where(mask, a, 0).astype(np.float32), np.where(mask, c, 0).astype(np.float32)
-            lam = np.abs(rng.normal(size=m)).astype(np.float32)
-            rows = rng.integers(0, m, size=(L, K))
-            for scale in (-100.0, -2.0):
-                lam_g = torch.from_numpy((np.float32(scale) * lam)[rows]).to(dev)
+            for m, K, block_k in ((64, 4 * 1024, 1024), (10_000, 4 * 1024, 1024), (70_000, 4102, 2051)):
+                a = np.abs(rng.normal(size=(L, K))).astype(np.float32)
+                c = -np.abs(rng.normal(size=(L, K))).astype(np.float32)
+                length = rng.integers(1, L + 1, size=K).astype(np.int32)
+                length[-5:] = 0
+                mask = np.arange(L)[:, None] < length[None, :]
+                a, c = np.where(mask, a, 0).astype(np.float32), np.where(mask, c, 0).astype(np.float32)
+                lam = np.abs(rng.normal(size=m)).astype(np.float32)
+                rows = torch.from_numpy(rng.integers(0, m, size=(L, K)).astype(np.int32)).to(dev)
                 t = [torch.from_numpy(v).to(dev) for v in (a, c, length)]
-                for want_x in (False, True):
-                    got = fused_tile_eval_T(lam_g, *t, scale, kind, params, block_k=1024, want_x=want_x)
-                    ref = fused_tile_eval_T_reference(lam_g, *t, scale, kind, params, want_x=want_x)
-                    torch.cuda.synchronize()
-                    tol = tol_x(ref[3] if want_x else ref[0])
-                    e_ax = float((got[0] - ref[0]).abs().max())
-                    e = e_ax
-                    check(e_ax <= tol, f"{kind}{params} L={L} want_x={want_x}: |ax| err {e_ax} > {tol}")
-                    if want_x:
-                        e_x = float((got[3] - ref[3]).abs().max())
-                        check(e_x <= tol, f"{kind}{params} L={L}: |x| err {e_x} > {tol}")
-                        e = max(e, e_x)
-                    for i, name in ((1, "obj"), (2, "reg")):
-                        g, r = float(got[i]), float(ref[i])
-                        check(abs(g - r) <= 1e-3 + 1e-4 * abs(r), f"{kind}{params} L={L}: {name} {g} vs {r}")
-                    err[want_x] = max(err[want_x], e)
-                    n += 1
-    say("kernels", cases=n, widths=list(widths), max_abs_err_K1=err[False], max_abs_err_K2=err[True],
-        tolerance="ax,x: 5e-5*max(1,max|x|); obj,reg: 1e-3+1e-4*|ref|")
+                for scale in (-100.0, -2.0):
+                    scaled = torch.from_numpy(np.float32(scale) * lam).to(dev)
+                    lam_g = scaled[rows.long()]
+                    for want_x in (False, True):
+                        name = f"{kind}{params} L={L} m={m} K={K} want_x={want_x}"
+                        got = fused_tile_eval_T(lam_g, *t, scale, kind, params, block_k=block_k, want_x=want_x)
+                        gat = fused_tile_gather_eval_T(scaled, rows, *t, scale, kind, params, block_k=block_k,
+                                                       want_x=want_x)
+                        ref = fused_tile_eval_T_reference(lam_g, *t, scale, kind, params, want_x=want_x)
+                        torch.cuda.synchronize()
+                        check(all(torch.equal(u, v) for u, v in zip(got, gat)),
+                              f"{name}: the gather form differs from the lam_g form")
+                        tol = tol_x(ref[3] if want_x else ref[0])
+                        e_ax = float((got[0] - ref[0]).abs().max())
+                        e = e_ax
+                        check(e_ax <= tol, f"{name}: |ax| err {e_ax} > {tol}")
+                        if want_x:
+                            e_x = float((got[3] - ref[3]).abs().max())
+                            check(e_x <= tol, f"{name}: |x| err {e_x} > {tol}")
+                            e = max(e, e_x)
+                        for i, nm in ((1, "obj"), (2, "reg")):
+                            g, r = float(got[i]), float(ref[i])
+                            check(abs(g - r) <= 1e-3 + 1e-4 * abs(r), f"{name}: {nm} {g} vs {r}")
+                        err[want_x] = max(err[want_x], e)
+                        n += 1
+    say("kernels", cases=n, widths=list(widths), m_K=[(64, 4096), (10_000, 4096), (70_000, 4102)],
+        max_abs_err_K1=err[False], max_abs_err_K2=err[True],
+        tolerance="ax,x: 5e-5*max(1,max|x|); obj,reg: 1e-3+1e-4*|ref|",
+        gather_vs_lam_g_form="bit for bit in every case")
     return err
 
 
 def phase_segsum(dev) -> float:
-    """The segment-sum kernel against a float64 index_add_; two launches bit for bit."""
+    """The windowed segment-sum against a float64 index_add_, two launches bit
+    for bit; padding slots hold NaN, which the kernel must never read."""
     from dualip_tpu_torch.ops.segment_sum import segment_sum_rows
-    from dualip_tpu_torch.sparse.bcsc import RowOrder, tile_row_order
+    from dualip_tpu_torch.sparse.bcsc import build_row_sum_plan
 
     rng = np.random.default_rng(1)
     worst = 0.0
-    for m, K, L, transposed in ((1000, 1 << 16, 16, True), (70_000, 1 << 15, 5, False), (7, 1024, 3, True)):
-        length = rng.integers(0, L + 1, size=K).astype(np.int32)
-        shape = (L, K) if transposed else (K, L)
-        rows = rng.integers(0, m, size=shape).astype(np.int32)
-        lane = np.arange(L)
-        valid = (lane[:, None] < length[None, :]) if transposed else (lane[None, :] < length[:, None])
-        vals = np.where(valid, rng.normal(size=shape), 0.0).astype(np.float32)
-        ro = tile_row_order(rows, length, m, transposed)
-        ro = RowOrder(torch.from_numpy(ro.order).to(dev), torch.from_numpy(ro.ptr).to(dev))
-        v, r = torch.from_numpy(vals).to(dev), torch.from_numpy(rows).to(dev)
+    # (m, (L, K) tiles?, tiles as (K, L), window bytes)
+    cases = [
+        (1000, True, ((1 << 16, 16), (3000, 2)), 16 << 20),
+        (1000, True, ((1 << 16, 16), (3000, 2)), 1 << 16),  # 64 KB windows: many of them
+        (70_000, False, ((1 << 15, 5), (100, 1)), 16 << 20),
+        (7, True, ((16384, 3),), 16 << 20),  # rows cut into segments
+    ]
+    for m, transposed, shapes, window_bytes in cases:
+        rows_l, len_l, vals_l, valid_l = [], [], [], []
+        for K, L in shapes:
+            length = rng.integers(0, L + 1, size=K).astype(np.int32)
+            shape = (L, K) if transposed else (K, L)
+            lane = np.arange(L)
+            valid = (lane[:, None] < length[None, :]) if transposed else (lane[None, :] < length[:, None])
+            rows_l.append(np.where(valid, rng.integers(0, m, size=shape), 0).astype(np.int32))
+            vals_l.append(np.where(valid, rng.normal(size=shape), 0.0).astype(np.float32).reshape(-1))
+            len_l.append(length)
+            valid_l.append(valid.reshape(-1))
+        plan = build_row_sum_plan(rows_l, len_l, m, transposed, window_bytes=window_bytes)
+        plan = plan._replace(**{f: torch.from_numpy(getattr(plan, f)).to(dev)
+                                for f in ("order", "seg_ptr", "seg_row", "item_ptr", "row_ptr", "row_segs")})
+        vals, valid = np.concatenate(vals_l), np.concatenate(valid_l)
+        v = torch.from_numpy(np.where(valid, vals, np.float32(np.nan))).to(dev)
+        r = torch.from_numpy(np.concatenate([x.reshape(-1) for x in rows_l])).to(dev)
+        v64 = torch.from_numpy(vals.astype(np.float64)).to(dev)
         start = torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(dev)
-        got = segment_sum_rows(start.clone(), v, r, ro)
-        again = segment_sum_rows(start.clone(), v, r, ro)
-        ref = start.double().index_add_(0, r.reshape(-1), v.reshape(-1).double())
+        got = segment_sum_rows(start.clone(), v, plan)
+        again = segment_sum_rows(start.clone(), v, plan)
+        ref = start.double().index_add_(0, r.long(), v64)
         torch.cuda.synchronize()
         check(torch.equal(got, again), f"segment-sum m={m}: two launches differ")
-        scale = float(torch.zeros(m, dtype=torch.float64, device=dev).index_add_(
-            0, r.reshape(-1), v.reshape(-1).double().abs()).max())
+        scale = float(torch.zeros(m, dtype=torch.float64, device=dev).index_add_(0, r.long(), v64.abs()).max())
         e = float((got.double() - ref).abs().max())
         check(e <= 1e-5 * max(1.0, scale), f"segment-sum m={m}: err {e} vs sum|v| {scale}")
         worst = max(worst, e)
-    say("segsum", cases=3, max_abs_err_vs_float64=worst, tolerance="1e-5*max(1, max row sum of |v|)",
-        repeat="bit-identical")
+        say("segsum", m=m, tiles_K_L=shapes, transposed=transposed, window_bytes=window_bytes,
+            windows=len(plan.windows), segments=plan.seg_row.numel(), items=plan.item_ptr.numel() - 1,
+            max_abs_err_vs_float64=e)
+    say("segsum", cases=len(cases), max_abs_err_vs_float64=worst, tolerance="1e-5*max(1, max row sum of |v|)",
+        repeat="bit-identical", padding="NaN, never read")
     return worst
 
 
@@ -441,9 +532,11 @@ def main(argv=None) -> int:
         fused_panel_project_reference,
         fused_tile_eval_T,
         fused_tile_eval_T_reference,
-        num_partial_blocks,
+        fused_tile_gather_eval_T,
+        fused_tile_gather_eval_T_reference,
     )
-    from dualip_tpu_torch.ops.segment_sum import segment_sum_rows
+    from dualip_tpu_torch.ops.segment_sum import segment_sum_rows, segment_sum_rows_reference
+    from dualip_tpu_torch.sparse.bcsc import WINDOW_BYTES, build_row_sum_plan
     from dualip_tpu_torch.optimizers.agd import AcceleratedGradientDescent
     from dualip_tpu_torch.synthetic import generate_synthetic_matching_input_args
 
@@ -488,7 +581,7 @@ def main(argv=None) -> int:
     panel_err = {False: 0.0, True: 0.0}
     segsum_err = 0.0
     if "kernels" in phases:
-        check_err = phase_kernels(sorted({1, 2, 8, 32, 100, l_max}), dev)
+        check_err = phase_kernels(sorted({1, 2, 8, 16, 32, 100, l_max}), dev)
     if "segsum" in phases:
         segsum_err = phase_segsum(dev)
     if "benes" in phases:
@@ -535,12 +628,14 @@ def main(argv=None) -> int:
 
     def reset_counts():
         fused_tile_eval_T.launches = fused_tile_eval_T.launches_x = 0
+        fused_tile_gather_eval_T.launches = fused_tile_gather_eval_T.launches_x = 0
         fused_panel_project.launches = fused_panel_project.launches_x = 0
         bf.benes_fine.launches = bf.benes_coarse.launches = bf.benes_coarse2.launches = 0
         segment_sum_rows.launches = 0
 
     def counts():
-        return {"K1": fused_tile_eval_T.launches, "K2": fused_tile_eval_T.launches_x,
+        return {"K1g": fused_tile_gather_eval_T.launches, "K2g": fused_tile_gather_eval_T.launches_x,
+                "K1": fused_tile_eval_T.launches, "K2": fused_tile_eval_T.launches_x,
                 "K3": fused_panel_project.launches, "K4": fused_panel_project.launches_x,
                 "K5": bf.benes_fine.launches, "K6": bf.benes_coarse.launches, "K7": bf.benes_coarse2.launches,
                 "segsum": segment_sum_rows.launches}
@@ -559,6 +654,45 @@ def main(argv=None) -> int:
     def first_iterations(objective, m):
         return np.array(AcceleratedGradientDescent(max_iter=n_chk, **solver_kw).maximize(
             objective, torch.zeros(m, device=dev)).dual_objective_log)
+
+    def profile_csc(objective, dual, n_tiles, iters=10):
+        """A torch.profiler window over ``iters`` csc iterations: the device's
+        busy share of the window and the kernels' time by name."""
+        from torch.profiler import ProfilerActivity, profile
+
+        agd = AcceleratedGradientDescent(max_iter=iters, **solver_kw)
+        agd.maximize(objective, dual)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            agd.maximize(objective, dual)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start)
+        if not spans:
+            say("profile", device_busy_share="not measured", note="the profiler recorded no device time")
+            return
+        busy, lo, hi = 0.0, spans[0][0], spans[0][1]
+        for s0, e0, _ in spans[1:]:  # union of the device intervals
+            if s0 > hi:
+                busy, lo, hi = busy + hi - lo, s0, e0
+            else:
+                hi = max(hi, e0)
+        busy += hi - lo
+        span = spans[-1][1] - spans[0][0]
+        by_name = {}
+        for s0, e0, nm in spans:
+            c, t = by_name.get(nm, (0, 0.0))
+            by_name[nm] = (c + 1, t + e0 - s0)
+        n_select = sum(c for nm, (c, _) in by_name.items() if "ndexSelect" in nm or "index_select" in nm)
+        say("profile", iterations=iters, window_wall_ms=f"{wall_us / 1e3:.4f}", device_span_ms=f"{span / 1e3:.4f}",
+            device_busy_ms=f"{busy / 1e3:.4f}", busy_share_of_wall=f"{busy / wall_us:.4f}",
+            busy_share_of_span=f"{busy / span:.4f}", device_activities_per_iteration=len(spans) / iters,
+            index_select_kernels_per_iteration=n_select / iters)
+        for nm, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+            say("profile", kernel=repr(nm[:80]), per_iteration=c / iters, ms_per_iteration=f"{t / iters / 1e3:.4f}")
+        check(n_select < n_tiles * iters, f"{n_select} index_select kernels in {iters} iterations: the lambda gather runs")
 
     def ms_per_iteration(ev):
         return ev[1][0].elapsed_time(ev[-1][1]) / (len(ev) - 1)
@@ -599,12 +733,13 @@ def main(argv=None) -> int:
         say("slice", iterations=len(log), ms_per_iteration=f"{ms_per_iter:.4f}",
             iterations_per_s=f"{1e3 / ms_per_iter:.2f}", window="start of iteration 2 to end of the last evaluation",
             final_dual_objective=res.dual_objective, peak_device_bytes=peak)
-        say("slice", launches=n_launch, expected_K1=n_tiles * args.iters, expected_K2=n_tiles,
-            expected_segsum=n_tiles * (args.iters + 1))
+        want = {"K1g": n_tiles * args.iters, "K2g": n_tiles, "K1": 0, "K2": 0, "segsum": args.iters + 1}
+        say("slice", launches=n_launch, expected=want,
+            note="K1g/K2g: the gather form; K1/K2: the lam_g form, off the main path; segsum: one call "
+                 "(two CUDA launches) per evaluation, all tiles at once")
         check_solution(res, obj, inp, args.iters, "csc slice")
-        check(n_launch["K1"] == n_tiles * args.iters, f"K1 launches {n_launch['K1']} != tiles x iterations")
-        check(n_launch["K2"] == n_tiles, f"K2 launches {n_launch['K2']} != tiles {n_tiles}")
-        check(n_launch["segsum"] == n_tiles * (args.iters + 1), f"segment-sum launches {n_launch['segsum']}")
+        for k, v in want.items():
+            check(n_launch[k] == v, f"csc slice: {k} launches {n_launch[k]} != {v}")
         csc_launches = n_launch
 
         # The solve again, whole: the fixed-order segment-sum makes it repeat itself.
@@ -619,8 +754,9 @@ def main(argv=None) -> int:
         # tiles, the same segment-sum kernel on both sides).
         class PlainTiles(MatchingSolverDualObjectiveFunction):
             def _local(self, bcsc, dual_val, gamma, want_primal=False, row_layout=None):
-                plain_eval = lambda *a, block_k, want_x: fused_tile_eval_T_reference(*a, want_x=want_x)  # noqa: E731
-                with rebound(fm, fused_tile_eval_T=plain_eval):
+                plain_eval = lambda *a, block_k, want_x, out: fused_tile_gather_eval_T_reference(  # noqa: E731
+                    *a, want_x=want_x, out=out)
+                with rebound(fm, fused_tile_gather_eval_T=plain_eval):
                     return super()._local(bcsc, dual_val, gamma, want_primal, row_layout)
 
         plain = PlainTiles.__new__(PlainTiles)
@@ -641,24 +777,43 @@ def main(argv=None) -> int:
         # Each kernel on the slice's tiles at the final dual: error, time, bound.
         nig = torch.full((), -1.0 / 1e-3, dtype=torch.float32, device=dev)
         scaled = nig * res.dual_val
+        plan = obj.bcsc.row_sum
+        ax_all = torch.empty(plan.slots, device=dev)
+        views = [ax_all[off:off + t.a.numel()].view(t.a.shape) for off, t in zip(plan.offsets, tiles)]
         rows = [t.rows.reshape(-1) for t in tiles]
         lam_g = [scaled.index_select(0, r).view(t.a.shape) for r, t in zip(rows, tiles)]
 
-        def run(fn, want_x):
-            return [
-                fn(lam_g[i], t.a, t.c, t.length, nig, s.proj_type, s.proj_params, block_k=1024, want_x=want_x)
-                if fn is fused_tile_eval_T
-                else fn(lam_g[i], t.a, t.c, t.length, nig, s.proj_type, s.proj_params, want_x=want_x)
-                for i, (t, s) in enumerate(zip(tiles, specs))
-            ]
+        def run_gather(want_x, fn=None):
+            fn = fn or fused_tile_gather_eval_T
+            kw = {} if fn is fused_tile_gather_eval_T_reference else {"block_k": 1024}
+            return [fn(scaled, t.rows, t.a, t.c, t.length, nig, s.proj_type, s.proj_params, want_x=want_x,
+                       out=views[i] if fn is fused_tile_gather_eval_T else None, **kw)
+                    for i, (t, s) in enumerate(zip(tiles, specs))]
 
+        def run_lam_g(want_x):
+            return [fused_tile_eval_T(lam_g[i], t.a, t.c, t.length, nig, s.proj_type, s.proj_params, block_k=1024,
+                                      want_x=want_x) for i, (t, s) in enumerate(zip(tiles, specs))]
+
+        def bound(bytes_per_slot):
+            nbytes = slots * bytes_per_slot + cols * 4 + obj.bcsc.m * 4
+            nops = sum(s.L * s.K * ops_per_slot(s.proj_type) for s in specs)
+            t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_FLOP_PER_S * 1e3
+            return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, nops
+
+        biggest = specs[max(range(n_tiles), key=lambda i: specs[i].L * specs[i].K)]
+        k1 = {}
         for name, want_x, replaces in (
-            ("K1 fused_tile_eval_T", False, "dualip_tpu/ops/pallas_matching.py:141"),
-            ("K2 fused_tile_eval_T want_x", True, "dualip_tpu/ops/pallas_matching.py:159"),
+            ("K1 fused_tile_gather_eval_T", False,
+             "dualip_tpu/ops/pallas_matching.py:141, with the lambda gather XLA ran before it"),
+            ("K2 fused_tile_gather_eval_T want_x", True, "dualip_tpu/ops/pallas_matching.py:159"),
         ):
-            got, ref = run(fused_tile_eval_T, want_x), run(fused_tile_eval_T_reference, want_x)
+            got = [tuple(v.clone() for v in g) for g in run_gather(want_x)]
+            ref = run_gather(want_x, fn=fused_tile_gather_eval_T_reference)
+            same = run_lam_g(want_x)
+            torch.cuda.synchronize()
             err = check_err[want_x]
-            for g, r in zip(got, ref):
+            for g, r, l_ in zip(got, ref, same):
+                check(all(torch.equal(u, v) for u, v in zip(g, l_)), f"{name}: gather form != lam_g form on a slice tile")
                 tol = tol_x(r[3] if want_x else r[0])
                 e = float((g[0] - r[0]).abs().max())
                 if want_x:
@@ -667,63 +822,95 @@ def main(argv=None) -> int:
                 for i in (1, 2):
                     check(abs(float(g[i]) - float(r[i])) <= 1e-3 + 1e-4 * abs(float(r[i])), f"{name} sums on slice tile")
                 err = max(err, e)
-            del got, ref
-            ms = cuda_ms(lambda: run(fused_tile_eval_T, want_x), reps=20)
-            plain_ms = cuda_ms(lambda: run(fused_tile_eval_T_reference, want_x), reps=3, warmup=1)
-            nbytes = slots * (20 if want_x else 16) + cols * 4
-            nops = sum(s.L * s.K * ops_per_slot(s.proj_type) for s in specs)
-            t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_FLOP_PER_S * 1e3
-            biggest = max(range(n_tiles), key=lambda i: specs[i].L * specs[i].K)
-            big = specs[biggest]
-            say("timing", kernel=repr(name), per_iteration_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
-                bound_ms=f"{max(t_bytes, t_ops):.4f}", bytes=nbytes, ops=nops, largest_tile=(big.L, big.K),
-                partial_blocks=num_partial_blocks(big.proj_type, big.L, big.K))
+            del got, ref, same
+            t_k = cuda_ms(lambda: run_gather(want_x), reps=20, graph=True)
+            t_lam = cuda_ms(lambda: run_lam_g(want_x), reps=20, graph=True)
+            t_plain = cuda_ms(lambda: run_gather(want_x, fn=fused_tile_gather_eval_T_reference), reps=3, warmup=1)
+            b_ms, b_by, nbytes, nops = bound(20 if want_x else 16)
+            say("timing", kernel=repr(name), per_iteration_ms=f"{t_k.ms:.4f}", plain_ms=f"{t_plain.ms:.3f}",
+                bound_ms=f"{b_ms:.4f}", share_of_bound=f"{b_ms / t_k.ms:.3f}", bytes=nbytes, ops=nops,
+                lam_g_form_ms=f"{t_lam.ms:.4f}",
+                largest_tile=(biggest.L, biggest.K), **timing_kv(t_k))
             kernels.append({
                 "name": name, "route": "cuda", "source": "dualip_tpu_torch/csrc/fused_matching.cu",
-                "replaces": replaces, "launches": csc_launches["K2" if want_x else "K1"], "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "replaces": replaces, "launches": csc_launches["K2g" if want_x else "K1g"], "max_abs_err": err,
+                "ms": t_k.ms, "plain_ms": t_plain.ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None,  # no single PyTorch call computes the projection
             })
+            k1[want_x] = (t_lam, err)
+        # the lam_g form (the TPU kernel's contract), off the main path since the gather moved in
+        t_lam, err = k1[False]
+        t_plain = cuda_ms(lambda: [fused_tile_eval_T_reference(lam_g[i], t.a, t.c, t.length, nig, s.proj_type,
+                                                                s.proj_params) for i, (t, s) in enumerate(zip(tiles, specs))],
+                          reps=3, warmup=1)
+        gather_t = cuda_ms(lambda: [scaled.index_select(0, r) for r in rows], reps=20, graph=True)
+        b_ms, b_by, _, _ = bound(16)
+        say("timing", kernel="'K1 fused_tile_eval_T (lam_g form)'", per_iteration_ms=f"{t_lam.ms:.4f}",
+            gather_index_select_ms=f"{gather_t.ms:.4f}", lam_g_form_plus_gather_ms=f"{t_lam.ms + gather_t.ms:.4f}",
+            gather_form_ms=f"{kernels[-2]['ms']:.4f}", **timing_kv(t_lam))
+        kernels.append({
+            "name": "K1 fused_tile_eval_T (lam_g form)", "route": "cuda",
+            "source": "dualip_tpu_torch/csrc/fused_matching.cu", "replaces": "dualip_tpu/ops/pallas_matching.py:141",
+            "launches": csc_launches["K1"], "max_abs_err": err, "ms": t_lam.ms, "plain_ms": t_plain.ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
 
-        # The torch ops around the kernel on the main path, and the segment-sum
-        # on each tile's own a*x (K1's output at the final dual): against a
-        # float64 index_add_, and two launches bit for bit.
-        orders = obj.bcsc.row_orders
-        axs = [g[0] for g in run(fused_tile_eval_T, False)]
+        # The segment-sum on the tiles' own a*x (the gather form's output at
+        # the final dual): all tiles, then each tile alone (the others zero),
+        # against a float64 index_add_, and two launches bit for bit.
+        run_gather(False)
+        rows_all = torch.cat(rows).long()
+        ax_tiles = [ax_all]
+        for off, t in zip(plan.offsets, tiles):
+            only = torch.zeros_like(ax_all)
+            only[off:off + t.a.numel()] = ax_all[off:off + t.a.numel()]
+            ax_tiles.append(only)
         seg_err = 0.0
-        for ax, t, ro, r, s_ in zip(axs, tiles, orders, rows, specs):
-            got = segment_sum_rows(torch.zeros(obj.bcsc.m, device=dev), ax, t.rows, ro)
-            again = segment_sum_rows(torch.zeros(obj.bcsc.m, device=dev), ax, t.rows, ro)
-            v64 = ax.reshape(-1).double()
-            ref = torch.zeros(obj.bcsc.m, dtype=torch.float64, device=dev).index_add_(0, r, v64)
-            scale = float(torch.zeros(obj.bcsc.m, dtype=torch.float64, device=dev).index_add_(0, r, v64.abs()).max())
+        for what, ax in zip(["all tiles"] + [(s_.L, s_.K) for s_ in specs], ax_tiles):
+            got = segment_sum_rows(torch.zeros(obj.bcsc.m, device=dev), ax, plan)
+            again = segment_sum_rows(torch.zeros(obj.bcsc.m, device=dev), ax, plan)
+            v64 = ax.double()
+            ref = torch.zeros(obj.bcsc.m, dtype=torch.float64, device=dev).index_add_(0, rows_all, v64)
+            scale = float(torch.zeros(obj.bcsc.m, dtype=torch.float64, device=dev).index_add_(0, rows_all, v64.abs()).max())
             torch.cuda.synchronize()
-            check(torch.equal(got, again), f"segment-sum on slice tile {(s_.L, s_.K)}: two launches differ")
+            check(torch.equal(got, again), f"segment-sum on slice {what}: two launches differ")
             e = float((got.double() - ref).abs().max())
-            check(e <= 1e-5 * max(1.0, scale), f"segment-sum on slice tile {(s_.L, s_.K)}: err {e} vs sum|v| {scale}")
+            check(e <= 1e-5 * max(1.0, scale), f"segment-sum on slice {what}: err {e} vs sum|v| {scale}")
             seg_err = max(seg_err, e)
             del got, again, v64, ref
-        say("slice", segment_sum_on_slice_tiles=[(s_.L, s_.K) for s_ in specs], rows=obj.bcsc.m,
+        del ax_tiles
+        say("slice", segment_sum_on=["all tiles"] + [(s_.L, s_.K) for s_ in specs], rows=obj.bcsc.m,
+            windows=len(plan.windows), segments=plan.seg_row.numel(), items=plan.item_ptr.numel() - 1,
             max_abs_err_vs_float64=seg_err, tolerance="1e-5*max(1, max row sum of |v|)", repeat="bit-identical",
             max_abs_err_synthetic_shapes=segsum_err)
         grad = torch.zeros(obj.bcsc.m, device=dev)
-        gather_ms = cuda_ms(lambda: [scaled.index_select(0, r) for r in rows], reps=20)
-        seg_ms = cuda_ms(lambda: [segment_sum_rows(grad, ax, t.rows, ro) for ax, t, ro in zip(axs, tiles, orders)], reps=20)
-        atomic_ms = cuda_ms(lambda: [grad.index_add_(0, r, ax.view(-1)) for r, ax in zip(rows, axs)], reps=5)
+        seg_t = cuda_ms(lambda: segment_sum_rows(grad, ax_all, plan), reps=20, graph=True)
+        seg_plain = cuda_ms(lambda: segment_sum_rows_reference(grad, ax_all, plan), reps=3, warmup=1)
+        atomic_t = cuda_ms(lambda: grad.index_add_(0, rows_all, ax_all), reps=5, graph=True)
+        # the same kernel with every tile in one window: the gathers range over all of a*x
+        one = build_row_sum_plan([t.rows.cpu().numpy() for t in tiles], [t.length.cpu().numpy() for t in tiles],
+                                 obj.bcsc.m, True, window_bytes=plan.slots * 4)
+        one = one._replace(**{f: torch.from_numpy(getattr(one, f)).to(dev)
+                              for f in ("order", "seg_ptr", "seg_row", "item_ptr", "row_ptr", "row_segs")})
+        one_t = cuda_ms(lambda: segment_sum_rows(grad, ax_all, one), reps=20, graph=True)
+        del one
         seg_bound = nnz * 8 / PEAK_BYTES_PER_S * 1e3
-        say("timing", gather_index_select_ms=f"{gather_ms:.4f}", segment_sum_kernel_ms=f"{seg_ms:.4f}",
-            segment_sum_bound_ms=f"{seg_bound:.4f}", index_add_atomic_ms=f"{atomic_ms:.4f}",
-            K1_ms=f"{kernels[0]['ms']:.4f}", iteration_ms=f"{ms_per_iter:.4f}",
-            rest_ms=f"{ms_per_iter - gather_ms - seg_ms - kernels[0]['ms']:.4f}")
+        k1_ms = kernels[-3]["ms"]
+        say("timing", segment_sum_kernel_ms=f"{seg_t.ms:.4f}", segment_sum_bound_ms=f"{seg_bound:.4f}",
+            share_of_bound=f"{seg_bound / seg_t.ms:.3f}", plain_ms=f"{seg_plain.ms:.3f}",
+            one_window_ms=f"{one_t.ms:.4f}", window_bytes=WINDOW_BYTES,
+            index_add_atomic_ms=f"{atomic_t.ms:.4f}", K1_ms=f"{k1_ms:.4f}", iteration_ms=f"{ms_per_iter:.4f}",
+            rest_ms=f"{ms_per_iter - seg_t.ms - k1_ms:.4f}", **timing_kv(seg_t))
         kernels.append({
             "name": "segment_sum_rows", "route": "cuda", "source": "dualip_tpu_torch/csrc/segment_sum.cu",
             "replaces": "none: XLA's segment_sum at dualip_tpu/objectives/matching.py:182, outside any TPU kernel",
-            "launches": csc_launches["segsum"], "max_abs_err": seg_err, "ms": seg_ms,
-            "plain_ms": atomic_ms,  # the plain version is index_add_
-            "bound_ms": seg_bound, "bound_by": "bytes", "library_ms": atomic_ms,
+            "launches": csc_launches["segsum"], "max_abs_err": seg_err, "ms": seg_t.ms, "plain_ms": seg_plain.ms,
+            "bound_ms": seg_bound, "bound_by": "bytes", "library_ms": atomic_t.ms,
         })
-        del lam_g, axs, obj, plain, captured["obj"], res, res2, r_f, r_p
+        del lam_g, ax_all, views, rows_all, plain, r_f, r_p, res2
+        torch.cuda.empty_cache()
+        profile_csc(obj, res.dual_val, n_tiles)
+        del obj, captured["obj"], res
         torch.cuda.empty_cache()
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
@@ -788,7 +975,7 @@ def main(argv=None) -> int:
             check_solution(res, obj, data, args.iters, what)
             for k, v in want.items():
                 check(n_launch[k] == v, f"{what}: {k} launches {n_launch[k]} != {v}")
-            check(n_launch["K1"] == 0 and n_launch["segsum"] == 0, f"{what}: the csc kernels ran: {n_launch}")
+            check(n_launch["K1g"] == n_launch["K1"] == n_launch["segsum"] == 0, f"{what}: the csc kernels ran: {n_launch}")
             log = np.asarray(res.dual_objective_log)
             plain_dev = rel_dev(first_iterations(variant(obj, PlainButterfly), obj.bcsc.m), log[:n_chk])
             say(what, plain_check_iterations=n_chk, max_rel_dev_vs_plain=float(plain_dev.max()), tolerance=1e-5)
@@ -840,12 +1027,13 @@ def main(argv=None) -> int:
             library call: index_select by the group's own permutation."""
             src = fn(ids.clone())  # the kernel moves 4-byte payloads of any type
             check(torch.equal(src, ref_fn(ids)), f"{name}: kernel differs from its plain version at the slice's shape")
-            ms = cuda_ms(lambda: fn(buf), reps=10)
-            plain_ms = cuda_ms(lambda: ref_fn(buf), reps=2, warmup=1)
-            lib_ms = cuda_ms(lambda: buf.index_select(0, src), reps=5)
+            t_k = cuda_ms(lambda: fn(buf), reps=10, graph=True)
+            ms = t_k.ms
+            plain_ms = cuda_ms(lambda: ref_fn(buf), reps=2, warmup=1).ms
+            lib_ms = cuda_ms(lambda: buf.index_select(0, src), reps=5, graph=True).ms
             bound = N * (8 + mask_planes) / PEAK_BYTES_PER_S * 1e3
             say("timing", kernel=repr(name), ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.4f}",
-                library_index_select_ms=f"{lib_ms:.4f}", mask_planes=mask_planes, slots=N)
+                library_index_select_ms=f"{lib_ms:.4f}", mask_planes=mask_planes, slots=N, **timing_kv(t_k))
             kernels.append({
                 "name": name, "route": "cuda", "source": "dualip_tpu_torch/csrc/benes.cu", "replaces": replaces,
                 "launches": n_launches, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -866,8 +1054,8 @@ def main(argv=None) -> int:
             lambda v: bf.benes_coarse2_reference(v, m7, steps7, *E7, R7),
             m7.shape[0], bfly_launches["K7"])
         carry_src = bf.apply_butterfly_cuda(plan, ids.clone(), truncate=False)
-        carry_ms = cuda_ms(lambda: bf.apply_butterfly_cuda(plan, buf, truncate=False), reps=10)
-        carry_lib_ms = cuda_ms(lambda: buf.index_select(0, carry_src), reps=5)
+        carry_ms = cuda_ms(lambda: bf.apply_butterfly_cuda(plan, buf, truncate=False), reps=10, graph=True).ms
+        carry_lib_ms = cuda_ms(lambda: buf.index_select(0, carry_src), reps=5, graph=True).ms
         say("timing", whole_carry_ms=f"{carry_ms:.4f}", K5_plus_two_K7_ms=f"{k5_ms + 2 * k7_ms:.4f}",
             library_one_index_select_ms=f"{carry_lib_ms:.4f}", slots=N)
         del carry_src, ids
@@ -900,13 +1088,15 @@ def main(argv=None) -> int:
                 for i in (1, 2):
                     check(abs(float(g[i]) - float(r[i])) <= 1e-3 + 1e-4 * abs(float(r[i])), f"{name} sums on slice tile")
             del got, ref
-            ms = cuda_ms(lambda: run_panel(fused_panel_project, want_x, srow), reps=10)
-            plain_ms = cuda_ms(lambda: run_panel(fused_panel_project_reference, want_x, srow), reps=2, warmup=1)
+            t_k = cuda_ms(lambda: run_panel(fused_panel_project, want_x, srow), reps=10, graph=True)
+            ms = t_k.ms
+            plain_ms = cuda_ms(lambda: run_panel(fused_panel_project_reference, want_x, srow), reps=2, warmup=1).ms
             nbytes = real * (20 if want_x else 16) + ghost * 4 + cols * 4
             nops = sum(pt.a.numel() * ops_per_slot(s.proj_type) for pt, s in zip(rl.col_tiles_T, specs))
             t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_FLOP_PER_S * 1e3
             say("timing", kernel=repr(name), per_iteration_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
-                bound_ms=f"{max(t_bytes, t_ops):.4f}", bytes=nbytes, ops=nops, real_slots=real, ghost_slots=ghost)
+                bound_ms=f"{max(t_bytes, t_ops):.4f}", bytes=nbytes, ops=nops, real_slots=real, ghost_slots=ghost,
+                **timing_kv(t_k))
             kernels.append({
                 "name": name, "route": "cuda", "source": "dualip_tpu_torch/csrc/panel_matching.cu",
                 "replaces": replaces, "launches": bfly_launches["K4" if want_x else "K3"],

@@ -38,6 +38,12 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
+// v / radius, rounded. v / 1 is v exactly, so for the unit simplex the
+// division (a sequence of instructions, not one) is skipped, same bits.
+__device__ __forceinline__ float div_radius(float v, float radius) {
+  return radius == 1.f ? v : __fdiv_rn(v, radius);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(FULL, v, off);
   return v;
@@ -81,7 +87,7 @@ __device__ __forceinline__ void project_column(int L, const Proj& p, ZAt z_at, E
       if (l < L) {
         const float v = fmaxf(z_at(l), 0.f);
         sumv += v;
-        r[l] = __fdiv_rn(v, radius);
+        r[l] = div_radius(v, radius);
         if (r[l] > vmax) {  // strict: the first maximum wins
           vmax = r[l];
           i0 = l;
@@ -168,7 +174,7 @@ __device__ __forceinline__ void project_column_stream(int L, const Proj& p, ZAt 
     for (int l = 0; l < L; ++l) {
       const float v = fmaxf(z_at(l), 0.f);
       sumv += v;
-      const float vn = __fdiv_rn(v, radius);
+      const float vn = div_radius(v, radius);
       if (vn > vmax) {
         vmax = vn;
         i0 = l;
@@ -176,14 +182,14 @@ __device__ __forceinline__ void project_column_stream(int L, const Proj& p, ZAt 
     }
     float v1 = -CUDART_INF_F;
     for (int l = 0; l < L; ++l) {
-      if (l != i0) v1 = fmaxf(v1, __fdiv_rn(fmaxf(z_at(l), 0.f), radius));
+      if (l != i0) v1 = fmaxf(v1, div_radius(fmaxf(z_at(l), 0.f), radius));
     }
     float lo = -1.f, hi = 0.f;
     for (int it = 0; it < BISECTION_ITERS; ++it) {
       const float mid = (lo + hi) * 0.5f;
       float s = 0.f;
       for (int l = 0; l < L; ++l) {
-        const float rl = __fdiv_rn(fmaxf(z_at(l), 0.f), radius) - vmax;
+        const float rl = div_radius(fmaxf(z_at(l), 0.f), radius) - vmax;
         s += fmaxf(rl - mid, 0.f);
       }
       if (s > 1.0f) lo = mid; else hi = mid;
@@ -196,7 +202,7 @@ __device__ __forceinline__ void project_column_stream(int L, const Proj& p, ZAt 
       float w;
       if (feasible) w = v;
       else if (shortcut) w = (l == i0) ? radius : 0.f;
-      else w = __fmul_rn(fmaxf((__fdiv_rn(v, radius) - vmax) - nu, 0.f), radius);
+      else w = __fmul_rn(fmaxf((div_radius(v, radius) - vmax) - nu, 0.f), radius);
       emit(l, w);
     }
   } else {  // BOXCUT

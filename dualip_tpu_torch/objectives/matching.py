@@ -12,10 +12,11 @@ objective.  Three layouts compute it:
 * ``layout="csc"``: column tiles.  ``use_pallas=False`` runs the registry
   projections as torch ops on ``(K, L)`` tiles; ``use_pallas=True`` (the name
   is the JAX package's) runs the hand-written fused tile kernel
-  ``ops/fused_matching.py`` (K1/K2) on ``(L, K)``-transposed tiles.  The gather
-  ``scaled[rows]`` is ``index_select``; the row segment-sum is
-  ``ops/segment_sum.py``, which adds in a fixed order on every device, so a
-  solve repeats itself bit for bit.
+  ``ops/fused_matching.py`` (K1/K2) on ``(L, K)``-transposed tiles, in its
+  gather form (``scaled[rows]`` inside the kernel; the registry path gathers
+  with ``index_select``).  Both write every tile's a*x into one flat buffer,
+  and one call of ``ops/segment_sum.py`` sums it by row in a fixed order on
+  every device, so a solve repeats itself bit for bit.
 * ``layout="butterfly"``: the row-major companion layout
   (``sparse/rowmajor.py``).  The masked dual broadcast ``srow`` is carried from
   row space to column space through a Benes plan (``ops/butterfly.py``, K5-K7),
@@ -100,23 +101,24 @@ def _neg_inv_gamma(gamma, dtype, device) -> torch.Tensor:
 def matching_local_parts_pallas(
     bcsc_T: BlockCSC, dual_val: torch.Tensor, gamma, block_k: int, want_primal: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, List[torch.Tensor]]:
-    """(grad, dual_obj, reg, [x tiles in (L, K)]) through the fused kernel."""
-    from dualip_tpu_torch.ops.fused_matching import fused_tile_eval_T
+    """(grad, dual_obj, reg, [x tiles in (L, K)]) through the fused kernel in
+    its gather form, each tile's a*x written into one flat buffer that the
+    segment-sum reads whole."""
+    from dualip_tpu_torch.ops.fused_matching import fused_tile_gather_eval_T
 
     dtype, dev = dual_val.dtype, dual_val.device
     neg_inv_gamma = _neg_inv_gamma(gamma, dtype, dev)
     scaled = neg_inv_gamma * dual_val
+    plan = bcsc_T.row_sum
 
-    grad = torch.zeros(bcsc_T.m, dtype=dtype, device=dev)
+    ax_all = torch.empty(plan.slots, dtype=dtype, device=dev)
     dual_obj = torch.zeros((), dtype=dtype, device=dev)
     reg_sum = torch.zeros((), dtype=dtype, device=dev)
     xs: List[torch.Tensor] = []
-    orders = bcsc_T.row_orders or [None] * len(bcsc_T.tiles)
-    for tile, spec, row_order in zip(bcsc_T.tiles, bcsc_T.specs, orders):
-        rows = tile.rows.reshape(-1)
-        lam_g = scaled.index_select(0, rows).view(tile.a.shape)
-        ax, obj_p, reg_p, *x_p = fused_tile_eval_T(
-            lam_g,
+    for tile, spec, off in zip(bcsc_T.tiles, bcsc_T.specs, plan.offsets):
+        _, obj_p, reg_p, *x_p = fused_tile_gather_eval_T(
+            scaled,
+            tile.rows,
             tile.a,
             tile.c,
             tile.length,
@@ -125,12 +127,13 @@ def matching_local_parts_pallas(
             spec.proj_params,
             block_k=min(block_k, tile.a.shape[1]),
             want_x=want_primal,
+            out=ax_all[off : off + tile.a.numel()].view(tile.a.shape),
         )
         if want_primal:
             xs.append(x_p[0])
-        segment_sum_rows(grad, ax, tile.rows, row_order)
         dual_obj = dual_obj + obj_p.to(dtype)
         reg_sum = reg_sum + reg_p.to(dtype)
+    grad = segment_sum_rows(torch.zeros(bcsc_T.m, dtype=dtype, device=dev), ax_all, plan)
     reg = (_scalar(gamma, dtype, dev) / 2) * reg_sum
     return grad, dual_obj, reg, xs
 
@@ -145,22 +148,22 @@ def matching_local_parts(
     scaled = neg_inv_gamma * dual_val
     half_gamma = _scalar(gamma, dtype, dev) / 2
 
-    grad = torch.zeros(bcsc.m, dtype=dtype, device=dev)
     dual_obj = torch.zeros((), dtype=dtype, device=dev)
     reg = torch.zeros((), dtype=dtype, device=dev)
     xs: List[torch.Tensor] = []
+    ax_parts: List[torch.Tensor] = []
     zero = torch.zeros((), dtype=dtype, device=dev)
-    orders = bcsc.row_orders or [None] * len(bcsc.tiles)
-    for tile, spec, row_order in zip(bcsc.tiles, bcsc.specs, orders):
+    for tile, spec in zip(bcsc.tiles, bcsc.specs):
         rows = tile.rows.reshape(-1)
         z = tile.a * scaled.index_select(0, rows).view(tile.a.shape) + neg_inv_gamma * tile.c
         x = spec.projection()(z)
         x = torch.where(tile_valid_mask(tile, spec.L), x, zero)
-        segment_sum_rows(grad, tile.a * x, tile.rows, row_order)
+        ax_parts.append((tile.a * x).reshape(-1))
         reg = reg + half_gamma * torch.sum(x * x)
         dual_obj = dual_obj + torch.sum(tile.c * x)
         if want_primal:
             xs.append(x)
+    grad = segment_sum_rows(torch.zeros(bcsc.m, dtype=dtype, device=dev), torch.cat(ax_parts), bcsc.row_sum)
     return grad, dual_obj, reg, xs
 
 
@@ -463,8 +466,8 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
         else:
             if use_pallas:
                 bcsc = transpose_tiles(bcsc)
-            # the row-sorted orders serve the csc layout's segment-sum only
-            self.bcsc = device_put_blockcsc(bcsc, self.device, row_orders=layout == "csc")
+            # the segment-sum's plan serves the csc layout only
+            self.bcsc = device_put_blockcsc(bcsc, self.device, row_sum=layout == "csc")
         if srow_gather:
             self.row_layout.srow_colidx = route_row_ids(self.row_layout, self.bcsc.m)
         # every input in the objective's dtype (numpy float64 b would

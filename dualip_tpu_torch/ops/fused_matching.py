@@ -9,13 +9,17 @@ Port of ``dualip_tpu/ops/pallas_matching.py::fused_tile_eval_T``
     z = a * lam_g + neg_inv_gamma * c  ->  x = Proj(z) along L  ->  mask
     ->  a*x,  sum(c*x),  sum(x*x)   (and x itself with ``want_x``)
 
-``lam_g = (-lambda/gamma)[rows]`` is gathered by the caller, and the caller
-segment-sums ``a*x`` by row, as the JAX package leaves both to XLA.
+In ``fused_tile_eval_T`` (the TPU kernel's contract) ``lam_g =
+(-lambda/gamma)[rows]`` is gathered by the caller, as the JAX package leaves it
+to XLA; ``fused_tile_gather_eval_T`` (the objective's) takes ``scaled =
+-lambda/gamma`` and the tile's rows and gathers inside the kernel.  Both launch
+the same kernel and give the same bits.  The caller segment-sums ``a*x`` by row.
 
-On a CUDA tensor ``fused_tile_eval_T`` launches the hand-written kernel of
-``csrc/fused_matching.cu`` or raises; on a CPU tensor it runs
+On CUDA tensors the wrappers launch the hand-written kernel of
+``csrc/fused_matching.cu`` or raise; on CPU tensors they run
 ``fused_tile_eval_T_reference``, a step-by-step transcription of the TPU
-kernel that the tests hold against the JAX package.  The simplex and
+kernel that the tests hold against the JAX package (the gather form on
+``scaled[rows]``).  The simplex and
 box-cut kinds run ``BISECTION_ITERS = 30`` bisection steps, as the TPU
 kernel does (the registry's jnp/torch projections run 50).
 
@@ -43,7 +47,7 @@ DEFAULT_BLOCK_K = 1024
 BISECTION_ITERS = 30
 
 # Must match csrc/fused_matching.cu.
-_THREADS = 128  # columns per block of the per-column kernels
+_THREADS = 256  # columns per slab (one partial each) of the per-column kernels
 REG_L_CAP = 64  # largest L whose column the per-column kernel keeps in registers
 _KIND_CODE = {"identity": 0, "box": 0, "cone": 0, "simplex": 1, "simplex_eq": 1, "box_cut": 2, "box_cut_eq": 2}
 
@@ -161,22 +165,76 @@ def _kernel_params(kind: str, params: dict):
 
 
 def num_partial_blocks(kind: str, L: int, K: int) -> int:
-    """Blocks of the kernel's launch (one partial (obj, reg) pair each):
-    a block per ``_THREADS`` columns, or a block per column above ``REG_L_CAP``."""
+    """Partial (obj, reg) pairs of the kernel's launch: one per ``_THREADS``
+    columns, or one per column above ``REG_L_CAP``."""
     if _KIND_CODE[kind] != 0 and L > REG_L_CAP:
         return K
     return -(-K // _THREADS)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
-
-
+@functools.lru_cache(maxsize=None)
 def _kernel():
-    lib = _build.load("fused_matching")
-    fn = lib.dualip_fused_tile_eval
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = _build.load("fused_matching").dualip_fused_tile_eval
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [vp, vp, ci] + [vp] * 8 + [ci] * 7 + [cf, cf, ci, ci, cf, vp]
+    fn.restype = ci
     return fn
+
+
+def _check_tile(a_T, others, length, block_k):
+    if a_T.dim() != 2:
+        raise ValueError(f"a_T must be (L, K), got shape {tuple(a_T.shape)}")
+    L, K = a_T.shape
+    for name, t in others:
+        if t.shape != a_T.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != a_T shape {tuple(a_T.shape)}")
+    if tuple(length.shape) != (K,):
+        raise ValueError(f"length must be ({K},), got {tuple(length.shape)}")
+    if block_k <= 0 or K % block_k != 0:
+        raise ValueError(f"K={K} not divisible by block_k={block_k}")
+
+
+def _launch(g, scaled, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want_x, out):
+    """Launch the tile kernel on CUDA tensors: the lam_g form (``scaled`` is
+    None, ``g`` is lam_g) or the gather form (``g`` is the tile's rows)."""
+    dev = a_T.device
+    L, K = a_T.shape
+    if dev.type != "cuda":
+        raise ValueError(f"the fused tile kernel runs on cuda or cpu tensors, got {dev}")
+    if a_T.dtype != torch.float32 or c_T.dtype != torch.float32:
+        raise TypeError("the fused kernel takes float32 a_T and c_T")
+    if length.dtype != torch.int32:
+        raise TypeError("length must be int32")
+    if not all(t.is_contiguous() for t in (g, a_T, c_T, length) + ((scaled,) if scaled is not None else ())):
+        raise ValueError("the fused kernel takes contiguous tensors")
+    if out is None:
+        out_ax = torch.empty_like(a_T)
+    elif out.shape != a_T.shape or out.dtype != torch.float32 or out.device != dev or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous float32 ({L}, {K}) tensor on {dev}")
+    else:
+        out_ax = out
+    code, ineq, lo, hi, has_lo, has_hi, radius = _kernel_params(kind, dict(params_tuple))
+    if isinstance(neg_inv_gamma, torch.Tensor):
+        nig = neg_inv_gamma.to(device=dev, dtype=torch.float32).reshape(())
+    else:
+        nig = torch.full((), float(neg_inv_gamma), dtype=torch.float32, device=dev)
+
+    nb = num_partial_blocks(kind, L, K)
+    x = torch.empty_like(a_T) if want_x else None
+    partials = torch.empty((nb, 2), dtype=torch.float32, device=dev)
+    sums = torch.empty(2, dtype=torch.float32, device=dev)
+    gather = scaled is not None
+    with torch.cuda.device(dev):
+        rc = _kernel()(
+            g.data_ptr(), scaled.data_ptr() if gather else None, scaled.numel() if gather else 0,
+            a_T.data_ptr(), c_T.data_ptr(), length.data_ptr(), nig.data_ptr(),
+            out_ax.data_ptr(), x.data_ptr() if want_x else None, partials.data_ptr(), sums.data_ptr(),
+            L, K, nb, code, int(want_x), int(gather), ineq,
+            lo, hi, int(has_lo), int(has_hi), radius, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused tile kernel: CUDA error {rc} at launch (kind={kind}, L={L}, K={K}, gather={gather})")
+    return (out_ax, sums[0], sums[1], x) if want_x else (out_ax, sums[0], sums[1])
 
 
 def fused_tile_eval_T(
@@ -193,68 +251,94 @@ def fused_tile_eval_T(
     """Evaluate one (L, K)-transposed tile: ``(a*x, sum(c*x), sum(x*x))``,
     plus ``x`` with ``want_x=True``.  ``obj``/``reg`` are 0-d fp32 tensors on
     the tile's device; ``neg_inv_gamma`` is a float or a 0-d tensor (a CUDA
-    tensor is read by the kernel on the card, with no host sync).
+    tensor is read by the kernel on the card, with no host sync).  The TPU
+    kernel's contract: ``lam_g_T`` is gathered by the caller.
 
     Counts launches of the kernel in ``fused_tile_eval_T.launches`` (K1) and
     ``fused_tile_eval_T.launches_x`` (K2, ``want_x``); CPU calls count nothing.
     """
-    if a_T.dim() != 2:
-        raise ValueError(f"a_T must be (L, K), got shape {tuple(a_T.shape)}")
-    L, K = a_T.shape
-    for name, t in (("lam_g_T", lam_g_T), ("c_T", c_T)):
-        if t.shape != a_T.shape:
-            raise ValueError(f"{name} shape {tuple(t.shape)} != a_T shape {tuple(a_T.shape)}")
-    if tuple(length.shape) != (K,):
-        raise ValueError(f"length must be ({K},), got {tuple(length.shape)}")
-    if block_k <= 0 or K % block_k != 0:
-        raise ValueError(f"K={K} not divisible by block_k={block_k}")
-    tensors = (lam_g_T, a_T, c_T, length)
-    dev = a_T.device
-    if any(t.device != dev for t in tensors):
+    _check_tile(a_T, (("lam_g_T", lam_g_T), ("c_T", c_T)), length, block_k)
+    if any(t.device != a_T.device for t in (lam_g_T, c_T, length)):
         raise ValueError("lam_g_T, a_T, c_T and length must be on one device")
-    params = dict(params_tuple)
-
-    if dev.type == "cpu":
+    if a_T.device.type == "cpu":
         return fused_tile_eval_T_reference(lam_g_T, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want_x)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_tile_eval_T runs on cuda or cpu tensors, got {dev}")
-
-    if any(t.dtype != torch.float32 for t in tensors[:3]):
-        raise TypeError("the fused kernel takes float32 lam_g_T, a_T and c_T")
-    if length.dtype != torch.int32:
-        raise TypeError("length must be int32")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the fused kernel takes contiguous tensors")
-    code, ineq, lo, hi, has_lo, has_hi, radius = _kernel_params(kind, params)
-    if isinstance(neg_inv_gamma, torch.Tensor):
-        nig = neg_inv_gamma.to(device=dev, dtype=torch.float32).reshape(())
-    else:
-        nig = torch.full((), float(neg_inv_gamma), dtype=torch.float32, device=dev)
-
-    nb = num_partial_blocks(kind, L, K)
-    ax = torch.empty_like(a_T)
-    x = torch.empty_like(a_T) if want_x else None
-    partials = torch.empty((nb, 2), dtype=torch.float32, device=dev)
-    out = torch.empty(2, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel()(
-            lam_g_T.data_ptr(), a_T.data_ptr(), c_T.data_ptr(), length.data_ptr(), nig.data_ptr(),
-            ax.data_ptr(), x.data_ptr() if want_x else None, partials.data_ptr(), out.data_ptr(),
-            L, K, nb, code, int(want_x), ineq,
-            lo, hi, int(has_lo), int(has_hi), radius, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"fused_tile_eval_T: CUDA error {rc} at launch (kind={kind}, L={L}, K={K})")
+    if lam_g_T.dtype != torch.float32:
+        raise TypeError("the fused kernel takes a float32 lam_g_T")
+    res = _launch(lam_g_T, None, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want_x, None)
     if want_x:
         fused_tile_eval_T.launches_x += 1
-        return ax, out[0], out[1], x
-    fused_tile_eval_T.launches += 1
-    return ax, out[0], out[1]
+    else:
+        fused_tile_eval_T.launches += 1
+    return res
 
 
 fused_tile_eval_T.launches = 0
 fused_tile_eval_T.launches_x = 0
+
+
+def fused_tile_gather_eval_T_reference(
+    scaled: torch.Tensor,
+    rows_T: torch.Tensor,
+    a_T: torch.Tensor,
+    c_T: torch.Tensor,
+    length: torch.Tensor,
+    neg_inv_gamma,
+    kind: str,
+    params_tuple: Tuple = (),
+    want_x: bool = False,
+    out: torch.Tensor = None,
+) -> Tuple[torch.Tensor, ...]:
+    """The plain version of the gather form: the plain kernel on
+    ``lam_g = scaled[rows]``, with ``a*x`` copied into ``out`` when given."""
+    lam_g = scaled.index_select(0, rows_T.reshape(-1).long()).view(rows_T.shape)
+    res = fused_tile_eval_T_reference(lam_g, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want_x)
+    if out is None:
+        return res
+    return (out.copy_(res[0]),) + tuple(res[1:])
+
+
+def fused_tile_gather_eval_T(
+    scaled: torch.Tensor,
+    rows_T: torch.Tensor,
+    a_T: torch.Tensor,
+    c_T: torch.Tensor,
+    length: torch.Tensor,
+    neg_inv_gamma,
+    kind: str,
+    params_tuple: Tuple = (),
+    block_k: int = DEFAULT_BLOCK_K,
+    want_x: bool = False,
+    out: torch.Tensor = None,
+) -> Tuple[torch.Tensor, ...]:
+    """``fused_tile_eval_T`` with the lambda gather folded in: the kernel
+    reads ``scaled`` (m,) float32 and the tile's ``rows_T`` (L, K) int32 and
+    forms ``lam_g = scaled[rows]`` itself, giving the same bits as the lam_g
+    form on ``scaled[rows]``.  ``rows_T`` must hold rows below m (the tile
+    builder's do; the kernel does not check).  ``out`` (L, K) float32, when
+    given, receives ``a*x`` (a view into a larger buffer serves).
+
+    Counts launches in ``fused_tile_gather_eval_T.launches`` (K1) and
+    ``.launches_x`` (K2); CPU calls count nothing."""
+    _check_tile(a_T, (("rows_T", rows_T), ("c_T", c_T)), length, block_k)
+    if scaled.dim() != 1:
+        raise ValueError(f"scaled must be (m,), got shape {tuple(scaled.shape)}")
+    if any(t.device != a_T.device for t in (scaled, rows_T, c_T, length)):
+        raise ValueError("scaled, rows_T, a_T, c_T and length must be on one device")
+    if a_T.device.type == "cpu":
+        return fused_tile_gather_eval_T_reference(
+            scaled, rows_T, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want_x, out)
+    if scaled.dtype != torch.float32 or rows_T.dtype != torch.int32:
+        raise TypeError("the gather form takes a float32 scaled and int32 rows_T")
+    res = _launch(rows_T, scaled, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want_x, out)
+    if want_x:
+        fused_tile_gather_eval_T.launches_x += 1
+    else:
+        fused_tile_gather_eval_T.launches += 1
+    return res
+
+
+fused_tile_gather_eval_T.launches = 0
+fused_tile_gather_eval_T.launches_x = 0
 
 
 # ---------------------------------------------------------------------------

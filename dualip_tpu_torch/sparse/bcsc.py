@@ -53,12 +53,38 @@ class TileSpec:
         return project(self.proj_type, **dict(self.proj_params))
 
 
-class RowOrder(NamedTuple):
-    """A tile's valid slots in row-sorted order, for the fixed-order row
-    segment-sum (``ops/segment_sum.py``).  Static: built once with the tile."""
+# The segment-sum's windows (``ops/segment_sum.py``).  The kernel gathers a*x
+# in random row order; a window's a*x (8 MiB of slots, padding included) stays
+# well inside the H100's 50 MB L2 while the warps that walk it run, so each
+# 32 B sector comes from device memory once and the other gathers hit L2.  On
+# an H100, windows of 4 to 16 MiB measured alike, larger ones slower, and no
+# windows far slower; short segments and items (more warps in flight on L2's
+# random sectors) measured faster than long ones.
+WINDOW_BYTES = 8 << 20
+SEG_MAX = 512  # a row's slots in one window are cut into segments of at most this many
+ITEM_SLOTS = 128  # a work item (one warp) takes the segments that start in one such run of slots
 
-    order: object  # (valid slots,) int32: flat slot index, stable-sorted by row
-    ptr: object  # (m + 1,) int64: row r owns order[ptr[r]:ptr[r + 1]]
+
+class RowSumPlan(NamedTuple):
+    """The fixed-order row segment-sum of every tile's a*x at once, over the
+    tiles' a*x laid end to end in one flat buffer (tile i at ``offsets[i]``).
+    Static: built once on the host with the tiles.
+
+    The tiles' columns are cut into windows (``windows``: per window, its
+    ``(tile, first column, end column)`` pieces, in tile and column order).
+    ``order`` lists each window's valid slots, windows in order, stable-sorted
+    by row within a window.  A segment is one row's run of a window in
+    ``order`` (at most ``SEG_MAX`` slots); a work item is a run of segments."""
+
+    order: object  # (V,) int32: flat slot index
+    seg_ptr: object  # (S + 1,) int32: segment s is order[seg_ptr[s]:seg_ptr[s + 1]]
+    seg_row: object  # (S,) int32: the row of segment s
+    item_ptr: object  # (I + 1,) int32: item i is segments item_ptr[i]:item_ptr[i + 1]
+    row_ptr: object  # (m + 1,) int32: row r's segments are row_segs[row_ptr[r]:row_ptr[r + 1]]
+    row_segs: object  # (S,) int32: segments by row, in window order within a row
+    offsets: Tuple[int, ...]  # first slot of each tile in the flat buffer
+    slots: int  # length of the flat buffer
+    windows: Tuple[Tuple[Tuple[int, int, int], ...], ...]
 
 
 @dataclass
@@ -69,7 +95,7 @@ class BlockCSC:
     n: int
     nnz: int
     transposed: bool = False  # tiles hold (L, K) arrays (``transpose_tiles``)
-    row_orders: Optional[List[RowOrder]] = None  # per tile, csc layouts on a device
+    row_sum: Optional[RowSumPlan] = None  # csc layouts on a device
 
 
 def _pow2_thresholds(max_nnz: int) -> np.ndarray:
@@ -219,39 +245,93 @@ def build_blockcsc(
     return BlockCSC(tiles=tiles, specs=specs, m=m, n=n, nnz=A.nnz)
 
 
-def tile_row_order(rows: np.ndarray, length: np.ndarray, m: int, transposed: bool = False) -> RowOrder:
-    """Host ``RowOrder`` of one tile: the flat indices of its valid slots,
-    stable-sorted by row, and the row pointer.  ``rows`` is (K, L), or (L, K)
-    with ``transposed``."""
-    rows = np.asarray(rows)
-    L = rows.shape[0] if transposed else rows.shape[1]
-    lane = np.arange(L)
-    length = np.asarray(length)
-    valid = (lane[:, None] < length[None, :]) if transposed else (lane[None, :] < length[:, None])
-    slots = np.nonzero(valid.reshape(-1))[0]
-    # a 16-bit key sorts by radix; the order is the same as for the wide key
-    key_dt = np.uint16 if m <= np.iinfo(np.uint16).max else np.int32
-    keys = rows.reshape(-1)[slots].astype(key_dt, copy=False)
-    order = slots[np.argsort(keys, kind="stable")].astype(np.int32)
-    ptr = np.concatenate([[0], np.cumsum(np.bincount(keys, minlength=m))]).astype(np.int64)
-    return RowOrder(order=order, ptr=ptr)
+def _windows(shapes: Sequence[Tuple[int, int]], cap_slots: int):
+    """Cut the tiles' columns, in order, into windows of at most ``cap_slots``
+    slots (L per column); a column wider than the cap is a window alone."""
+    windows, cur, used = [], [], 0
+    for i, (L, K) in enumerate(shapes):
+        k = 0
+        while k < K:
+            room = (cap_slots - used) // L
+            if room == 0 and cur:
+                windows.append(tuple(cur))
+                cur, used = [], 0
+                continue
+            take = min(max(room, 1), K - k)
+            cur.append((i, k, k + take))
+            used += take * L
+            k += take
+    if cur:
+        windows.append(tuple(cur))
+    return tuple(windows)
 
 
-def device_put_blockcsc(bcsc: BlockCSC, device, row_orders: bool = False) -> BlockCSC:
+def build_row_sum_plan(
+    rows: Sequence[np.ndarray], lengths: Sequence[np.ndarray], m: int, transposed: bool = False,
+    window_bytes: int = WINDOW_BYTES,
+) -> RowSumPlan:
+    """Host ``RowSumPlan`` of the tiles whose ``rows`` are (K, L), or (L, K)
+    with ``transposed``, and whose column lengths are ``lengths``."""
+    shapes = [(r.shape[0], r.shape[1]) if transposed else (r.shape[1], r.shape[0]) for r in rows]
+    sizes = [L * K for L, K in shapes]
+    offsets = tuple(int(v) for v in np.cumsum([0] + sizes[:-1]))
+    slots = int(sum(sizes))
+    if slots >= 2**31:
+        raise ValueError(f"{slots} tile slots: the segment-sum indexes them with int32")
+    windows = _windows(shapes, max(1, window_bytes // 4))
+    key_dt = np.uint16 if m <= np.iinfo(np.uint16).max else np.int32  # 16-bit keys sort by radix
+    orders, counts = [], []
+    for win in windows:
+        w_slots, w_rows = [], []
+        for i, k0, k1 in win:
+            (L, K), r, n = shapes[i], np.asarray(rows[i]), np.asarray(lengths[i])[k0:k1]
+            lane = np.arange(L)
+            if transposed:  # slot l*K + k, ascending in (l, k)
+                valid = lane[:, None] < n[None, :]
+                l, k = np.nonzero(valid)
+                w_slots.append(offsets[i] + l.astype(np.int64) * K + (k + k0))
+                w_rows.append(r[:, k0:k1][valid])
+            else:  # slot k*L + l, ascending in (k, l)
+                valid = lane[None, :] < n[:, None]
+                k, l = np.nonzero(valid)
+                w_slots.append(offsets[i] + (k + k0).astype(np.int64) * L + l)
+                w_rows.append(r[k0:k1][valid])
+        keys = np.concatenate(w_rows).astype(key_dt, copy=False)
+        orders.append(np.concatenate(w_slots)[np.argsort(keys, kind="stable")].astype(np.int32))
+        counts.append(np.bincount(keys, minlength=m))
+    order = np.concatenate(orders) if orders else np.zeros(0, np.int32)
+    # segments: each (window, row) with slots, cut into pieces of at most SEG_MAX
+    cnt = np.concatenate(counts) if counts else np.zeros(0, np.int64)
+    pieces = -(-cnt // SEG_MAX)
+    seg_row = np.repeat(np.tile(np.arange(m, dtype=np.int32), len(windows)), pieces)
+    seg_len = np.full(seg_row.size, SEG_MAX, dtype=np.int64)
+    has = pieces > 0
+    seg_len[np.cumsum(pieces)[has] - 1] = cnt[has] - (pieces[has] - 1) * SEG_MAX
+    seg_ptr = np.concatenate([[0], np.cumsum(seg_len)])
+    group = seg_ptr[:-1] // ITEM_SLOTS
+    item_ptr = np.concatenate([[0], np.flatnonzero(np.diff(group)) + 1, [seg_row.size]]) if seg_row.size else np.zeros(1)
+    row_segs = np.argsort(seg_row, kind="stable")
+    row_ptr = np.concatenate([[0], np.cumsum(np.bincount(seg_row, minlength=m))])
+    i32 = lambda v: np.asarray(v).astype(np.int32)  # noqa: E731
+    return RowSumPlan(
+        order=order, seg_ptr=i32(seg_ptr), seg_row=seg_row, item_ptr=i32(item_ptr), row_ptr=i32(row_ptr),
+        row_segs=i32(row_segs), offsets=offsets, slots=slots, windows=windows,
+    )
+
+
+def device_put_blockcsc(bcsc: BlockCSC, device, row_sum: bool = False) -> BlockCSC:
     """Copy every tile array to ``device`` as a tensor (rows widened to int32).
-    ``row_orders=True`` also builds each tile's ``RowOrder`` on the host and
-    places it beside the tile."""
+    ``row_sum=True`` also builds the tiles' ``RowSumPlan`` on the host and
+    places it beside the tiles."""
 
     def put(x, dtype=None):
         t = torch.as_tensor(np.ascontiguousarray(x), device=device)
         return t if dtype is None else t.to(dtype)
 
-    orders = None
-    if row_orders:
-        orders = []
-        for t in bcsc.tiles:
-            ro = tile_row_order(t.rows, t.length, bcsc.m, bcsc.transposed)
-            orders.append(RowOrder(order=put(ro.order), ptr=put(ro.ptr)))
+    plan = None
+    if row_sum:
+        p = build_row_sum_plan([t.rows for t in bcsc.tiles], [t.length for t in bcsc.tiles], bcsc.m, bcsc.transposed)
+        plan = p._replace(**{f: put(getattr(p, f)) for f in ("order", "seg_ptr", "seg_row", "item_ptr", "row_ptr", "row_segs")})
 
     tiles = [
         Tile(
@@ -265,19 +345,19 @@ def device_put_blockcsc(bcsc: BlockCSC, device, row_orders: bool = False) -> Blo
     ]
     return BlockCSC(
         tiles=tiles, specs=bcsc.specs, m=bcsc.m, n=bcsc.n, nnz=bcsc.nnz,
-        transposed=bcsc.transposed, row_orders=orders,
+        transposed=bcsc.transposed, row_sum=plan,
     )
 
 
 def blockcsc_from_numpy(tiles, specs, m: int, n: int, nnz: int, device, transposed: bool = False,
-                        row_orders: bool = False) -> BlockCSC:
+                        row_sum: bool = False) -> BlockCSC:
     """The port's BlockCSC from another builder's leaves as numpy arrays.
 
     ``tiles`` holds ``(rows, a, c, length, col_ids)`` per tile (the JAX
     package's ``Tile`` fields, e.g. its uint16 ``rows``, which are widened
     to int32); ``specs`` needs ``entry_key, proj_type, proj_params, K, L``
     and ``flat_idx``.  ``transposed`` says the arrays are (L, K);
-    ``row_orders`` builds the segment-sum's row-sorted orders as well.
+    ``row_sum`` builds the segment-sum's ``RowSumPlan`` as well.
     """
     host_tiles = [Tile(*(np.asarray(x) for x in t)) for t in tiles]
     port_specs = [
@@ -293,7 +373,7 @@ def blockcsc_from_numpy(tiles, specs, m: int, n: int, nnz: int, device, transpos
     ]
     return device_put_blockcsc(
         BlockCSC(tiles=host_tiles, specs=port_specs, m=m, n=n, nnz=nnz, transposed=transposed),
-        device, row_orders=row_orders,
+        device, row_sum=row_sum,
     )
 
 

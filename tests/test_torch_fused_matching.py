@@ -13,7 +13,12 @@ import torch
 import jax.numpy as jnp
 
 from dualip_tpu.ops.pallas_matching import fused_tile_eval_T as jax_fused
-from dualip_tpu_torch.ops.fused_matching import fused_tile_eval_T, num_partial_blocks
+from dualip_tpu_torch.ops.fused_matching import (
+    fused_tile_eval_T,
+    fused_tile_gather_eval_T,
+    fused_tile_gather_eval_T_reference,
+    num_partial_blocks,
+)
 
 torch.set_num_threads(1)
 
@@ -88,6 +93,39 @@ def test_plain_kernel_matches_pallas_other_widths(L):
     _compare("simplex", (("z", 1.0),), L=L, K=256, want_x=True, scale=10.0)
 
 
+@pytest.mark.parametrize("want_x", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("kind,params", CASES)
+def test_gather_form_matches_pallas_and_the_lam_g_form(kind, params, want_x):
+    """The gather form on (scaled, rows) against the Pallas kernel on
+    lam_g = scaled[rows], and bit for bit against the lam_g wrapper."""
+    rng = np.random.default_rng(1)
+    L, K, m = 8, 512, 300
+    a, c, length, rows = _random_tile(rng, L, K, m)
+    scaled = (np.float32(-50.0) * np.abs(rng.normal(size=m))).astype(np.float32)
+    lam_g = scaled[rows]
+    ref = jax_fused(
+        jnp.asarray(lam_g), jnp.asarray(a), jnp.asarray(c), jnp.asarray(length),
+        np.float32(-50.0), kind, params, block_k=256, interpret=True, want_x=want_x,
+    )
+    t = [torch.from_numpy(v) for v in (a, c, length)]
+    out = torch.full((L, K), np.nan)
+    got = fused_tile_gather_eval_T(torch.from_numpy(scaled), torch.from_numpy(rows), *t, -50.0, kind, params,
+                                   block_k=256, want_x=want_x, out=out)
+    assert got[0] is out and fused_tile_gather_eval_T.launches == 0
+    x_ref = np.asarray(ref[3] if want_x else ref[0])
+    tol = 5e-5 * max(1.0, float(np.abs(x_ref).max()))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), atol=tol)
+    for i in (1, 2):
+        assert np.isclose(float(got[i]), float(ref[i]), rtol=1e-4, atol=1e-3)
+    if want_x:
+        np.testing.assert_allclose(got[3].numpy(), x_ref, atol=tol)
+    same = fused_tile_eval_T(torch.from_numpy(lam_g), *t, -50.0, kind, params, block_k=256, want_x=want_x)
+    assert len(same) == len(got) and all(torch.equal(u, v) for u, v in zip(same, got))
+    plain = fused_tile_gather_eval_T_reference(torch.from_numpy(scaled), torch.from_numpy(rows), *t, -50.0, kind,
+                                               params, want_x=want_x)
+    assert all(torch.equal(u, v) for u, v in zip(plain, got))
+
+
 def test_wrapper_rejects_bad_shapes():
     a = torch.zeros((4, 96))
     length = torch.zeros(96, dtype=torch.int32)
@@ -99,9 +137,14 @@ def test_wrapper_rejects_bad_shapes():
         fused_tile_eval_T(a, a, a, length[:10], -1.0, "simplex", block_k=32)
     with pytest.raises(ValueError, match="kind"):
         fused_tile_eval_T(a, a, a, length, -1.0, "nope", block_k=32)
+    rows = torch.zeros((4, 96), dtype=torch.int32)
+    with pytest.raises(ValueError, match="rows_T shape"):
+        fused_tile_gather_eval_T(torch.zeros(5), rows[:, :32], a, a, length, -1.0, "simplex", block_k=32)
+    with pytest.raises(ValueError, match="scaled must be"):
+        fused_tile_gather_eval_T(torch.zeros(5, 1), rows, a, a, length, -1.0, "simplex", block_k=32)
 
 
 def test_partial_block_count_follows_kernel_variant():
-    assert num_partial_blocks("simplex", 64, 1000) == 8
+    assert num_partial_blocks("simplex", 64, 1000) == 4  # 256 columns a slab
     assert num_partial_blocks("simplex", 65, 1000) == 1000
-    assert num_partial_blocks("box", 500, 1000) == 8
+    assert num_partial_blocks("box", 500, 1000) == 4

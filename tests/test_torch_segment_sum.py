@@ -1,7 +1,7 @@
-"""The fixed-order row segment-sum: its static row-sorted order against
-``np.argsort(kind="stable")``, its plain version against
-``jax.ops.segment_sum`` (fp32, atol 1e-5 of the largest row sum), and the csc
-objective's use of it."""
+"""The fixed-order row segment-sum: its windowed plan (each valid slot once;
+within a window the stable argsort by row; the window cap kept), its plain
+version against ``jax.ops.segment_sum`` (fp32, atol 1e-5 of the largest row
+sum), and the csc objective's use of it."""
 
 import numpy as np
 import pytest
@@ -14,7 +14,7 @@ from dualip_tpu_torch.objectives.matching import MatchingInputArgs, MatchingSolv
 from dualip_tpu_torch.ops.segment_sum import segment_sum_rows, segment_sum_rows_reference
 from dualip_tpu_torch.projections import create_projection_map
 from dualip_tpu_torch.sparse import csc_from_dense
-from dualip_tpu_torch.sparse.bcsc import tile_row_order
+from dualip_tpu_torch.sparse.bcsc import SEG_MAX, build_row_sum_plan
 
 torch.set_num_threads(1)
 
@@ -29,48 +29,109 @@ def _tile(seed, m, K, L):
     return rows, length, valid, vals
 
 
+def _tiles(m, transposed, shapes=((257, 6), (40, 1), (123, 3))):
+    """Three tiles, (K, L) or (L, K), with their values laid end to end."""
+    rows, lengths, valids, vals = [], [], [], []
+    for i, (K, L) in enumerate(shapes):
+        r, n, v, x = _tile(m + i, m, K, L)
+        if transposed:
+            r, v, x = (np.ascontiguousarray(t.T) for t in (r, v, x))
+        rows.append(r), lengths.append(n), valids.append(v), vals.append(x)
+    flat = lambda ts: np.concatenate([t.reshape(-1) for t in ts])  # noqa: E731
+    return rows, lengths, flat(valids), flat(vals), flat(rows)
+
+
+def _torch_plan(plan):
+    return plan._replace(**{f: torch.from_numpy(getattr(plan, f))
+                            for f in ("order", "seg_ptr", "seg_row", "item_ptr", "row_ptr", "row_segs")})
+
+
+@pytest.mark.parametrize("window_bytes", [16 << 20, 64], ids=["default-window", "tiny-window"])
 @pytest.mark.parametrize("transposed", [False, True], ids=["KL", "LK"])
 @pytest.mark.parametrize("m", [7, 300, 70_000], ids=["m7", "m300", "m70000-int32-keys"])
-def test_row_order_is_the_stable_argsort_of_the_valid_slots(m, transposed):
-    rows, length, valid, _ = _tile(m, m, K=257, L=6)
-    if transposed:
-        rows, valid = np.ascontiguousarray(rows.T), np.ascontiguousarray(valid.T)
-    ro = tile_row_order(rows, length, m, transposed)
-    slots = np.nonzero(valid.reshape(-1))[0]
-    keys = rows.reshape(-1)[slots]
-    np.testing.assert_array_equal(ro.order, slots[np.argsort(keys, kind="stable")])
-    assert ro.order.dtype == np.int32 and ro.ptr.dtype == np.int64 and ro.ptr.shape == (m + 1,)
-    np.testing.assert_array_equal(np.diff(ro.ptr), np.bincount(keys, minlength=m))
-    for r in (0, m // 2, m - 1):  # a row's range holds exactly its slots, in slot order
-        mine = ro.order[ro.ptr[r]:ro.ptr[r + 1]]
-        np.testing.assert_array_equal(mine, slots[keys == r])
+def test_row_order_is_the_stable_argsort_of_the_valid_slots(m, transposed, window_bytes):
+    rows, lengths, valid, _, row_of = _tiles(m, transposed)
+    plan = build_row_sum_plan(rows, lengths, m, transposed, window_bytes=window_bytes)
+    assert plan.slots == valid.size and plan.order.dtype == np.int32
+    # every valid slot exactly once
+    np.testing.assert_array_equal(np.sort(plan.order), np.flatnonzero(valid))
+    # windows: the tiles' columns in order, each within the cap unless one column is wider
+    shapes = [(r.shape[0], r.shape[1]) if transposed else (r.shape[1], r.shape[0]) for r in rows]
+    pieces = [p for w in plan.windows for p in w]
+    assert [(i, k0) for i, k0, _ in pieces] == sorted((i, k0) for i, k0, _ in pieces)
+    for i, (L, K) in enumerate(shapes):
+        mine = [(k0, k1) for j, k0, k1 in pieces if j == i]
+        assert mine[0][0] == 0 and mine[-1][1] == K and all(a[1] == b[0] for a, b in zip(mine, mine[1:]))
+    cap = window_bytes // 4
+    for w in plan.windows:
+        footprint = sum(shapes[i][0] * (k1 - k0) for i, k0, k1 in w)
+        assert footprint <= cap or (len(w) == 1 and w[0][2] - w[0][1] == 1)
+    if window_bytes == 64:
+        assert len(plan.windows) > 10
+    # within a window: the window's valid slots (ascending) stable-sorted by row
+    start = 0
+    for w in plan.windows:
+        mask = np.zeros(valid.size, bool)
+        for i, k0, k1 in w:
+            L, K = shapes[i]
+            cols = np.arange(k0, k1)
+            idx = (np.arange(L)[:, None] * K + cols[None, :]) if transposed else (cols[:, None] * L + np.arange(L)[None, :])
+            mask[plan.offsets[i] + idx.reshape(-1)] = True
+        slots = np.flatnonzero(mask & valid)
+        want = slots[np.argsort(row_of[slots], kind="stable")]
+        np.testing.assert_array_equal(plan.order[start:start + slots.size], want)
+        start += slots.size
+    assert start == plan.order.size
+    # segments: one row each, in order; rows' segments in window order; items cover them
+    seg_ptr = plan.seg_ptr.astype(np.int64)
+    assert seg_ptr[0] == 0 and seg_ptr[-1] == plan.order.size and (np.diff(seg_ptr) > 0).all()
+    assert (np.diff(seg_ptr) <= SEG_MAX).all()
+    for s in range(plan.seg_row.size):
+        assert (row_of[plan.order[seg_ptr[s]:seg_ptr[s + 1]]] == plan.seg_row[s]).all()
+    assert plan.item_ptr[0] == 0 and plan.item_ptr[-1] == plan.seg_row.size and (np.diff(plan.item_ptr) > 0).all()
+    for r in (0, m // 2, m - 1):
+        segs = plan.row_segs[plan.row_ptr[r]:plan.row_ptr[r + 1]]
+        assert (np.diff(segs) > 0).all() and (plan.seg_row[segs] == r).all()
+        assert plan.row_ptr[r + 1] - plan.row_ptr[r] == (plan.seg_row == r).sum()
 
 
+def test_heavy_rows_are_cut_into_segments():
+    rows, lengths, valid, vals, row_of = _tiles(3, True, shapes=((8192, 6),))
+    plan = build_row_sum_plan(rows, lengths, 3, transposed=True)
+    assert len(plan.windows) == 1 and (np.diff(plan.seg_ptr) <= SEG_MAX).all()
+    assert plan.seg_row.size > 3  # ~8000 slots per row, at most SEG_MAX a segment
+    got = segment_sum_rows_reference(torch.zeros(3), torch.from_numpy(vals), _torch_plan(plan))
+    want = np.bincount(row_of[valid], weights=vals[valid].astype(np.float64), minlength=3)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * np.abs(vals).sum())
+
+
+@pytest.mark.parametrize("window_bytes", [16 << 20, 256], ids=["default-window", "tiny-window"])
 @pytest.mark.parametrize("m", [7, 300])
-def test_plain_version_matches_jax_segment_sum(m):
-    rows, length, valid, vals = _tile(m + 1, m, K=500, L=8)
+def test_plain_version_matches_jax_segment_sum(m, window_bytes):
+    rows, lengths, valid, vals, row_of = _tiles(m, True, shapes=((500, 8), (64, 2)))
     start = np.random.default_rng(m).normal(size=m).astype(np.float32)
-    ref = jnp.asarray(start) + jax.ops.segment_sum(
-        jnp.asarray(vals.reshape(-1)), jnp.asarray(rows.reshape(-1)), num_segments=m)
-    got = segment_sum_rows_reference(torch.from_numpy(start.copy()), torch.from_numpy(vals), torch.from_numpy(rows))
+    ref = jnp.asarray(start) + jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(row_of), num_segments=m)
+    plan = _torch_plan(build_row_sum_plan(rows, lengths, m, transposed=True, window_bytes=window_bytes))
+    got = segment_sum_rows_reference(torch.from_numpy(start.copy()), torch.from_numpy(vals), plan)
     scale = max(1.0, np.abs(np.asarray(ref)).max())
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5 * scale)
-    # the wrapper takes the plain version on CPU tensors, with or without the order, and counts nothing
-    ro = tile_row_order(rows, length, m)
+    # the wrapper takes the plain version on CPU tensors and counts nothing
     out = torch.from_numpy(start.copy())
-    same = segment_sum_rows(out, torch.from_numpy(vals), torch.from_numpy(rows),
-                            (torch.from_numpy(ro.order), torch.from_numpy(ro.ptr)))
+    same = segment_sum_rows(out, torch.from_numpy(vals), plan)
     assert same is out and torch.equal(out, got) and segment_sum_rows.launches == 0
-    # summing the row-sorted order row by row is the same function
-    by_order = start.astype(np.float64) + np.add.reduceat(
-        np.append(vals.reshape(-1)[ro.order].astype(np.float64), 0.0), np.minimum(ro.ptr[:-1], ro.order.size)
-    ) * (np.diff(ro.ptr) > 0)
-    np.testing.assert_allclose(got.numpy(), by_order, atol=1e-5 * scale)
+    # padding slots are never read
+    junk = torch.from_numpy(np.where(valid, vals, np.float32(1e30)))
+    assert torch.equal(segment_sum_rows(torch.from_numpy(start.copy()), junk, plan), got)
 
 
 def test_wrapper_rejects_mixed_devices():
+    plan = _torch_plan(build_row_sum_plan([np.zeros((2, 2), np.int32)], [np.full(2, 2, np.int32)], 3))
     with pytest.raises(ValueError, match="vals on"):
-        segment_sum_rows(torch.zeros(3), torch.zeros(4, device="meta"), torch.zeros(4, dtype=torch.int32))
+        segment_sum_rows(torch.zeros(3), torch.zeros(4, device="meta"), plan)
+    with pytest.raises(ValueError, match="slots"):
+        segment_sum_rows(torch.zeros(3), torch.zeros(5), plan)
+    with pytest.raises(ValueError, match="rows"):
+        segment_sum_rows(torch.zeros(4), torch.zeros(4), plan)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
@@ -85,20 +146,21 @@ def test_csc_objective_carries_row_orders_and_repeats_itself(use_pallas):
                           projection_map=create_projection_map("simplex", {"z": 1}, n), b_vec=np.ones(m, np.float32)),
         gamma=1e-2, device="cpu", use_pallas=use_pallas, pallas_block_k=64,
     )
-    assert obj.bcsc.transposed == use_pallas and len(obj.bcsc.row_orders) == len(obj.bcsc.tiles)
-    for tile, ro in zip(obj.bcsc.tiles, obj.bcsc.row_orders):
-        want = tile_row_order(tile.rows.numpy(), tile.length.numpy(), m, use_pallas)
-        np.testing.assert_array_equal(ro.order.numpy(), want.order)
-        np.testing.assert_array_equal(ro.ptr.numpy(), want.ptr)
-        assert int(ro.ptr[-1]) == int(tile.length.sum())
+    plan = obj.bcsc.row_sum
+    tiles = obj.bcsc.tiles
+    assert obj.bcsc.transposed == use_pallas
+    want = build_row_sum_plan([t.rows.numpy() for t in tiles], [t.length.numpy() for t in tiles], m, use_pallas)
+    for f in ("order", "seg_ptr", "seg_row", "item_ptr", "row_ptr", "row_segs"):
+        np.testing.assert_array_equal(getattr(plan, f).numpy(), getattr(want, f))
+    assert plan.slots == sum(t.a.numel() for t in tiles) and plan.offsets == want.offsets
+    assert plan.order.numel() == sum(int(t.length.sum()) for t in tiles) == int((dense != 0).sum())
     lam = np.abs(rng.normal(size=m)).astype(np.float32)
     r1, r2 = obj.calculate(lam), obj.calculate(lam)
     assert torch.equal(r1.dual_gradient, r2.dual_gradient) and float(r1.dual_objective) == float(r2.dual_objective)
-    assert sum(int(t.length.sum()) for t in obj.bcsc.tiles) == int((dense != 0).sum())
-    # the layouts that never segment-sum carry no orders
+    # the layouts that never segment-sum carry no plan
     bfly = MatchingSolverDualObjectiveFunction(
         MatchingInputArgs(A=csc_from_dense(dense), c=csc_from_dense(-dense),
                           projection_map=create_projection_map("simplex", {"z": 1}, n), b_vec=np.ones(m, np.float32)),
         gamma=1e-2, device="cpu", layout="row",
     )
-    assert bfly.bcsc.row_orders is None
+    assert bfly.bcsc.row_sum is None
