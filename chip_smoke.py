@@ -15,9 +15,11 @@ result lines at the end are printed only by a full run):
    and 70,000;
 4. segsum: the windowed fixed-order row segment-sum over several tiles at
    once against a float64 ``index_add_``, and two launches bit for bit;
-5. benes: the three Benes kernels (K5 fine, K6 coarse group, K7 two-axis
-   coarse side) against the plain stages with ``torch.equal``, forward and
-   reverse, fp32 and bf16, in every regime of the block count;
+5. benes: the three Benes kernels (K5 fine and K7 two-axis coarse side, the
+   gathers through the plan's source index; K6 coarse group, stage windows)
+   against the plain stages with ``torch.equal``, forward and reverse, fp32
+   and bf16, in every regime of the block count, and the index the window
+   kernels build on the card against the index the plain stages build;
 6. panel: the panel kernel (K3/K4) against its plain version for every
    projection kind, q = 1 and q > 1, L a power of two and not, fp32 and bf16
    carry; the rest of the buffer unchanged, ghost lanes zero;
@@ -36,7 +38,8 @@ result lines at the end are printed only by a full run):
    ``layout="butterfly"``: launches counted, plain versions compared, the csc
    log compared, a bit-identical repeat, a 250,000-source solve (the K6
    regime), then ``compact``, ``carry_dtype=bfloat16`` and ``srow_gather``,
-   and each kernel timed at the slice's shapes.
+   and each kernel timed at the slice's shapes (K5 and K7 beside their window
+   forms, which build the index, and K7 at 32 B rows as well as 64 B).
 
 Kernel times (``ms``) are CUDA-graph replays of the wrapper's calls, so the
 host's launch gaps are not in them; each ``[timing]`` line also gives the eager
@@ -320,8 +323,28 @@ def phase_segsum(dev) -> float:
     return worst
 
 
+def plain_blocked(bf, p, v, reverse=False):
+    """A packed plan's blocked application by every kernel's plain version
+    (the stages on the masks), group by group, on the full (N,) buffer."""
+    pre, post = list(zip(p.pre_groups, p.pre_masks)), list(zip(p.post_groups, p.post_masks))
+    if reverse:
+        pre, post = ([((st[::-1], E, I), mk) for (st, E, I), mk in reversed(post)],
+                     [((st[::-1], E, I), mk) for (st, E, I), mk in reversed(pre)])
+
+    def coarse(v, side):
+        for (st, E, I), mk in side:
+            v = bf.benes_coarse2_reference(v, mk, st, *E, I) if isinstance(E, tuple) else \
+                bf.benes_coarse_reference(v, mk, st, E, I)
+        return v
+
+    v = coarse(v, pre)
+    v = bf.benes_fine_reference(v, p.fine_masks, p.fine_dists, reverse)
+    return coarse(v, post)
+
+
 def phase_benes(dev) -> None:
-    """K5, K6, K7 against the plain stages, bit for bit, in every regime."""
+    """K5, K6, K7 against the plain stages, bit for bit, in every regime; the
+    card-built index against the plain-built one."""
     import dualip_tpu_torch.ops.butterfly as bf
 
     # (slots, block_log2, what the packed plan must look like)
@@ -341,6 +364,12 @@ def phase_benes(dev) -> None:
         planes, dists, n_in, n_out = bf.benes_route_planes(perm, pad_to=N)
         route_s = time.perf_counter() - t0
         packed = bf.pack_plan_from_planes(planes, dists, n_in, n_out, bl, device=dev)
+        # the index the window kernels built on the card, against the plain stages' build
+        plain_index = bf.build_index(copy.copy(packed), plain=True)
+        got_index, want_index = bf.index_tensors(packed), bf.index_tensors(plain_index)
+        check(len(got_index) == len(want_index) and all(torch.equal(g, w) for g, w in zip(got_index, want_index)),
+              f"benes {what}: the card-built index differs from the plain-built one")
+        del plain_index, want_index
         kinds = ["K7" if isinstance(g[1], tuple) else "K6" for g in packed.pre_groups]
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev).to(dtype)
@@ -349,26 +378,20 @@ def phase_benes(dev) -> None:
             y = bf.apply_butterfly_cuda(packed, x.clone(), truncate=False)
             used = tuple(b - a for a, b in zip(before, (bf.benes_fine.launches, bf.benes_coarse.launches,
                                                         bf.benes_coarse2.launches)))
-            # the plain version of every kernel, group by group, on the same masks
-            v = bf._pad_to(x, N)
-            for (steps, E, I), mk in zip(packed.pre_groups, packed.pre_masks):
-                v = bf.benes_coarse2_reference(v, mk, steps, *E, I) if isinstance(E, tuple) else \
-                    bf.benes_coarse_reference(v, mk, steps, E, I)
-            v = bf.benes_fine_reference(v, packed.fine_masks, packed.fine_dists)
-            for (steps, E, I), mk in zip(packed.post_groups, packed.post_masks):
-                v = bf.benes_coarse2_reference(v, mk, steps, *E, I) if isinstance(E, tuple) else \
-                    bf.benes_coarse_reference(v, mk, steps, E, I)
+            v = plain_blocked(bf, packed, bf._pad_to(x, N))
             torch.cuda.synchronize()
             check(torch.equal(y, v), f"benes {what} {dtype}: kernels differ from the plain stages")
             check(torch.equal(y[:n_out], want[:n_out]), f"benes {what} {dtype}: forward is not x[perm]")
-            back = bf.apply_butterfly_cuda(packed, y.clone(), reverse=True)
-            plain_back = bf._pad_to(x, N)
+            back = bf.apply_butterfly_cuda(packed, y.clone(), reverse=True, truncate=False)
+            plain_back = plain_blocked(bf, packed, y, reverse=True)
             torch.cuda.synchronize()
-            check(torch.equal(back, plain_back[:n_in]), f"benes {what} {dtype}: reverse does not undo forward")
+            check(torch.equal(back, plain_back), f"benes {what} {dtype}: reverse differs from the plain stages")
+            check(torch.equal(back[:n_in], bf._pad_to(x, N)[:n_in]), f"benes {what} {dtype}: reverse does not undo forward")
         say("benes", slots=N, block_log2=bl, regime=repr(what), pre_groups=kinds,
             launches_fine_coarse_coarse2=used, router=bf.last_route.get("router"), route_s=f"{route_s:.2f}",
-            equal="bit for bit, forward and reverse, fp32 and bf16")
-        if "two launches" in what:
+            index_build_s=f"{packed.index_build_s:.3f}", index_bytes=bf.index_bytes(packed),
+            equal="bit for bit, forward and reverse, fp32 and bf16; index as the plain stages build it")
+        if "two launches" in what:  # 8192 positions do not fit one gather strip: one gather per axis
             check(used[2] == 4, f"benes {what}: expected 4 K7 launches, got {used[2]}")
         if "one launch" in what:
             check(used[2] == 2, f"benes {what}: expected 2 K7 launches, got {used[2]}")
@@ -483,7 +506,11 @@ def phase_golden(dev_name):
         say("golden", path=repr(name), iterations=len(log), max_abs_dev=worst, tolerance=tol, card=dev_name)
 
 
-def ptxas_summary(logs) -> None:
+def ptxas_summary(logs, log_dir: Path) -> None:
+    """Registers and spills from ``-Xptxas -v``; the whole log goes to
+    ``log_dir/ptxas.log``."""
+    if logs:
+        (log_dir / "ptxas.log").write_text("".join(f"== {k}\n{v}\n" for k, v in logs.items()))
     regs = [int(r) for log in logs.values() for r in re.findall(r"Used (\d+) registers", log)]
     say("build", kernels_compiled=len(regs), max_registers=max(regs, default="cached"))
     for log in logs.values():  # ptxas -v: name each kernel that spills registers
@@ -561,7 +588,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     logs = _build.build(_build.KERNEL_SOURCES)
     say("build", sources=list(_build.KERNEL_SOURCES), seconds=f"{time.perf_counter() - t0:.2f}")
-    ptxas_summary(logs)
+    ptxas_summary(logs, _build.BUILD_DIR)
     t0 = time.perf_counter()
     say("build", native_router="built" if native_loader.native_available() else "unavailable (numpy router)",
         seconds=f"{time.perf_counter() - t0:.2f}")
@@ -631,6 +658,7 @@ def main(argv=None) -> int:
         fused_tile_gather_eval_T.launches = fused_tile_gather_eval_T.launches_x = 0
         fused_panel_project.launches = fused_panel_project.launches_x = 0
         bf.benes_fine.launches = bf.benes_coarse.launches = bf.benes_coarse2.launches = 0
+        bf.benes_fine_window.launches = bf.benes_coarse2_window.launches = 0
         segment_sum_rows.launches = 0
 
     def counts():
@@ -638,6 +666,7 @@ def main(argv=None) -> int:
                 "K1": fused_tile_eval_T.launches, "K2": fused_tile_eval_T.launches_x,
                 "K3": fused_panel_project.launches, "K4": fused_panel_project.launches_x,
                 "K5": bf.benes_fine.launches, "K6": bf.benes_coarse.launches, "K7": bf.benes_coarse2.launches,
+                "K5w": bf.benes_fine_window.launches, "K7w": bf.benes_coarse2_window.launches,
                 "segsum": segment_sum_rows.launches}
 
     def solve(data, iters, save_primal, objective_type="matching_smoke", **objective_kwargs):
@@ -922,18 +951,7 @@ def main(argv=None) -> int:
             def _local(self, bcsc, dual_val, gamma, want_primal=False, row_layout=None):
                 def plain_carry(rl, vec, reverse, truncate=True):
                     p = rl.plan
-                    pre, post = list(zip(p.pre_groups, p.pre_masks)), list(zip(p.post_groups, p.post_masks))
-                    if reverse:
-                        pre, post = ([((st[::-1], E, I), mk) for (st, E, I), mk in reversed(post)],
-                                     [((st[::-1], E, I), mk) for (st, E, I), mk in reversed(pre)])
-                    v = vec
-                    for side in (pre, None, post):
-                        if side is None:
-                            v = bf.benes_fine_reference(v, p.fine_masks, p.fine_dists, reverse)
-                            continue
-                        for (st, E, I), mk in side:
-                            v = bf.benes_coarse2_reference(v, mk, st, *E, I) if isinstance(E, tuple) else \
-                                bf.benes_coarse_reference(v, mk, st, E, I)
+                    v = plain_blocked(bf, p, vec, reverse)
                     return v if not truncate else v[: (p.n_in if reverse else p.n_out)]
 
                 with rebound(matching_mod, _carry=plain_carry), \
@@ -949,7 +967,7 @@ def main(argv=None) -> int:
                 setattr(new, k, v)
             return new
 
-        def butterfly_solve(data, sources, what, expect_coarse):
+        def butterfly_solve(data, sources, what, expect_coarse, index_launches):
             """The solve, its counts, the plain-version and repeat checks."""
             res, n_launch, solve_s = solve(data, args.iters, True, layout="butterfly")
             peak = torch.cuda.max_memory_allocated()
@@ -963,14 +981,17 @@ def main(argv=None) -> int:
                 stages=len(plan.fine_dists) + sum(len(g[0]) for g in plan.pre_groups + plan.post_groups),
                 fine_stages=len(plan.fine_dists), coarse_groups=groups, row_tiles=len(rl.row_tiles),
                 row_slots=sum(R * Lr for R, Lr in rl.row_shapes), col_offsets=rl.col_offsets,
-                mask_bytes=plan.fine_masks.numel() + sum(m.numel() for m in plan.pre_masks + plan.post_masks))
+                mask_bytes=plan.fine_masks.numel() + sum(m.numel() for m in plan.pre_masks + plan.post_masks),
+                index_bytes=bf.index_bytes(plan), index_build_s=f"{plan.index_build_s:.3f}")
             say(what, objective_build_s=f"{captured['build_s']:.2f}", layout_build_s=f"{rl.build_seconds['total']:.2f}",
                 routing_s=f"{rl.build_seconds['route']:.2f}", router=bf.last_route.get("router"),
                 run_solver_s=f"{solve_s:.2f}", peak_device_bytes=peak)
             ms_it = ms_per_iteration(obj.events)
             say(what, iterations=len(res.dual_objective_log), ms_per_iteration=f"{ms_it:.4f}",
                 iterations_per_s=f"{1e3 / ms_it:.2f}", final_dual_objective=res.dual_objective)
-            want = {"K3": n_tiles * args.iters, "K4": n_tiles, "K5": 2 * evals, expect_coarse: 4 * evals}
+            # K5w/K7w: the window kernels building the index once, at pack time
+            want = {"K3": n_tiles * args.iters, "K4": n_tiles, "K5": 2 * evals, expect_coarse: 4 * evals,
+                    "K5w": 2, "K7w": index_launches}
             say(what, launches=n_launch, expected=want)
             check_solution(res, obj, data, args.iters, what)
             for k, v in want.items():
@@ -986,7 +1007,7 @@ def main(argv=None) -> int:
             check(rep.max() == 0.0, f"{what}: two butterfly solves differ by {rep.max()} relative")
             return res, obj, n_launch, ms_it
 
-        res, obj, bfly_launches, bfly_ms = butterfly_solve(inp, args.sources, "butterfly", "K7")
+        res, obj, bfly_launches, bfly_ms = butterfly_solve(inp, args.sources, "butterfly", "K7", 4)
         log = np.asarray(res.dual_objective_log)
         if csc_log is not None:
             vs_csc = rel_dev(log[:n_chk], csc_log[:n_chk])
@@ -1022,37 +1043,57 @@ def main(argv=None) -> int:
         buf = torch.from_numpy(np.random.default_rng(5).normal(size=N).astype(np.float32)).to(dev)
         ids = torch.arange(N, dtype=torch.int32, device=dev)
 
-        def time_benes(name, replaces, fn, ref_fn, mask_planes, n_launches):
-            """ms of one launch group, the plain version's, the bound, and the
-            library call: index_select by the group's own permutation."""
+        def time_benes(name, replaces, fn, ref_fn, side_bytes, n_launches, window_fn=None, variants=()):
+            """ms of one launch group, the plain version's, the bound (8 B of
+            payload and ``side_bytes`` of index or mask planes per slot), the
+            payload-only floor, the library call (index_select by the group's
+            own permutation) and, for a gather, its window form (the stage
+            windows that build the index) in the same call; ``variants`` are
+            (label, module attributes) timed beside it."""
             src = fn(ids.clone())  # the kernel moves 4-byte payloads of any type
             check(torch.equal(src, ref_fn(ids)), f"{name}: kernel differs from its plain version at the slice's shape")
             t_k = cuda_ms(lambda: fn(buf), reps=10, graph=True)
             ms = t_k.ms
             plain_ms = cuda_ms(lambda: ref_fn(buf), reps=2, warmup=1).ms
             lib_ms = cuda_ms(lambda: buf.index_select(0, src), reps=5, graph=True).ms
-            bound = N * (8 + mask_planes) / PEAK_BYTES_PER_S * 1e3
+            bound = N * (8 + side_bytes) / PEAK_BYTES_PER_S * 1e3
+            floor = N * 8 / PEAK_BYTES_PER_S * 1e3
+            extra = {}
+            if window_fn is not None:
+                check(torch.equal(window_fn(ids.clone()), src), f"{name}: the window form differs from the gather")
+                extra["window_ms"] = cuda_ms(lambda: window_fn(buf), reps=10, graph=True).ms
+            for label, attrs in variants:
+                with rebound(bf, **attrs):
+                    check(torch.equal(fn(ids.clone()), src), f"{name} {label}: differs from the plain version")
+                    extra[f"ms_{label}"] = cuda_ms(lambda: fn(buf), reps=10, graph=True).ms
             say("timing", kernel=repr(name), ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.4f}",
-                library_index_select_ms=f"{lib_ms:.4f}", mask_planes=mask_planes, slots=N, **timing_kv(t_k))
+                share_of_bound=f"{bound / ms:.3f}", payload_floor_ms=f"{floor:.4f}",
+                library_index_select_ms=f"{lib_ms:.4f}", **{k: f"{v:.4f}" for k, v in extra.items()},
+                side_bytes_per_slot=side_bytes, slots=N, **timing_kv(t_k))
             kernels.append({
                 "name": name, "route": "cuda", "source": "dualip_tpu_torch/csrc/benes.cu", "replaces": replaces,
                 "launches": n_launches, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                "bound_by": "bytes", "library_ms": lib_ms,
+                "bound_by": "bytes", "library_ms": lib_ms, "payload_floor_ms": floor, **extra,
             })
             return ms
 
         k5_ms = time_benes(
             "K5 benes_fine", "dualip_tpu/ops/butterfly.py:520",
-            lambda v: bf.benes_fine(v, plan.fine_masks, plan.fine_dists),
+            lambda v: bf.benes_fine(v, plan.fine_masks, plan.fine_dists, src=plan.fine_src_fwd),
             lambda v: bf.benes_fine_reference(v, plan.fine_masks, plan.fine_dists),
-            plan.fine_masks.shape[0], bfly_launches["K5"])
+            2, bfly_launches["K5"],
+            window_fn=lambda v: bf.benes_fine_window(v, plan.fine_masks, plan.fine_dists))
         (steps7, E7, R7), m7 = plan.pre_groups[0], plan.pre_masks[0]
         check(isinstance(E7, tuple), "the slice's coarse side is not a two-axis group")
+        src7 = bf._direction(plan.pre_src[0], False)
+        check(len(src7) == 1, "the slice's coarse side is not one gather launch")
         k7_ms = time_benes(
             "K7 benes_coarse2", "dualip_tpu/ops/butterfly.py:606",
-            lambda v: bf.benes_coarse2(v, m7, steps7, *E7, R7),
+            lambda v: bf.benes_coarse2(v, m7, steps7, *E7, R7, src7),
             lambda v: bf.benes_coarse2_reference(v, m7, steps7, *E7, R7),
-            m7.shape[0], bfly_launches["K7"])
+            2, bfly_launches["K7"],
+            window_fn=lambda v: bf.benes_coarse2_window(v, m7, steps7, *E7, R7),
+            variants=(("rows_32B", {"GATHER_ROW_BYTES": 32}),))  # 8 fp32 lanes, a 96 KB strip
         carry_src = bf.apply_butterfly_cuda(plan, ids.clone(), truncate=False)
         carry_ms = cuda_ms(lambda: bf.apply_butterfly_cuda(plan, buf, truncate=False), reps=10, graph=True).ms
         carry_lib_ms = cuda_ms(lambda: buf.index_select(0, carry_src), reps=5, graph=True).ms
@@ -1108,7 +1149,7 @@ def main(argv=None) -> int:
         k3_ms = kernels[-2]["ms"]
         say("timing", butterfly_iteration_ms=f"{bfly_ms:.4f}", two_carries_ms=f"{2 * carry_ms:.4f}", K3_ms=f"{k3_ms:.4f}",
             rest_ms=f"{bfly_ms - 2 * carry_ms - k3_ms:.4f}", rest="srow build, row sums, (m,) gather, calc_grad, AGD step")
-        del buf, obj, res, captured["obj"], rl, plan, m7
+        del buf, obj, res, captured["obj"], rl, plan, m7, src7
         torch.cuda.empty_cache()
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
@@ -1132,7 +1173,7 @@ def main(argv=None) -> int:
         small = generate_synthetic_matching_input_args(
             SMALL_SOURCES, args.destinations, args.sparsity, seed=args.seed)
         say("butterfly-small", generate_s=f"{time.perf_counter() - t0:.2f}")
-        res_s, obj_s, small_launches, _ = butterfly_solve(small, SMALL_SOURCES, "butterfly-small", "K6")
+        res_s, obj_s, small_launches, _ = butterfly_solve(small, SMALL_SOURCES, "butterfly-small", "K6", 0)
         plan = obj_s.row_layout.plan
         N = plan.N
         buf = torch.from_numpy(np.random.default_rng(6).normal(size=N).astype(np.float32)).to(dev)

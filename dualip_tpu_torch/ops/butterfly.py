@@ -17,17 +17,26 @@ Pieces:
 * ``pack_plan`` / ``pack_plan_from_planes``: the split of a plan at a block
   size into coarse groups and fine stages, masks bit-packed 8 stages per uint8
   plane, element for element the JAX package's packed plan.
+* ``build_index(plan)``: the source index of the gather kernels.  The fine
+  stages permute within each block and a two-axis coarse side moves each lane
+  across the block positions only, so each is a static permutation that is
+  found once per plan by running its stages on an iota: for every slot, the
+  in-block offset (fine) or block position (coarse) it reads from, 16 bits,
+  forward and reverse.  Packing builds it.
 * ``apply_butterfly_cuda(plan, x)``: the blocked form.  On CUDA tensors the
-  fine stages run in ``benes_fine`` (K5), a single-axis coarse group in
-  ``benes_coarse`` (K6) and a two-axis coarse side in ``benes_coarse2`` (K7),
-  the hand-written kernels of ``csrc/benes.cu``; each runs all its stages in
-  one launch, in place.  On CPU tensors each wrapper runs its plain version
-  on the same packed masks.
+  fine stages run in ``benes_fine`` (K5) and a two-axis coarse side in
+  ``benes_coarse2`` (K7), each one gather through the plan's index, and a
+  single-axis coarse group in ``benes_coarse`` (K6), which runs its stages in
+  register windows; all are hand-written kernels of ``csrc/benes.cu`` and
+  work in place.  On CPU tensors each wrapper runs its plain version (the
+  stages) on the same packed masks.
 
 Block size.  The TPU block is 2^17 slots (512 KB of VMEM).  A Hopper thread
 block has at most 227 KB of shared memory, and the fine kernel holds the
-payload block and one mask plane there: 2^15 fp32 slots are 128 KB + 32 KB.
-``DEFAULT_BLOCK_LOG2`` is therefore 15; ``block_log2`` stays a parameter.
+payload block there: 2^15 fp32 slots are 128 KB (the window form, which
+builds the index, adds one 32 KB mask plane).  ``DEFAULT_BLOCK_LOG2`` is
+therefore 15; ``block_log2`` stays a parameter, at most 16 for the 16-bit
+index.
 """
 
 from __future__ import annotations
@@ -253,7 +262,15 @@ class BenesPlanPacked:
     static ``(steps, E, I_rows)`` tuples (``steps`` = ((bit, q), ...) in forward
     execution order, ``q`` the distance in E-axis units; ``E`` is a pair
     ``(E_hi, E_lo)`` for a two-axis group) with per-group bit-planes in
-    ``pre_masks``/``post_masks``."""
+    ``pre_masks``/``post_masks``.
+
+    The gather kernels read the source index (``build_index``): (N,) int16
+    tensors whose bits are read as uint16, in the payload's own layout.
+    ``fine_src_fwd``/``fine_src_rev`` hold each slot's in-block source offset;
+    ``pre_src``/``post_src`` hold, per group, ``None`` for a single-axis group
+    (K6 keeps its window form) or one ``(axis, fwd, rev)`` per gather launch
+    of a two-axis side in forward order (``coarse2_launches``), each index the
+    source position along that launch's axis."""
 
     fine_dists: tuple  # static, forward order
     pre_groups: tuple  # static ((steps, E, I_rows), ...) forward order
@@ -265,6 +282,11 @@ class BenesPlanPacked:
     n_in: int
     n_out: int
     block_log2: int
+    fine_src_fwd: Optional[torch.Tensor] = None
+    fine_src_rev: Optional[torch.Tensor] = None
+    pre_src: Optional[tuple] = None
+    post_src: Optional[tuple] = None
+    index_build_s: float = 0.0  # seconds ``build_index`` took (synchronised on the card)
 
 
 def _packbits_stages(m: np.ndarray) -> np.ndarray:
@@ -388,7 +410,7 @@ def pack_plan_from_planes(
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
-    return BenesPlanPacked(
+    return build_index(BenesPlanPacked(
         fine_dists=tuple(int(dists[s]) for s in range(*fine)),
         pre_groups=pre_groups,
         post_groups=post_groups,
@@ -399,7 +421,7 @@ def pack_plan_from_planes(
         n_in=n_in,
         n_out=n_out,
         block_log2=block_log2,
-    )
+    ))
 
 
 def benes_plan_packed_from_numpy(
@@ -407,12 +429,13 @@ def benes_plan_packed_from_numpy(
     N: int, n_in: int, n_out: int, block_log2: int, device="cpu",
 ) -> BenesPlanPacked:
     """The port's ``BenesPlanPacked`` from another package's leaves as numpy
-    arrays and static tuples (the JAX package's packed plan)."""
+    arrays and static tuples (the JAX package's packed plan), with its source
+    index built here."""
 
     def put(a):  # a copy: another package's arrays may be read-only
         return torch.as_tensor(np.array(a, dtype=np.uint8, order="C"), device=device)
 
-    return BenesPlanPacked(
+    return build_index(BenesPlanPacked(
         fine_dists=tuple(int(d) for d in fine_dists),
         pre_groups=tuple(pre_groups),
         post_groups=tuple(post_groups),
@@ -420,11 +443,11 @@ def benes_plan_packed_from_numpy(
         pre_masks=tuple(put(m) for m in pre_masks),
         post_masks=tuple(put(m) for m in post_masks),
         N=int(N), n_in=int(n_in), n_out=int(n_out), block_log2=int(block_log2),
-    )
+    ))
 
 
 # ---------------------------------------------------------------------------
-# The three kernels' wrappers, each beside its plain version
+# Plain versions of the three kernels: the stages on the packed masks
 # ---------------------------------------------------------------------------
 
 
@@ -458,8 +481,11 @@ def benes_coarse2_reference(v, masks, steps, E_hi, E_lo, R):
 
 
 SMEM_LIMIT = 227 * 1024  # bytes of shared memory one block may use on sm_90
-LINE_BYTES = 128  # widest strip: one cache line of lanes
-SECTOR_BYTES = 32  # narrowest strip a two-axis side is kept whole for
+LINE_BYTES = 128  # widest strip of the window form: one cache line of lanes
+SECTOR_BYTES = 32  # narrowest strip the window form keeps a two-axis side whole for
+GATHER_ROW_BYTES = 64  # lanes of a K7 strip: 64 B of payload per block position (32 B measured slower)
+GATHER_STRIP_SLOTS = 1 << 15  # a K7 strip holds at most this many slots (32 a thread)
+GATHER_MIN_LANES = 8  # 16 B of index per position: the narrowest TMA box row
 
 _INT_P = ctypes.POINTER(ctypes.c_int)
 
@@ -477,23 +503,28 @@ def _lib():
     lib = _build.load("benes")
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.dualip_benes_fine.argtypes = [vp, vp, ll, ci, ci, ci, _INT_P, _INT_P, _INT_P, vp]
-    # K6 and K7 share one entry point: a single-axis group is E_hi = 1
+    # K6 and the window form of K7 share one entry point: a single-axis group is E_hi = 1
     lib.dualip_benes_coarse.argtypes = [vp, vp, ll, ll, ll, ll, ll, ci, ci, ci, ci, _INT_P, _INT_P, _INT_P, vp]
-    for fn in (lib.dualip_benes_fine, lib.dualip_benes_coarse):
+    lib.dualip_benes_gather_fine.argtypes = [vp, vp, ll, ci, ci, vp]
+    lib.dualip_benes_gather_rows.argtypes = [vp, vp, ll, ll, ll, ll, ci, vp]
+    for fn in (lib.dualip_benes_fine, lib.dualip_benes_coarse, lib.dualip_benes_gather_fine,
+               lib.dualip_benes_gather_rows):
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check_cuda_payload(v: torch.Tensor, masks: torch.Tensor, N: int, what: str) -> int:
+def _check_cuda_payload(v: torch.Tensor, side: torch.Tensor, N: int, what: str) -> int:
+    """Checks a payload and the tensor the kernel reads beside it (mask planes
+    or a source index); returns the payload's element size."""
     if v.dim() != 1 or v.shape[0] != N:
         raise ValueError(f"{what}: payload must be flat ({N},), got {tuple(v.shape)}")
-    if masks.device != v.device:
-        raise ValueError(f"{what}: payload on {v.device}, masks on {masks.device}")
-    if masks.dtype != torch.uint8:
-        raise TypeError(f"{what}: masks must be uint8 bit-planes")
+    if side.device != v.device:
+        raise ValueError(f"{what}: payload on {v.device}, plan on {side.device}")
+    if side.dtype not in (torch.uint8, torch.int16):
+        raise TypeError(f"{what}: masks must be uint8 bit-planes, an index int16, got {side.dtype}")
     if v.element_size() not in (2, 4):
         raise TypeError(f"{what}: the kernel moves 2- or 4-byte payloads, got {v.dtype}")
-    if not (v.is_contiguous() and masks.is_contiguous()) or v.data_ptr() % 16:
+    if not (v.is_contiguous() and side.is_contiguous()) or v.data_ptr() % 16 or side.data_ptr() % 16:
         raise ValueError(f"{what}: the kernel takes contiguous, 16-byte aligned tensors")
     return v.element_size()
 
@@ -503,9 +534,9 @@ def _stream(dev):
 
 
 def _strip_lanes(E: int, inner: int, elem: int, planes: int, floor_bytes: int = 1) -> int:
-    """Lanes W of a coarse strip: at most one 128 B line, halved until the
-    strip (E*W payload + planes) fits shared memory; 0 if it does not fit at
-    ``floor_bytes`` of lanes."""
+    """Lanes W of a window-form coarse strip: at most one 128 B line, halved
+    until the strip (E*W payload + planes) fits shared memory; 0 if it does
+    not fit at ``floor_bytes`` of lanes."""
     W = min(inner, LINE_BYTES // elem)
     floor = max(1, min(inner, floor_bytes // elem))
     while W > floor and E * W * (elem + planes) > SMEM_LIMIT:
@@ -513,24 +544,38 @@ def _strip_lanes(E: int, inner: int, elem: int, planes: int, floor_bytes: int = 
     return W if E * W * (elem + planes) <= SMEM_LIMIT else 0
 
 
-def benes_fine(v: torch.Tensor, fine_masks: torch.Tensor, fine_dists: tuple, reverse: bool = False) -> torch.Tensor:
-    """K5: all fine stages (distance < block) of every block.  On a CUDA tensor
-    the kernel runs in place on ``v`` and ``v`` is returned; on a CPU tensor
-    the plain version returns a new tensor.  Counts launches in
-    ``benes_fine.launches``."""
+def _gather_lanes(E: int, inner: int, elem: int) -> int:
+    """Lanes W of a K7 gather strip: ``GATHER_ROW_BYTES`` of payload per
+    position, halved (down to 8 lanes: 16 bytes of index, the narrowest TMA
+    box row) until the strip holds at most ``GATHER_STRIP_SLOTS`` slots; 0 if
+    it never does.  Shared memory then holds the strip and its index: at most
+    192 KB."""
+    W = min(inner, GATHER_ROW_BYTES // elem)
+    while W > GATHER_MIN_LANES and E * W > GATHER_STRIP_SLOTS:
+        W //= 2
+    return W if W >= GATHER_MIN_LANES and E * W <= GATHER_STRIP_SLOTS else 0
+
+
+# ---------------------------------------------------------------------------
+# Window forms: all stages of a launch in register windows, read from the
+# mask planes.  K6 runs so; the fine and two-axis forms
+# build the source index of the gather kernels once per plan.
+# ---------------------------------------------------------------------------
+
+
+def benes_fine_window(v, fine_masks, fine_dists, reverse=False):
+    """The fine stages of every block in register windows (the index builder
+    of K5).  In place on CUDA (returns ``v``); plain version on CPU.  Counts
+    launches in ``benes_fine_window.launches``."""
     if v.device.type == "cpu":
         return benes_fine_reference(v, fine_masks, fine_dists, reverse)
-    if v.device.type != "cuda":
-        raise ValueError(f"benes_fine runs on cuda or cpu tensors, got {v.device}")
     P, nb, R, C = fine_masks.shape
     N = nb * R * C
-    elem = _check_cuda_payload(v, fine_masks, N, "benes_fine")
+    elem = _check_cuda_payload(v, fine_masks, N, "benes_fine_window")
     bs_log2 = (R * C).bit_length() - 1
     if (R * C) * (elem + 1) > SMEM_LIMIT:
-        raise ValueError(
-            f"benes_fine: a block of 2^{bs_log2} {elem}-byte slots and one mask plane exceed "
-            f"{SMEM_LIMIT} B of shared memory; pack the plan at a smaller block_log2"
-        )
+        raise ValueError(f"benes_fine_window: a block of 2^{bs_log2} {elem}-byte slots and one mask plane "
+                         f"exceed {SMEM_LIMIT} B of shared memory; pack the plan at a smaller block_log2")
     triples = tuple((s >> 3, s & 7, d.bit_length() - 1) for s, d in enumerate(fine_dists))
     n, planes, bits, logs = _c_steps(triples[::-1] if reverse else triples)
     with torch.cuda.device(v.device):
@@ -538,12 +583,12 @@ def benes_fine(v: torch.Tensor, fine_masks: torch.Tensor, fine_dists: tuple, rev
             v.data_ptr(), fine_masks.data_ptr(), N, bs_log2, elem, n, planes, bits, logs, _stream(v.device)
         )
     if rc != 0:
-        raise RuntimeError(f"benes_fine: CUDA error {rc} at launch (N={N}, block=2^{bs_log2}, stages={n})")
-    benes_fine.launches += 1
+        raise RuntimeError(f"benes_fine_window: CUDA error {rc} at launch (N={N}, block=2^{bs_log2}, stages={n})")
+    benes_fine_window.launches += 1
     return v
 
 
-benes_fine.launches = 0
+benes_fine_window.launches = 0
 
 
 def benes_coarse(v: torch.Tensor, masks: torch.Tensor, steps: tuple, E: int, I_rows: int) -> torch.Tensor:
@@ -576,22 +621,18 @@ def benes_coarse(v: torch.Tensor, masks: torch.Tensor, steps: tuple, E: int, I_r
 benes_coarse.launches = 0
 
 
-def benes_coarse2(v: torch.Tensor, masks: torch.Tensor, steps: tuple, E_hi: int, E_lo: int, R: int) -> torch.Tensor:
-    """K7: all stages of one two-axis coarse side on the
-    (O2, E_hi, E_lo, R*128) view; ``steps`` = ((bit, q), ...) in execution
-    order, q in block units (q >= E_lo exchanges along E_hi).  One launch
-    holds the whole (E_hi, E_lo) side of a lane window in shared memory; when
-    that does not fit at one 32 B sector of lanes, the E_hi stages and the
-    E_lo stages run as two launches of the same kernel, in their order.  In
-    place on CUDA (returns ``v``); plain version on CPU.  Counts kernel
-    launches in ``benes_coarse2.launches``."""
+def benes_coarse2_window(v, masks, steps, E_hi, E_lo, R):
+    """The stages of one two-axis coarse side (or any run of them) in
+    register windows on the (O2, E_hi, E_lo, R*128) view (the index builder
+    of K7): one launch when the whole side fits shared memory at one 32 B
+    sector of lanes, else one launch per run of stages on one axis.  In place
+    on CUDA (returns ``v``); plain version on CPU.  Counts kernel launches in
+    ``benes_coarse2_window.launches``."""
     if v.device.type == "cpu":
         return benes_coarse2_reference(v, masks, steps, E_hi, E_lo, R)
-    if v.device.type != "cuda":
-        raise ValueError(f"benes_coarse2 runs on cuda or cpu tensors, got {v.device}")
     P = masks.shape[0]
     N = masks.numel() // P
-    elem = _check_cuda_payload(v, masks, N, "benes_coarse2")
+    elem = _check_cuda_payload(v, masks, N, "benes_coarse2_window")
     inner = R * 128
     lo_log = E_lo.bit_length() - 1
     W = _strip_lanes(E_hi * E_lo, inner, elem, P, floor_bytes=SECTOR_BYTES)
@@ -607,7 +648,7 @@ def benes_coarse2(v: torch.Tensor, masks: torch.Tensor, steps: tuple, E_hi: int,
             else:
                 Wa = _strip_lanes(E_hi if axis else E_lo, inner, elem, P)
                 if not Wa:
-                    raise ValueError(f"benes_coarse2: an axis of ({E_hi}, {E_lo}) does not fit shared memory")
+                    raise ValueError(f"benes_coarse2_window: an axis of ({E_hi}, {E_lo}) does not fit shared memory")
                 launches.append((axis, Wa, [triple]))
         launches = [(axis, Wa, tuple(tr)) for axis, Wa, tr in launches]
     with torch.cuda.device(v.device):
@@ -618,14 +659,217 @@ def benes_coarse2(v: torch.Tensor, masks: torch.Tensor, steps: tuple, E_hi: int,
                 n, planes, bits, logs, _stream(v.device),
             )
             if rc != 0:
-                raise RuntimeError(
-                    f"benes_coarse2: CUDA error {rc} at launch (N={N}, E=({E_hi}, {E_lo}), axis={axis}, W={Wa})"
-                )
-            benes_coarse2.launches += 1
+                raise RuntimeError(f"benes_coarse2_window: CUDA error {rc} at launch "
+                                   f"(N={N}, E=({E_hi}, {E_lo}), axis={axis}, W={Wa})")
+            benes_coarse2_window.launches += 1
+    return v
+
+
+benes_coarse2_window.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The source index
+# ---------------------------------------------------------------------------
+
+
+def coarse2_launches(steps: tuple, E_hi: int, E_lo: int) -> tuple:
+    """The gather launches of a two-axis side, forward order: ``((axis,
+    steps), ...)``.  One launch (axis 2, the block position e = e_hi*E_lo +
+    e_lo) while a strip of all E_hi*E_lo positions at the fewest lanes fits
+    (``_gather_lanes``; up to 4096 positions); else one launch per run of
+    consecutive stages on one axis (1: E_hi, 0: E_lo).  The rule does not
+    depend on the payload type, so one index serves fp32 and bf16."""
+    if E_hi * E_lo * GATHER_MIN_LANES <= GATHER_STRIP_SLOTS:
+        return ((2, tuple(steps)),)
+    runs = []
+    for s, q in steps:
+        axis = 1 if q >= E_lo else 0
+        if runs and runs[-1][0] == axis:
+            runs[-1][1].append((s, q))
+        else:
+            runs.append((axis, [(s, q)]))
+    return tuple((axis, tuple(st)) for axis, st in runs)
+
+
+def _axis_view(axis: int, E_hi: int, E_lo: int, R: int) -> tuple:
+    """(E, inner) of the (O, E, inner) view a gather launch permutes along E."""
+    inner = R * 128
+    return {2: (E_hi * E_lo, inner), 1: (E_hi, E_lo * inner), 0: (E_lo, inner)}[axis]
+
+
+def _as_index(pos: torch.Tensor) -> torch.Tensor:
+    """Positions in [0, 2^16) as int16 bits (the kernels read them as uint16)."""
+    pos = pos.to(torch.int32)
+    return (pos - ((pos >> 15) << 16)).to(torch.int16)
+
+
+def index_values(idx: torch.Tensor) -> torch.Tensor:
+    """An index's positions as int64, for indexing."""
+    return idx.to(torch.int64) & 0xFFFF
+
+
+def build_index(plan: BenesPlanPacked, plain: bool = False) -> BenesPlanPacked:
+    """Fills the plan's source index in place and returns the plan.
+
+    A gather launch's permutation is found by running its stages on an iota:
+    slot i then holds the flat slot it reads from.  Forward and reverse are
+    both such runs (the stages in reverse order give the inverse), two
+    gathers, never a scatter.  On a CUDA plan the window kernels run them
+    (``benes_fine_window``, ``benes_coarse2_window``: 4-byte payloads of any
+    type); on a CPU plan, or with ``plain=True``, the plain stages."""
+    t0 = time.perf_counter()
+    P, nb, R, C = plan.fine_masks.shape
+    bs = R * C
+    if bs > 1 << 16:
+        raise ValueError(f"a block of {bs} slots: the 16-bit source index needs block_log2 <= 16")
+    if plan.N >= 1 << 31:
+        raise ValueError(f"N={plan.N}: the index is built on an int32 iota")
+    dev = plan.fine_masks.device
+    on_card = dev.type == "cuda" and not plain
+    fine_fn = benes_fine_window if on_card else benes_fine_reference
+    coarse_fn = benes_coarse2_window if on_card else benes_coarse2_reference
+
+    def iota():
+        return torch.arange(plan.N, dtype=torch.int32, device=dev)
+
+    plan.fine_src_fwd, plan.fine_src_rev = (
+        _as_index(fine_fn(iota(), plan.fine_masks, plan.fine_dists, rev) & (bs - 1)) for rev in (False, True)
+    )
+
+    def side(groups, masks):
+        out = []
+        for (steps, E, R_g), m in zip(groups, masks):
+            if not isinstance(E, tuple):
+                out.append(None)
+                continue
+            launches = []
+            for axis, st in coarse2_launches(steps, *E):
+                En, inner = _axis_view(axis, *E, R_g)
+                shift = inner.bit_length() - 1
+                fwd, rev = (_as_index((coarse_fn(iota(), m, s, *E, R_g) >> shift) & (En - 1))
+                            for s in (st, st[::-1]))
+                launches.append((axis, fwd, rev))
+            out.append(tuple(launches))
+        return tuple(out)
+
+    plan.pre_src = side(plan.pre_groups, plan.pre_masks)
+    plan.post_src = side(plan.post_groups, plan.post_masks)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    plan.index_build_s = time.perf_counter() - t0
+    return plan
+
+
+def index_tensors(plan: BenesPlanPacked) -> list:
+    """Every index tensor of the plan, in a fixed order (``None`` where one is
+    missing): fine forward and reverse, then each two-axis launch's pair."""
+    out = [plan.fine_src_fwd, plan.fine_src_rev]
+    for groups, srcs in ((plan.pre_groups, plan.pre_src), (plan.post_groups, plan.post_src)):
+        for i, (_, E, _) in enumerate(groups):
+            if not isinstance(E, tuple):
+                continue
+            entry = srcs[i] if srcs is not None else None
+            out.extend([None, None] if entry is None else [t for _, f, r in entry for t in (f, r)])
+    return out
+
+
+def index_bytes(plan: BenesPlanPacked) -> int:
+    return sum(t.numel() * t.element_size() for t in index_tensors(plan) if t is not None)
+
+
+def require_index(plan: BenesPlanPacked) -> None:
+    """Refuses a plan without its source index: the gather kernels need it,
+    and nothing falls back to the window form or the plain stages."""
+    if any(t is None for t in index_tensors(plan)):
+        raise ValueError("this packed plan has no source index; build it with build_index(plan) "
+                         "(pack_plan and benes_plan_packed_from_numpy do)")
+
+
+# ---------------------------------------------------------------------------
+# The gather kernels' wrappers (K5, K7), each beside its plain version
+# ---------------------------------------------------------------------------
+
+
+def _check_index(src, what: str) -> None:
+    if src is None:
+        raise ValueError(f"{what}: no source index for a CUDA payload (build_index); the kernel is a gather")
+    if src.dtype != torch.int16:
+        raise TypeError(f"{what}: the source index is int16 bits, got {src.dtype}")
+
+
+def benes_fine(v: torch.Tensor, fine_masks: torch.Tensor, fine_dists: tuple, reverse: bool = False,
+               src: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K5: all fine stages (distance < block) of every block.  On a CUDA
+    tensor one gather kernel, in place, through ``src`` (the plan's
+    ``fine_src_rev`` for ``reverse``, else ``fine_src_fwd``), and ``v`` is
+    returned; on a CPU tensor the plain stages return a new tensor.  Counts
+    launches in ``benes_fine.launches``."""
+    if v.device.type == "cpu":
+        return benes_fine_reference(v, fine_masks, fine_dists, reverse)
+    if v.device.type != "cuda":
+        raise ValueError(f"benes_fine runs on cuda or cpu tensors, got {v.device}")
+    _check_index(src, "benes_fine")
+    P, nb, R, C = fine_masks.shape
+    N = nb * R * C
+    elem = _check_cuda_payload(v, src, N, "benes_fine")
+    if src.shape != (N,):
+        raise ValueError(f"benes_fine: index of shape {tuple(src.shape)} for {N} slots")
+    bs_log2 = (R * C).bit_length() - 1
+    if (R * C) * elem > SMEM_LIMIT:
+        raise ValueError(f"benes_fine: a block of 2^{bs_log2} {elem}-byte slots exceeds {SMEM_LIMIT} B "
+                         "of shared memory; pack the plan at a smaller block_log2")
+    with torch.cuda.device(v.device):
+        rc = _lib().dualip_benes_gather_fine(v.data_ptr(), src.data_ptr(), N, bs_log2, elem, _stream(v.device))
+    if rc != 0:
+        raise RuntimeError(f"benes_fine: CUDA error {rc} at launch (N={N}, block=2^{bs_log2})")
+    benes_fine.launches += 1
+    return v
+
+
+benes_fine.launches = 0
+
+
+def benes_coarse2(v: torch.Tensor, masks: torch.Tensor, steps: tuple, E_hi: int, E_lo: int, R: int,
+                  src: Optional[tuple] = None) -> torch.Tensor:
+    """K7: all stages of one two-axis coarse side on the (O2, E_hi, E_lo,
+    R*128) view; ``steps`` = ((bit, q), ...) in execution order, q in block
+    units (q >= E_lo exchanges along E_hi).  On a CUDA tensor one gather
+    kernel per entry of ``src`` = ((axis, index), ...), in execution order
+    (``coarse2_launches``; each strip holds all positions of its axis and a
+    few lanes), in place, returning ``v``; on a CPU tensor the plain stages.
+    Counts kernel launches in ``benes_coarse2.launches``."""
+    if v.device.type == "cpu":
+        return benes_coarse2_reference(v, masks, steps, E_hi, E_lo, R)
+    if v.device.type != "cuda":
+        raise ValueError(f"benes_coarse2 runs on cuda or cpu tensors, got {v.device}")
+    if not src:
+        raise ValueError("benes_coarse2: no source index for a CUDA payload (build_index); the kernel is a gather")
+    N = v.shape[0]
+    for axis, idx in src:
+        _check_index(idx, "benes_coarse2")
+        elem = _check_cuda_payload(v, idx, idx.numel(), "benes_coarse2")
+        E, inner = _axis_view(axis, E_hi, E_lo, R)
+        W = _gather_lanes(E, inner, elem)
+        if not W or N % (E * inner):
+            raise ValueError(f"benes_coarse2: a strip of E={E} positions does not fit shared memory (N={N})")
+        with torch.cuda.device(v.device):
+            rc = _lib().dualip_benes_gather_rows(v.data_ptr(), idx.data_ptr(), N, E, inner, W, elem,
+                                                 _stream(v.device))
+        if rc != 0:
+            raise RuntimeError(f"benes_coarse2: CUDA error {rc} at launch (N={N}, E={E}, inner={inner}, W={W})")
+        benes_coarse2.launches += 1
     return v
 
 
 benes_coarse2.launches = 0
+
+
+def _direction(src: Optional[tuple], reverse: bool) -> Optional[tuple]:
+    """A two-axis group's ((axis, index), ...) in execution order."""
+    if src is None:
+        return None
+    return tuple((a, r) for a, _, r in reversed(src)) if reverse else tuple((a, f) for a, f, _ in src)
 
 
 def apply_butterfly_cuda(
@@ -636,37 +880,43 @@ def apply_butterfly_cuda(
     truncate: bool = True,
 ) -> torch.Tensor:
     """Blocked application (``apply_butterfly_tpu`` of the JAX package): the
-    pre-side coarse groups, the fine stages, the post-side coarse groups, one
-    kernel launch per group.  ``reverse`` swaps the sides, reverses the group
-    order within a side and the steps within a group, on the same masks.
+    pre-side coarse groups, the fine stages, the post-side coarse groups.
+    ``reverse`` swaps the sides, reverses the group order within a side and
+    the steps within a group, on the same masks, and reads the reverse index.
 
     On a CUDA tensor the kernels work in place: an ``x`` of the full padded
     length N is overwritten and returned (no second N-sized buffer); a shorter
     ``x`` is first copied into a zero-padded buffer.  Pass a ``BenesPlanPacked``
-    whose masks are on ``x``'s device; packing a ``BenesPlan`` here costs a
-    host pass over the masks on every call."""
+    on ``x``'s device; it must carry its source index (``require_index``).
+    Packing a ``BenesPlan`` here costs a host pass over the masks and an index
+    build on every call."""
     if not isinstance(plan, BenesPlanPacked):
         plan = pack_plan(plan, block_log2=block_log2, device=x.device)
+    if x.device.type == "cuda":
+        require_index(plan)
     v = _pad_to(x, plan.N)
 
-    pre = list(zip(plan.pre_groups, plan.pre_masks))
-    post = list(zip(plan.post_groups, plan.post_masks))
+    def groups(gs, ms, srcs):
+        return list(zip(gs, ms, srcs if srcs is not None else (None,) * len(gs)))
+
+    pre = groups(plan.pre_groups, plan.pre_masks, plan.pre_src)
+    post = groups(plan.post_groups, plan.post_masks, plan.post_src)
     if reverse:
         pre, post = (
-            [((steps[::-1], E, I), m) for (steps, E, I), m in reversed(post)],
-            [((steps[::-1], E, I), m) for (steps, E, I), m in reversed(pre)],
+            [((steps[::-1], E, I), m, s) for (steps, E, I), m, s in reversed(post)],
+            [((steps[::-1], E, I), m, s) for (steps, E, I), m, s in reversed(pre)],
         )
 
     def coarse(v, side):
-        for (steps, E, I_rows), m in side:
+        for (steps, E, I_rows), m, src in side:
             if isinstance(E, tuple):  # two-axis side
-                v = benes_coarse2(v, m, steps, E[0], E[1], I_rows)
+                v = benes_coarse2(v, m, steps, E[0], E[1], I_rows, _direction(src, reverse))
             else:
                 v = benes_coarse(v, m, steps, E, I_rows)
         return v
 
     v = coarse(v, pre)
-    v = benes_fine(v, plan.fine_masks, plan.fine_dists, reverse)
+    v = benes_fine(v, plan.fine_masks, plan.fine_dists, reverse, plan.fine_src_rev if reverse else plan.fine_src_fwd)
     v = coarse(v, post)
     if not truncate:
         return v
