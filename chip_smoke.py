@@ -20,9 +20,15 @@ result lines at the end are printed only by a full run):
    against the plain stages with ``torch.equal``, forward and reverse, fp32
    and bf16, in every regime of the block count, and the index the window
    kernels build on the card against the index the plain stages build;
-6. panel: the panel kernel (K3/K4) against its plain version for every
-   projection kind, q = 1 and q > 1, L a power of two and not, fp32 and bf16
-   carry; the rest of the buffer unchanged, ghost lanes zero;
+6. panel: the panel kernel (K3/K4) one tile a launch against its plain
+   version for every projection kind, q = 1 and q > 1, L a power of two and
+   not, either side of the largest L the kernel's ring holds (47 with an
+   fp32 carry, 57 with bf16), fp32 and bf16 carry; the rest of the buffer
+   unchanged, ghost lanes zero; then all tiles of a mixed table (L = 1, 2, 5,
+   16, 29, 48, 64, 100 plain, 3, 29, 34 compact, the kinds mixed across
+   tiles) in one launch, against the
+   plain version, against one launch per tile bit for bit on a*x and x, and
+   repeated bit for bit on (obj, reg);
 7. golden: the 5x5 matching golden trace through ``run_solver`` on the card,
    csc layout and butterfly layout (plain, compact, ``srow_gather``, bf16);
 8. slice: the synthetic matching LP (2,500,000 sources x 10,000 destinations,
@@ -38,8 +44,11 @@ result lines at the end are printed only by a full run):
    ``layout="butterfly"``: launches counted, plain versions compared, the csc
    log compared, a bit-identical repeat, a 250,000-source solve (the K6
    regime), then ``compact``, ``carry_dtype=bfloat16`` and ``srow_gather``,
-   and each kernel timed at the slice's shapes (K5 and K7 beside their window
-   forms, which build the index, and K7 at 32 B rows as well as 64 B).
+   each kernel timed at the slice's shapes (K5 and K7 beside their window
+   forms, which build the index, and K7 at 32 B rows as well as 64 B; K3/K4
+   in one launch for all tiles beside one launch per tile, and each tile
+   alone, on the plain and the compact packing), and ``torch.profiler``
+   windows over 10 butterfly and 10 compact iterations.
 
 Kernel times (``ms``) are CUDA-graph replays of the wrapper's calls, so the
 host's launch gaps are not in them; each ``[timing]`` line also gives the eager
@@ -71,7 +80,10 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_FP32_FLOP_PER_S = 67e12  # counts an FMA as two operations
+# fp32 operations that are not FMAs (the bisection's subtract, max and add):
+# one per lane and clock, 132 SMs x 128 lanes x 1.98 GHz
+NON_FMA_OPS_PER_S = 132 * 128 * 1.98e9
 BISECTION_ITERS = 30
 
 SMALL_SOURCES = 250_000  # the second butterfly solve: few enough blocks for one single-axis group a side
@@ -399,42 +411,55 @@ def phase_benes(dev) -> None:
             check(used[1] == 4 and used[2] == 0, f"benes {what}: expected 4 K6 launches, got {used}")
 
 
+def panel_tile(rng, L, compact, KP, dev):
+    """Random panel-form a, c, length of one tile (masked columns included):
+    (PanelTile, pack, L2, q)."""
+    from dualip_tpu_torch.sparse.rowmajor import PanelTile, _pack_geometry
+
+    if compact:
+        L2, q = _pack_geometry(L)
+        pack = (L, L2, q)
+    else:
+        L2, q, pack = (1 << max(L - 1, 0).bit_length()) if L > 1 else 1, 1, None
+    a = np.abs(rng.normal(size=(KP, q, L, 128))).astype(np.float32)
+    c = -np.abs(rng.normal(size=(KP, q, L, 128))).astype(np.float32)
+    length = rng.integers(0, L + 1, size=(KP, q, 1, 128)).astype(np.int32)
+    mask = np.arange(L)[None, None, :, None] < length
+    a = np.where(mask, a, 0).astype(np.float32).reshape(KP, q * L, 128)
+    c = np.where(mask, c, 0).astype(np.float32).reshape(KP, q * L, 128)
+    t = PanelTile(*(torch.from_numpy(v).to(dev) for v in (a, c, length.reshape(KP, q, 128))))
+    return t, pack, L2, q
+
+
+def panel_tol(ref: torch.Tensor, carry) -> float:
+    """a bf16 carry rounds a*x once: one bf16 ulp of slack on top"""
+    return tol_x(ref) + (float(ref.abs().max()) * 2.0 ** -7 if carry == torch.bfloat16 else 0.0)
+
+
 def phase_panel(dev):
-    """K3/K4 against the plain version: every case, q = 1 and q > 1, both carries."""
+    """K3/K4 one tile a launch against the plain version: every case, q = 1
+    and q > 1, both carries."""
     from dualip_tpu_torch.ops.fused_matching import fused_panel_project, fused_panel_project_reference
-    from dualip_tpu_torch.sparse.rowmajor import _pack_geometry
 
     rng = np.random.default_rng(3)
     err = {False: 0.0, True: 0.0}
     n = 0
     # (L, compact): plain panels with L a power of two and not; compact packings with q > 1
-    shapes = [(1, False), (2, False), (5, False), (16, False), (29, False), (100, False),
-              (3, True), (5, True), (29, True), (34, True)]
+    shapes = [(1, False), (2, False), (5, False), (16, False), (29, False), (48, False), (64, False),
+              (100, False), (3, True), (5, True), (29, True), (34, True)]
     for kind, params in CASES:
         for L, compact in shapes:
-            if compact:
-                L2, q = _pack_geometry(L)
-                pack = (L, L2, q)
-            else:
-                L2, q, pack = (1 << max(L - 1, 0).bit_length()) if L > 1 else 1, 1, None
             KP = 16
-            a = np.abs(rng.normal(size=(KP, q, L, 128))).astype(np.float32)
-            c = -np.abs(rng.normal(size=(KP, q, L, 128))).astype(np.float32)
-            length = rng.integers(0, L + 1, size=(KP, q, 1, 128)).astype(np.int32)
-            mask = np.arange(L)[None, None, :, None] < length
-            a = np.where(mask, a, 0).astype(np.float32).reshape(KP, q * L, 128)
-            c = np.where(mask, c, 0).astype(np.float32).reshape(KP, q * L, 128)
-            length = length.reshape(KP, q, 128)
+            tile, pack, L2, q = panel_tile(rng, L, compact, KP, dev)
             region = KP * L2 * 128
             off = 3 * region  # the region lies inside a larger buffer
             N = 8 * region
-            t = [torch.from_numpy(v).to(dev) for v in (a, c, length)]
             for carry in (torch.float32, torch.bfloat16):
                 buf0 = torch.from_numpy(rng.normal(size=N).astype(np.float32) * 50).to(dev).to(carry)
                 for want_x in (False, True):
-                    got = fused_panel_project(buf0.clone(), *t, off, kind, params, want_x=want_x,
+                    got = fused_panel_project(buf0.clone(), *tile, off, kind, params, want_x=want_x,
                                               neg_inv_gamma=-2.0, pack=pack)
-                    ref = fused_panel_project_reference(buf0.clone(), *t, off, kind, params, want_x=want_x,
+                    ref = fused_panel_project_reference(buf0.clone(), *tile, off, kind, params, want_x=want_x,
                                                         neg_inv_gamma=-2.0, pack=pack)
                     torch.cuda.synchronize()
                     name = f"{kind}{params} L={L} q={q} {carry} want_x={want_x}"
@@ -443,8 +468,7 @@ def phase_panel(dev):
                           f"panel {name}: wrote outside its region")
                     g_reg, r_reg = gb[off:off + region].view(KP, L2, 128).float(), rb[off:off + region].view(KP, L2, 128).float()
                     check(not g_reg[:, q * L:, :].any(), f"panel {name}: ghost lanes not zero")
-                    # a bf16 carry rounds a*x once: one bf16 ulp of slack on top
-                    tol = tol_x(r_reg) + (float(r_reg.abs().max()) * 2.0 ** -7 if carry == torch.bfloat16 else 0.0)
+                    tol = panel_tol(r_reg, carry)
                     e = float((g_reg - r_reg).abs().max())
                     check(e <= tol, f"panel {name}: |ax| err {e} > {tol}")
                     if want_x:
@@ -457,10 +481,184 @@ def phase_panel(dev):
                     if carry == torch.float32 or want_x:
                         err[want_x] = max(err[want_x], e)
                     n += 1
-    say("panel", cases=n, shapes_L_compact=shapes, max_abs_err_K3=err[False], max_abs_err_K4=err[True],
+    say("panel", form="one tile a launch", cases=n, shapes_L_compact=shapes, max_abs_err_K3=err[False],
+        max_abs_err_K4=err[True],
         tolerance="ax,x: 5e-5*max(1,max|.|) (+1 bf16 ulp on a bf16 carry); obj,reg: 1e-3+1e-4*|ref|",
         outside_region="unchanged", ghost_lanes="zero")
+    return phase_panel_tiles(dev, err)
+
+
+TABLE_SHAPES = [(1, False), (2, False), (5, False), (16, False), (29, False), (48, False), (64, False),
+                (100, False), (3, True), (29, True), (34, True)]
+
+
+def phase_panel_tiles(dev, err):
+    """All tiles of a mixed table in one launch: against the plain version,
+    against one launch per tile bit for bit on a*x and x, and a second launch
+    bit for bit on (obj, reg); the kinds rotate across the tiles."""
+    from dualip_tpu_torch.ops.fused_matching import (
+        build_panel_table,
+        fused_panel_project,
+        fused_panel_project_tiles,
+        fused_panel_project_tiles_reference,
+    )
+
+    rng = np.random.default_rng(4)
+    KP = 16
+    tiles, packs, geo = [], [], []
+    for L, compact in TABLE_SHAPES:
+        tile, pack, L2, q = panel_tile(rng, L, compact, KP, dev)
+        tiles.append(tile)
+        packs.append(pack)
+        geo.append((L, L2, q))
+    # regions as build_row_layout places them (descending L2), after an
+    # untouched stretch, with another one after the last region
+    base = cum = 2 * 128 * 512
+    offsets = [0] * len(tiles)
+    for i in sorted(range(len(tiles)), key=lambda i: -geo[i][1]):
+        offsets[i] = cum
+        cum += KP * geo[i][1] * 128
+    N = cum + 128 * 512
+    n = 0
+    for shift in range(len(CASES)):
+        kinds = [CASES[(i + shift) % len(CASES)] for i in range(len(tiles))]
+        table = build_panel_table(tiles, offsets, packs, kinds)
+        for carry in (torch.float32, torch.bfloat16):
+            buf0 = torch.from_numpy(rng.normal(size=N).astype(np.float32) * 50).to(dev).to(carry)
+            for want_x in (False, True):
+                got = fused_panel_project_tiles(buf0.clone(), table, -2.0, want_x=want_x)
+                again = fused_panel_project_tiles(buf0.clone(), table, -2.0, want_x=want_x)
+                ref = fused_panel_project_tiles_reference(buf0.clone(), table, -2.0, want_x=want_x)
+                per, per_x = buf0.clone(), []
+                for t in table.tiles:
+                    per_x += fused_panel_project(per, t.a, t.c, t.length, t.off, t.kind, t.params, want_x=want_x,
+                                                 neg_inv_gamma=-2.0, pack=t.pack)[3:]
+                torch.cuda.synchronize()
+                name = f"all tiles, kinds from case {shift}, {carry} want_x={want_x}"
+                check(torch.equal(got[0], per), f"panel {name}: a*x differs from one launch per tile")
+                check(all(torch.equal(g, p) for g, p in zip(got[3], per_x)) if want_x else True,
+                      f"panel {name}: x differs from one launch per tile")
+                check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]),
+                      f"panel {name}: two launches differ")
+                check(torch.equal(got[0][:base], buf0[:base]) and torch.equal(got[0][cum:], buf0[cum:]),
+                      f"panel {name}: wrote outside the regions")
+                for t in table.tiles:
+                    region = slice(t.off, t.off + t.KP * t.L2 * 128)
+                    g_reg = got[0][region].view(t.KP, t.L2, 128).float()
+                    r_reg = ref[0][region].view(t.KP, t.L2, 128).float()
+                    check(not g_reg[:, t.q * t.L:, :].any(), f"panel {name}: ghost lanes of L={t.L} not zero")
+                    e = float((g_reg - r_reg).abs().max())
+                    check(e <= panel_tol(r_reg, carry), f"panel {name}: |ax| err {e} on L={t.L} q={t.q}")
+                    if carry == torch.float32:
+                        err[want_x] = max(err[want_x], e)
+                if want_x:
+                    for g, r, t in zip(got[3], ref[3], table.tiles):
+                        e_x = float((g - r).abs().max())
+                        check(e_x <= tol_x(r), f"panel {name}: |x| err {e_x} on L={t.L} q={t.q}")
+                        err[True] = max(err[True], e_x)
+                for i, nm in ((1, "obj"), (2, "reg")):
+                    g, r = float(got[i]), float(ref[i])
+                    check(abs(g - r) <= 1e-3 + 1e-4 * abs(r), f"panel {name}: {nm} {g} vs {r}")
+                n += 1
+    say("panel", form="all tiles a launch", cases=n, tiles_L_compact=TABLE_SHAPES, max_abs_err_K3=err[False],
+        max_abs_err_K4=err[True], vs_one_launch_per_tile="bit for bit on a*x and x",
+        repeat="bit for bit on a*x, obj and reg", outside_regions="unchanged", ghost_lanes="zero")
     return err
+
+
+def time_panel(what, obj, dev, kernels, panel_err, launches=None):
+    """K3/K4 on a butterfly objective's tiles (its panel table): all tiles
+    in one launch against the plain version, against one launch per tile
+    bit for bit and against itself (obj, reg too) bit for bit; timed beside
+    the per-tile form, the plain version and, for K3, each tile alone and a
+    bf16 carry.  With ``launches`` (the solve's counts), K3 and K4 join
+    ``kernels``."""
+    from dualip_tpu_torch.ops.fused_matching import (
+        fused_panel_project,
+        fused_panel_project_tiles,
+        fused_panel_project_tiles_reference,
+    )
+    from dualip_tpu_torch.objectives.matching import _plan_size
+
+    nig = torch.full((), -1.0 / 1e-3, dtype=torch.float32, device=dev)
+    table = obj.panel_table
+    ts = table.tiles
+    n_carry = _plan_size(obj.row_layout.plan)  # the carry buffer's length
+    srow0 = torch.from_numpy(np.random.default_rng(7).normal(size=n_carry).astype(np.float32) * 0.01).to(dev)
+
+    def bound(tiles_, want_x, carry_bytes=4):
+        real = sum(t.a.numel() for t in tiles_)
+        ghost = sum(t.KP * t.L2 * 128 - t.a.numel() for t in tiles_)
+        cols = sum(t.length.numel() for t in tiles_)
+        nbytes = real * (8 + 2 * carry_bytes + (4 if want_x else 0)) + ghost * carry_bytes + cols * 4
+        nops = sum(t.a.numel() * ops_per_slot(t.kind) for t in tiles_)
+        t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_FLOP_PER_S * 1e3
+        return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, nops, real, ghost
+
+    def per_tile(b, want_x, tiles_=ts):
+        return [fused_panel_project(b, t.a, t.c, t.length, t.off, t.kind, t.params, want_x=want_x,
+                                    neg_inv_gamma=nig, pack=t.pack) for t in tiles_]
+
+    for want_x in (False, True):
+        name = "K4 fused_panel_project_tiles want_x" if want_x else "K3 fused_panel_project_tiles"
+        got = fused_panel_project_tiles(srow0.clone(), table, nig, want_x=want_x)
+        again = fused_panel_project_tiles(srow0.clone(), table, nig, want_x=want_x)
+        per = srow0.clone()
+        per_x = [r[3:] for r in per_tile(per, want_x)]  # (x,) each with want_x, else ()
+        ref = fused_panel_project_tiles_reference(srow0.clone(), table, nig, want_x=want_x)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], per) and all(torch.equal(g, p_[0]) for g, p_ in zip(got[3] if want_x else [], per_x)),
+              f"{what} {name}: the all-tiles launch differs from one launch per tile")
+        check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]),
+              f"{what} {name}: two launches differ")
+        e = float((got[0] - ref[0]).abs().max())
+        tol = tol_x(ref[0])
+        if want_x:
+            e = max([e] + [float((g - r).abs().max()) for g, r in zip(got[3], ref[3])])
+        check(e <= tol, f"{what} {name}: err {e} > {tol}")
+        for i in (1, 2):
+            g, r = float(got[i]), float(ref[i])
+            check(abs(g - r) <= 1e-3 + 1e-4 * abs(r), f"{what} {name}: sums {g} vs {r}")
+        del got, again, per_x, ref
+        srow = srow0.clone()
+        t_k = cuda_ms(lambda: fused_panel_project_tiles(srow, table, nig, want_x=want_x), reps=10, graph=True)
+        t_per = cuda_ms(lambda: per_tile(srow, want_x), reps=10, graph=True)
+        plain_ms = cuda_ms(lambda: fused_panel_project_tiles_reference(srow, table, nig, want_x=want_x),
+                           reps=2, warmup=1).ms
+        b_ms, b_by, nbytes, nops, real, ghost = bound(ts, want_x)
+        ops_ms = nops / NON_FMA_OPS_PER_S * 1e3
+        extra = {}
+        if not want_x:
+            srow_bf = srow0.to(torch.bfloat16)
+            extra["bf16_carry_ms"] = cuda_ms(lambda: fused_panel_project_tiles(srow_bf, table, nig),
+                                             reps=10, graph=True).ms
+            extra["bf16_carry_bound_ms"] = bound(ts, False, 2)[0]
+            del srow_bf
+            tile_rows = []
+            for t in ts:  # each tile alone: one launch of the same kernel
+                ms_t = cuda_ms(lambda: per_tile(srow, False, [t]), reps=10, graph=True).ms
+                lcap = "stream" if t.L > 32 else 1 << max(t.L - 1, 0).bit_length()
+                tile_rows.append((t.L, t.q, lcap, t.a.numel(), round(ms_t, 4), round(bound([t], False)[0], 4)))
+            say("timing", path=what, kernel="'K3, each tile alone'",
+                per_tile_L_q_LCAP_slots_ms_bound=tile_rows,
+                sum_ms=f"{sum(r[4] for r in tile_rows):.4f}")
+        del per
+        say("timing", path=what, kernel=repr(name), per_iteration_ms=f"{t_k.ms:.4f}",
+            per_tile_form_ms=f"{t_per.ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{b_ms:.4f}",
+            bound_by=b_by, share_of_bound=f"{b_ms / t_k.ms:.3f}", ops_ms_at_non_fma_rate=f"{ops_ms:.4f}",
+            bytes=nbytes, ops=nops, real_slots=real, ghost_slots=ghost, tiles=len(ts), items=table.n_items,
+            **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in extra.items()},
+            per_tile_form_host_enqueue_ms=f"{t_per.host_ms:.4f}", **timing_kv(t_k))
+        if launches is not None:
+            kernels.append({
+                "name": name, "route": "cuda", "source": "dualip_tpu_torch/csrc/panel_matching.cu",
+                "replaces": "dualip_tpu/ops/pallas_matching.py:" + ("287" if want_x else "305"),
+                "launches": launches["K4" if want_x else "K3"], "max_abs_err": max(e, panel_err[want_x]),
+                "ms": t_k.ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None,  # no single PyTorch call computes the projection
+                "per_tile_form_ms": t_per.ms,
+            })
+        del srow
 
 
 def phase_golden(dev_name):
@@ -556,7 +754,8 @@ def main(argv=None) -> int:
     from dualip_tpu_torch.ops import _build
     from dualip_tpu_torch.ops.fused_matching import (
         fused_panel_project,
-        fused_panel_project_reference,
+        fused_panel_project_tiles,
+        fused_panel_project_tiles_reference,
         fused_tile_eval_T,
         fused_tile_eval_T_reference,
         fused_tile_gather_eval_T,
@@ -657,6 +856,7 @@ def main(argv=None) -> int:
         fused_tile_eval_T.launches = fused_tile_eval_T.launches_x = 0
         fused_tile_gather_eval_T.launches = fused_tile_gather_eval_T.launches_x = 0
         fused_panel_project.launches = fused_panel_project.launches_x = 0
+        fused_panel_project_tiles.launches = fused_panel_project_tiles.launches_x = 0
         bf.benes_fine.launches = bf.benes_coarse.launches = bf.benes_coarse2.launches = 0
         bf.benes_fine_window.launches = bf.benes_coarse2_window.launches = 0
         segment_sum_rows.launches = 0
@@ -664,7 +864,8 @@ def main(argv=None) -> int:
     def counts():
         return {"K1g": fused_tile_gather_eval_T.launches, "K2g": fused_tile_gather_eval_T.launches_x,
                 "K1": fused_tile_eval_T.launches, "K2": fused_tile_eval_T.launches_x,
-                "K3": fused_panel_project.launches, "K4": fused_panel_project.launches_x,
+                "K3": fused_panel_project_tiles.launches, "K4": fused_panel_project_tiles.launches_x,
+                "K3t": fused_panel_project.launches, "K4t": fused_panel_project.launches_x,
                 "K5": bf.benes_fine.launches, "K6": bf.benes_coarse.launches, "K7": bf.benes_coarse2.launches,
                 "K5w": bf.benes_fine_window.launches, "K7w": bf.benes_coarse2_window.launches,
                 "segsum": segment_sum_rows.launches}
@@ -684,9 +885,11 @@ def main(argv=None) -> int:
         return np.array(AcceleratedGradientDescent(max_iter=n_chk, **solver_kw).maximize(
             objective, torch.zeros(m, device=dev)).dual_objective_log)
 
-    def profile_csc(objective, dual, n_tiles, iters=10):
-        """A torch.profiler window over ``iters`` csc iterations: the device's
-        busy share of the window and the kernels' time by name."""
+    def profile_window(path, objective, dual, iters=10):
+        """A torch.profiler window over ``iters`` iterations of ``path``: the
+        device's busy share of the window and the kernels' time by name;
+        returns the kernels' launches per name (None if nothing was
+        recorded)."""
         from torch.profiler import ProfilerActivity, profile
 
         agd = AcceleratedGradientDescent(max_iter=iters, **solver_kw)
@@ -700,8 +903,8 @@ def main(argv=None) -> int:
         spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                        if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start)
         if not spans:
-            say("profile", device_busy_share="not measured", note="the profiler recorded no device time")
-            return
+            say("profile", path=path, device_busy_share="not measured", note="the profiler recorded no device time")
+            return None
         busy, lo, hi = 0.0, spans[0][0], spans[0][1]
         for s0, e0, _ in spans[1:]:  # union of the device intervals
             if s0 > hi:
@@ -715,13 +918,14 @@ def main(argv=None) -> int:
             c, t = by_name.get(nm, (0, 0.0))
             by_name[nm] = (c + 1, t + e0 - s0)
         n_select = sum(c for nm, (c, _) in by_name.items() if "ndexSelect" in nm or "index_select" in nm)
-        say("profile", iterations=iters, window_wall_ms=f"{wall_us / 1e3:.4f}", device_span_ms=f"{span / 1e3:.4f}",
-            device_busy_ms=f"{busy / 1e3:.4f}", busy_share_of_wall=f"{busy / wall_us:.4f}",
-            busy_share_of_span=f"{busy / span:.4f}", device_activities_per_iteration=len(spans) / iters,
-            index_select_kernels_per_iteration=n_select / iters)
-        for nm, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
-            say("profile", kernel=repr(nm[:80]), per_iteration=c / iters, ms_per_iteration=f"{t / iters / 1e3:.4f}")
-        check(n_select < n_tiles * iters, f"{n_select} index_select kernels in {iters} iterations: the lambda gather runs")
+        say("profile", path=path, iterations=iters, window_wall_ms=f"{wall_us / 1e3:.4f}",
+            device_span_ms=f"{span / 1e3:.4f}", device_busy_ms=f"{busy / 1e3:.4f}",
+            busy_share_of_wall=f"{busy / wall_us:.4f}", busy_share_of_span=f"{busy / span:.4f}",
+            device_activities_per_iteration=len(spans) / iters, index_select_kernels_per_iteration=n_select / iters)
+        for nm, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:14]:
+            say("profile", path=path, kernel=repr(nm[:80]), per_iteration=c / iters,
+                ms_per_iteration=f"{t / iters / 1e3:.4f}")
+        return {nm: c for nm, (c, _) in by_name.items()}
 
     def ms_per_iteration(ev):
         return ev[1][0].elapsed_time(ev[-1][1]) / (len(ev) - 1)
@@ -938,7 +1142,10 @@ def main(argv=None) -> int:
         })
         del lam_g, ax_all, views, rows_all, plain, r_f, r_p, res2
         torch.cuda.empty_cache()
-        profile_csc(obj, res.dual_val, n_tiles)
+        names = profile_window("csc", obj, res.dual_val)
+        if names is not None:
+            n_select = sum(c for nm, c in names.items() if "ndexSelect" in nm or "index_select" in nm)
+            check(n_select < n_tiles * 10, f"{n_select} index_select kernels in 10 iterations: the lambda gather runs")
         del obj, captured["obj"], res
         torch.cuda.empty_cache()
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
@@ -955,7 +1162,7 @@ def main(argv=None) -> int:
                     return v if not truncate else v[: (p.n_in if reverse else p.n_out)]
 
                 with rebound(matching_mod, _carry=plain_carry), \
-                        rebound(fm, fused_panel_project=fused_panel_project_reference):
+                        rebound(fm, fused_panel_project_tiles=fused_panel_project_tiles_reference):
                     return super()._local(bcsc, dual_val, gamma, want_primal, row_layout)
 
         def variant(obj, cls=None, **attrs):
@@ -989,8 +1196,9 @@ def main(argv=None) -> int:
             ms_it = ms_per_iteration(obj.events)
             say(what, iterations=len(res.dual_objective_log), ms_per_iteration=f"{ms_it:.4f}",
                 iterations_per_s=f"{1e3 / ms_it:.2f}", final_dual_objective=res.dual_objective)
+            # K3/K4: one launch per evaluation, all tiles; K3t/K4t: the per-tile form, off the main path;
             # K5w/K7w: the window kernels building the index once, at pack time
-            want = {"K3": n_tiles * args.iters, "K4": n_tiles, "K5": 2 * evals, expect_coarse: 4 * evals,
+            want = {"K3": args.iters, "K4": 1, "K3t": 0, "K4t": 0, "K5": 2 * evals, expect_coarse: 4 * evals,
                     "K5w": 2, "K7w": index_launches}
             say(what, launches=n_launch, expected=want)
             check_solution(res, obj, data, args.iters, what)
@@ -1101,54 +1309,15 @@ def main(argv=None) -> int:
             library_one_index_select_ms=f"{carry_lib_ms:.4f}", slots=N)
         del carry_src, ids
 
-        packs = rl.col_pack if rl.col_pack is not None else (None,) * len(rl.col_tiles_T)
-        specs = obj.bcsc.specs
-
-        def run_panel(fn, want_x, b):
-            return [fn(b, pt.a, pt.c, pt.length, off, s.proj_type, s.proj_params, want_x=want_x,
-                       neg_inv_gamma=nig, pack=pk)
-                    for pt, s, off, pk in zip(rl.col_tiles_T, specs, rl.col_offsets, packs)]
-
-        real = sum(pt.a.numel() for pt in rl.col_tiles_T)
-        ghost = sum(pt.a.shape[0] * (1 << max(pt.a.shape[1] - 1, 0).bit_length()) * 128 - pt.a.numel()
-                    for pt in rl.col_tiles_T)
-        cols = sum(pt.length.numel() for pt in rl.col_tiles_T)
-        for name, want_x, replaces in (
-            ("K3 fused_panel_project", False, "dualip_tpu/ops/pallas_matching.py:305"),
-            ("K4 fused_panel_project want_x", True, "dualip_tpu/ops/pallas_matching.py:287"),
-        ):
-            srow = buf * 0.01
-            got = run_panel(fused_panel_project, want_x, srow.clone())
-            ref = run_panel(fused_panel_project_reference, want_x, srow.clone())
-            e = float((got[-1][0] - ref[-1][0]).abs().max())  # the buffer after all tiles
-            tol = tol_x(ref[-1][0])
-            if want_x:
-                e = max([e] + [float((g[3] - r[3]).abs().max()) for g, r in zip(got, ref)])
-            check(e <= tol, f"{name} on the slice's tiles: err {e} > {tol}")
-            for g, r in zip(got, ref):
-                for i in (1, 2):
-                    check(abs(float(g[i]) - float(r[i])) <= 1e-3 + 1e-4 * abs(float(r[i])), f"{name} sums on slice tile")
-            del got, ref
-            t_k = cuda_ms(lambda: run_panel(fused_panel_project, want_x, srow), reps=10, graph=True)
-            ms = t_k.ms
-            plain_ms = cuda_ms(lambda: run_panel(fused_panel_project_reference, want_x, srow), reps=2, warmup=1).ms
-            nbytes = real * (20 if want_x else 16) + ghost * 4 + cols * 4
-            nops = sum(pt.a.numel() * ops_per_slot(s.proj_type) for pt, s in zip(rl.col_tiles_T, specs))
-            t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_FLOP_PER_S * 1e3
-            say("timing", kernel=repr(name), per_iteration_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
-                bound_ms=f"{max(t_bytes, t_ops):.4f}", bytes=nbytes, ops=nops, real_slots=real, ghost_slots=ghost,
-                **timing_kv(t_k))
-            kernels.append({
-                "name": name, "route": "cuda", "source": "dualip_tpu_torch/csrc/panel_matching.cu",
-                "replaces": replaces, "launches": bfly_launches["K4" if want_x else "K3"],
-                "max_abs_err": max(e, panel_err[want_x]), "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None,  # no single PyTorch call computes the projection
-            })
-            del srow
+        time_panel("butterfly", obj, dev, kernels, panel_err, bfly_launches)
         k3_ms = kernels[-2]["ms"]
         say("timing", butterfly_iteration_ms=f"{bfly_ms:.4f}", two_carries_ms=f"{2 * carry_ms:.4f}", K3_ms=f"{k3_ms:.4f}",
             rest_ms=f"{bfly_ms - 2 * carry_ms - k3_ms:.4f}", rest="srow build, row sums, (m,) gather, calc_grad, AGD step")
+        names = profile_window("butterfly", obj, res.dual_val)
+        if names is not None:
+            check(not any("reduce_partials" in nm for nm in names), "butterfly: reduce_partials ran")
+            n_panel = sum(c for nm, c in names.items() if "panel_tiles_kernel" in nm)
+            check(n_panel == 10, f"butterfly: {n_panel} panel launches in 10 iterations, expected 10")
         del buf, obj, res, captured["obj"], rl, plan, m7, src7
         torch.cuda.empty_cache()
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
@@ -1160,11 +1329,16 @@ def main(argv=None) -> int:
         rl_c = obj_c.row_layout
         d = rel_dev(r_c.dual_objective_log, log[:n_chk]).max()
         say("butterfly", option="'compact=True'", iterations=n_chk, ms_per_iteration=f"{ms_per_iteration(obj_c.events):.4f}",
-            carry_slots=rl_c.plan.N, tiles=len(rl_c.col_tiles_T), packs_L_L2_q=rl_c.col_pack,
-            objective_build_s=f"{captured['build_s']:.2f}", routing_s=f"{rl_c.build_seconds['route']:.2f}",
-            max_rel_dev_vs_plain_panels=float(d), launches=n_launch)
+            carry_slots=rl_c.plan.N, tiles=len(rl_c.col_tiles_T), row_tiles=len(rl_c.row_tiles),
+            packs_L_L2_q=rl_c.col_pack, objective_build_s=f"{captured['build_s']:.2f}",
+            routing_s=f"{rl_c.build_seconds['route']:.2f}", max_rel_dev_vs_plain_panels=float(d), launches=n_launch)
         check(d <= 1e-4, f"compact packing drifts {d} relative from the plain panels")
-        check(n_launch["K3"] == len(rl_c.col_tiles_T) * n_chk, f"compact: K3 launches {n_launch['K3']}")
+        check(n_launch["K3"] == n_chk and n_launch["K3t"] == 0, f"compact: K3 launches {n_launch}, expected {n_chk}")
+        time_panel("compact", obj_c, dev, kernels, panel_err)
+        names = profile_window("compact", obj_c, r_c.dual_val)
+        if names is not None:
+            n_panel = sum(c for nm, c in names.items() if "panel_tiles_kernel" in nm)
+            check(n_panel == 10, f"compact: {n_panel} panel launches in 10 iterations, expected 10")
         del obj_c, rl_c, r_c, captured["obj"]
         torch.cuda.empty_cache()
 

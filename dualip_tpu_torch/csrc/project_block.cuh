@@ -1,7 +1,7 @@
 // Device functions shared by the fused tile kernel (fused_matching.cu, K1/K2)
 // and the panel kernel (panel_matching.cu, K3/K4): the per-column projection
-// of dualip_tpu/ops/pallas_matching.py::_project_block, and the fixed-order
-// reduction of the per-block (sum c*x, sum x*x) partials.
+// of dualip_tpu/ops/pallas_matching.py::_project_block, and the block-wide
+// sum of the per-thread (sum c*x, sum x*x) pairs.
 //
 // Exact numerics of _project_block, the same in every kernel that includes
 // this header: z is formed by the caller as two rounded products and a rounded
@@ -21,7 +21,6 @@
 namespace dualip {
 
 constexpr int BISECTION_ITERS = 30;
-constexpr int REDUCE_THREADS = 1024;
 constexpr unsigned FULL = 0xffffffffu;
 
 enum Kind { CLAMP = 0, SIMPLEX = 1, BOXCUT = 2 };
@@ -227,20 +226,6 @@ __device__ __forceinline__ void project_column_stream(int L, const Proj& p, ZAt 
       const float z = z_at(l);
       emit(l, feasible ? clip(z, lt, ut) : clip(z - nu, lt, ut));
     }
-  }
-}
-
-// Second pass: out = sum of the per-block partials, in a fixed order.
-__global__ void __launch_bounds__(REDUCE_THREADS) reduce_partials(const float* partials, int nb, float* out) {
-  float u = 0.f, v = 0.f;
-  for (int i = threadIdx.x; i < nb; i += blockDim.x) {
-    u += partials[2 * i];
-    v += partials[2 * i + 1];
-  }
-  block_sum2(u, v);
-  if (threadIdx.x == 0) {
-    out[0] = u;
-    out[1] = v;
   }
 }
 

@@ -20,9 +20,10 @@ objective.  Three layouts compute it:
 * ``layout="butterfly"``: the row-major companion layout
   (``sparse/rowmajor.py``).  The masked dual broadcast ``srow`` is carried from
   row space to column space through a Benes plan (``ops/butterfly.py``, K5-K7),
-  the panel kernel (``ops/fused_matching.py::fused_panel_project``, K3/K4)
-  projects each tile's region of the carry buffer in place, the same plan
-  walked backwards carries ``a*x`` back, and the gradient is a dense row sum.
+  the panel kernel (``ops/fused_matching.py::fused_panel_project_tiles``,
+  K3/K4) projects every tile's region of the carry buffer in place in one
+  launch, the same plan walked backwards carries ``a*x`` back, and the
+  gradient is a dense row sum.
 * ``layout="row"``: the same companion layout connected by per-nnz index
   gathers instead of the plan (no kernel).
 """
@@ -211,6 +212,19 @@ def route_row_ids(rl, m: int) -> torch.Tensor:
     return _carry(rl, vec, reverse=False, truncate=False).to(torch.int32)
 
 
+def layout_panel_table(rl, specs):
+    """The panel kernel's table (``ops/fused_matching.py::PanelTable``) of a
+    butterfly layout's column tiles, each with its projection from ``specs``
+    (the BlockCSC's, one per tile)."""
+    from dualip_tpu_torch.ops.fused_matching import build_panel_table
+
+    if rl.col_tiles_T is None:
+        raise ValueError("the layout has no panel tiles (butterfly mode builds them)")
+    packs = rl.col_pack if rl.col_pack is not None else (None,) * len(rl.col_tiles_T)
+    kinds = [(s.proj_type, s.proj_params) for s in specs]
+    return build_panel_table(rl.col_tiles_T, rl.col_offsets, packs, kinds)
+
+
 def matching_local_parts_rowmajor(
     bcsc: BlockCSC,
     rl,
@@ -219,6 +233,7 @@ def matching_local_parts_rowmajor(
     block_k: int = 1024,
     carry_dtype=None,
     want_primal: bool = False,
+    panel_table=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, List[torch.Tensor]]:
     """(grad, dual_obj, reg, [x tiles]) through the row-major companion layout.
 
@@ -231,7 +246,11 @@ def matching_local_parts_rowmajor(
     ``carry_dtype`` (butterfly only, e.g. ``torch.bfloat16``) is the storage
     type of the carry buffer: the network does no arithmetic, so the only cost
     is one rounding of srow before the forward carry and one of ``a*x`` after
-    the projection; the row sums accumulate in the dual's dtype."""
+    the projection; the row sums accumulate in the dual's dtype.
+
+    ``panel_table`` (butterfly only) is ``layout_panel_table(rl,
+    bcsc.specs)``; a caller that evaluates more than once builds it once and
+    passes it (the objective does), else it is built for this call."""
     del block_k
     dtype, dev = dual_val.dtype, dual_val.device
     neg_inv_gamma = _neg_inv_gamma(gamma, dtype, dev)
@@ -240,12 +259,10 @@ def matching_local_parts_rowmajor(
     half_gamma = _scalar(gamma, dtype, dev) / 2
     butterfly = rl.plan is not None
 
-    dual_obj = torch.zeros((), dtype=dtype, device=dev)
-    reg = torch.zeros((), dtype=dtype, device=dev)
     xs: List[torch.Tensor] = []  # want_primal: per-tile x (panel form in butterfly mode)
 
     if butterfly:
-        from dualip_tpu_torch.ops.fused_matching import fused_panel_project
+        from dualip_tpu_torch.ops.fused_matching import fused_panel_project_tiles
 
         N = _plan_size(rl.plan)
         if rl.srow_colidx is not None:
@@ -266,16 +283,14 @@ def matching_local_parts_rowmajor(
             if carry_dtype is not None:
                 z_cat = z_cat.to(carry_dtype)
             buf = _carry(rl, z_cat, reverse=False, truncate=False)  # full (N,)
-        packs = rl.col_pack if rl.col_pack is not None else (None,) * len(rl.col_tiles_T)
-        for pt, spec, off, pk in zip(rl.col_tiles_T, bcsc.specs, rl.col_offsets, packs):
-            buf, obj_p, reg_p, *x_p = fused_panel_project(
-                buf, pt.a, pt.c, pt.length, off, spec.proj_type, spec.proj_params,
-                want_x=want_primal, neg_inv_gamma=neg_inv_gamma, pack=pk,
-            )
-            if want_primal:
-                xs.append(x_p[0])
-            dual_obj = dual_obj + obj_p.to(dtype)
-            reg = reg + half_gamma * reg_p.to(dtype)
+        if panel_table is None:
+            panel_table = layout_panel_table(rl, bcsc.specs)
+        # every tile in one launch of the panel kernel, in place on buf
+        buf, obj_p, reg_p, *x_p = fused_panel_project_tiles(buf, panel_table, neg_inv_gamma, want_x=want_primal)
+        if want_primal:
+            xs = list(x_p[0])
+        dual_obj = obj_p.to(dtype)
+        reg = half_gamma * reg_p.to(dtype)
         # carry 2: a*x (in place in buf) back into row tiles; dense row sums
         ax_row_cat = _carry(rl, buf, reverse=True)
         sums = []
@@ -285,6 +300,8 @@ def matching_local_parts_rowmajor(
             off += R * Lr
             sums.append(torch.sum(blk, dim=1, dtype=dtype))
     else:
+        dual_obj = torch.zeros((), dtype=dtype, device=dev)
+        reg = torch.zeros((), dtype=dtype, device=dev)
         # z in row layout: the dual value is constant along a row
         z_parts = [
             (rt.a * scaled.index_select(0, rt.row_ids)[:, None] + neg_inv_gamma * rt.c).reshape(-1)
@@ -470,6 +487,8 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
             self.bcsc = device_put_blockcsc(bcsc, self.device, row_sum=layout == "csc")
         if srow_gather:
             self.row_layout.srow_colidx = route_row_ids(self.row_layout, self.bcsc.m)
+        # the panel kernel's tile table, built once with the layout
+        self.panel_table = layout_panel_table(self.row_layout, bcsc.specs) if layout == "butterfly" else None
         # every input in the objective's dtype (numpy float64 b would
         # otherwise stay float64 in torch)
         self.b_vec = (
@@ -486,7 +505,7 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
         if row_layout is not None:
             return matching_local_parts_rowmajor(
                 bcsc, row_layout, dual_val, gamma, block_k=self.pallas_block_k,
-                carry_dtype=self.carry_dtype, want_primal=want_primal,
+                carry_dtype=self.carry_dtype, want_primal=want_primal, panel_table=self.panel_table,
             )
         if self.use_pallas:
             return matching_local_parts_pallas(bcsc, dual_val, gamma, self.pallas_block_k, want_primal)

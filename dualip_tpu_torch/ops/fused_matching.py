@@ -26,9 +26,12 @@ kernel does (the registry's jnp/torch projections run 50).
 ``fused_panel_project`` is the port of ``fused_panel_project`` there
 (``_panel_kernel`` / ``_panel_kernel_x``): one tile's region of the (N,) carry
 buffer, in panel layout, is read as srow, projected and overwritten with
-``a*x`` in place.  On a CUDA tensor it launches ``csrc/panel_matching.cu`` or
-raises; on a CPU tensor it runs ``fused_panel_project_reference``.  Both share
-the projection with K1/K2 (``csrc/project_block.cuh`` on the card,
+``a*x`` in place.  ``fused_panel_project_tiles`` does the same for every tile
+of a layout in one launch, from a ``PanelTable`` built once per layout
+(``build_panel_table``); the objective calls it.  On a CUDA tensor both launch
+``csrc/panel_matching.cu`` or raise; on a CPU tensor they run
+``fused_panel_project_reference`` (tile by tile).  They share the projection
+with K1/K2 (``csrc/project_block.cuh`` on the card,
 ``_project_block_reference`` here).
 """
 
@@ -36,8 +39,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from dualip_tpu_torch.ops import _build
@@ -399,13 +403,199 @@ def fused_panel_project_reference(
     return (buf, obj, reg, x.to(torch.float32)) if want_x else (buf, obj, reg)
 
 
+_PANEL_MAX_GRID = 2048  # (obj, reg) partials of the per-device scratch
+
+# One row of the kernel's tile table: csrc/panel_matching.cu's ``struct Tile``.
+_TILE_DTYPE = np.dtype(
+    [("a", np.uint64), ("c", np.uint64), ("len", np.uint64), ("off", np.int64), ("x_off", np.int64),
+     ("first", np.int64), ("L", np.int32), ("L2", np.int32), ("q", np.int32), ("kind", np.int32),
+     ("inequality", np.int32), ("has_lo", np.int32), ("has_hi", np.int32),
+     ("lo", np.float32), ("hi", np.float32), ("radius", np.float32)],
+    align=True,
+)
+assert _TILE_DTYPE.itemsize == 88
+
+
+class PanelTableTile(NamedTuple):
+    """One column tile of a panel table: its panel-form tensors, its region
+    of the carry buffer, its projection and its place in the work items."""
+
+    a: torch.Tensor  # (KP, q*L, 128) float32
+    c: torch.Tensor
+    length: torch.Tensor  # (KP, q, 128) int32
+    off: int  # region start in the carry buffer
+    KP: int  # buffer rows
+    L: int
+    L2: int
+    q: int
+    kind: str
+    params: Tuple
+    pack: Optional[Tuple]  # (L, L2, q) on the compact packing, else None
+    first: int  # first work item (one per buffer row and segment)
+    x_off: int  # first slot of the tile's x in the x buffer
+
+
+class PanelTable(NamedTuple):
+    """Every column tile of a butterfly layout, for one launch of the panel
+    kernel (``fused_panel_project_tiles``).  Built once per layout by
+    ``build_panel_table`` (the butterfly objective builds its own with the
+    layout).  ``rows`` is the kernel's copy of the table on the tiles' CUDA
+    device (None on the CPU)."""
+
+    tiles: Tuple[PanelTableTile, ...]
+    rows: Optional[torch.Tensor]  # (n_tiles * 88,) uint8
+    device: torch.device
+    n_items: int
+    n_buf: int  # the end of the last region: the least buffer length
+    x_slots: int  # slots of the x buffer
+
+
+def build_panel_table(col_tiles, offsets, packs, kinds) -> PanelTable:
+    """The panel table of ``col_tiles`` (each with ``a``, ``c``, ``length`` in
+    panel form), their region ``offsets`` in the carry buffer, their ``packs``
+    ((L, L2, q) or None each) and their ``kinds`` ((proj_type, proj_params)
+    each).  Raises on a tile whose shapes, types, devices or region disagree
+    with the geometry, and on regions that overlap."""
+    col_tiles, offsets, packs, kinds = list(col_tiles), list(offsets), list(packs), list(kinds)
+    if not col_tiles or not len(col_tiles) == len(offsets) == len(packs) == len(kinds):
+        raise ValueError(
+            f"a panel table needs one offset, pack and kind per tile: {len(col_tiles)} tiles, "
+            f"{len(offsets)} offsets, {len(packs)} packs, {len(kinds)} kinds")
+    dev = col_tiles[0].a.device
+    tiles, rows = [], np.zeros(len(col_tiles), dtype=_TILE_DTYPE)
+    first = x_off = 0
+    for i, (pt, off, pack, (kind, params)) in enumerate(zip(col_tiles, offsets, packs, kinds)):
+        a, c, length = pt.a, pt.c, pt.length
+        KP, L, L2, q = _panel_geometry(a, pack)
+        if c.shape != a.shape:
+            raise ValueError(f"tile {i}: c shape {tuple(c.shape)} != a shape {tuple(a.shape)}")
+        if tuple(length.shape) != (KP, q, 128):
+            raise ValueError(f"tile {i}: length must be ({KP}, {q}, 128), got {tuple(length.shape)}")
+        if a.dtype != torch.float32 or c.dtype != torch.float32 or length.dtype != torch.int32:
+            raise TypeError(f"tile {i}: the panel kernel takes float32 a and c and int32 length")
+        if any(t.device != dev for t in (a, c, length)):
+            raise ValueError(f"tile {i}: every tile's tensors must be on {dev}")
+        if not all(t.is_contiguous() for t in (a, c, length)):
+            raise ValueError(f"tile {i}: the panel kernel takes contiguous tensors")
+        off = int(off)
+        if off < 0 or off % (128 * L2):
+            raise ValueError(f"tile {i}: region off={off} is not a multiple of 128*L2={128 * L2}")
+        code, ineq, lo, hi, has_lo, has_hi, radius = _kernel_params(kind, dict(params))
+        tiles.append(PanelTableTile(a, c, length, off, KP, L, L2, q, kind, tuple(params), pack, first, x_off))
+        if dev.type == "cuda":
+            if any(t.data_ptr() % 16 for t in (a, c, length)):
+                raise ValueError(f"tile {i}: the bulk copies need 16-byte aligned tensors")
+            rows[i] = (a.data_ptr(), c.data_ptr(), length.data_ptr(), off, x_off, first, L, L2, q, code, ineq,
+                       int(has_lo), int(has_hi), lo, hi, radius)
+        first += KP * q
+        x_off += a.numel()
+    spans = sorted((t.off, t.off + t.KP * t.L2 * 128) for t in tiles)
+    for (_, end), (start, _) in zip(spans, spans[1:]):
+        if start < end:
+            raise ValueError(f"panel regions overlap: one ends at {end}, the next starts at {start}")
+    table_rows = torch.from_numpy(rows.view(np.uint8).copy()).to(dev) if dev.type == "cuda" else None
+    return PanelTable(
+        tiles=tuple(tiles), rows=table_rows, device=dev, n_items=first, n_buf=spans[-1][1], x_slots=x_off,
+    )
+
+
+def fused_panel_project_tiles_reference(
+    buf: torch.Tensor, table: PanelTable, neg_inv_gamma, want_x: bool = False,
+) -> Tuple:
+    """The plain version of the all-tiles launch: the per-tile plain version
+    in table order, (obj, reg) added in that order; ``x`` as one tensor per
+    tile."""
+    obj = reg = None
+    xs = []
+    for t in table.tiles:
+        _, o, r, *x = fused_panel_project_reference(
+            buf, t.a, t.c, t.length, t.off, t.kind, t.params, want_x, neg_inv_gamma, t.pack)
+        obj, reg = (o, r) if obj is None else (obj + o, reg + r)
+        xs += x
+    return (buf, obj, reg, xs) if want_x else (buf, obj, reg)
+
+
 @functools.lru_cache(maxsize=None)
-def _panel_kernel():
-    fn = _build.load("panel_matching").dualip_panel_project
+def _panel_lib():
+    lib = _build.load("panel_matching")
     vp, ci, cf, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    fn.argtypes = [vp] * 8 + [ll, ll] + [ci] * 7 + [cf, cf, ci, ci, cf, vp]
-    fn.restype = ci
-    return fn
+    lib.dualip_panel_project_tiles.argtypes = [vp, ci, vp, ci, ll, vp, vp, vp, ci, vp, vp]
+    lib.dualip_panel_project.argtypes = (
+        [vp, ll, ci, vp, vp, vp, ll] + [ci] * 6 + [cf, cf, ci, ci, cf] + [vp, vp, vp, ci, vp, vp])
+    for fn in (lib.dualip_panel_project_tiles, lib.dualip_panel_project):
+        fn.restype = ci
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _panel_partials(dev: torch.device) -> torch.Tensor:
+    """The per-device scratch of the kernel's per-block partials (one launch
+    at a time: the same one-stream restriction as the kernel's counter)."""
+    return torch.empty((_PANEL_MAX_GRID, 2), dtype=torch.float32, device=dev)
+
+
+def _panel_args(buf, neg_inv_gamma, want_x, x_slots):
+    """The carry buffer's checks on the card, the scalar, x and out."""
+    dev = buf.device
+    if buf.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the panel kernel takes a float32 or bfloat16 carry buffer, got {buf.dtype}")
+    if not buf.is_contiguous():
+        raise ValueError("the panel kernel takes a contiguous carry buffer")
+    if buf.data_ptr() % 16:
+        raise ValueError("the bulk copies need a 16-byte aligned carry buffer")
+    if isinstance(neg_inv_gamma, torch.Tensor):
+        nig = neg_inv_gamma.to(device=dev, dtype=torch.float32).reshape(())
+    else:
+        nig = torch.full((), float(neg_inv_gamma), dtype=torch.float32, device=dev)
+    x = torch.empty(x_slots, dtype=torch.float32, device=dev) if want_x else None
+    return nig, x, torch.empty(2, dtype=torch.float32, device=dev)
+
+
+def fused_panel_project_tiles(
+    buf: torch.Tensor, table: PanelTable, neg_inv_gamma, want_x: bool = False,
+) -> Tuple:
+    """Every tile of ``table`` (``fused_panel_project`` on each, in place on
+    the (N,) carry buffer) in one launch of the panel kernel.  Returns
+    ``(buf, sum(c*x), sum(x*x))`` over all tiles, plus with ``want_x`` a list
+    of each tile's x (KP, q*L, 128) float32, views of one buffer.
+
+    a*x and x are bit for bit those of ``fused_panel_project`` tile by tile;
+    the two sums are added in another (fixed) order.  Counts launches in
+    ``fused_panel_project_tiles.launches`` (K3) and ``.launches_x`` (K4); CPU
+    calls count nothing."""
+    if buf.dim() != 1:
+        raise ValueError(f"buf must be (N,), got shape {tuple(buf.shape)}")
+    if buf.device != table.device:
+        raise ValueError(f"the carry buffer is on {buf.device}, the panel table on {table.device}")
+    if buf.shape[0] < table.n_buf:
+        raise ValueError(f"the panel regions end at {table.n_buf}, past the ({buf.shape[0]},) buffer")
+    if neg_inv_gamma is None:
+        raise ValueError("neg_inv_gamma is required")
+    dev = buf.device
+    if dev.type == "cpu":
+        return fused_panel_project_tiles_reference(buf, table, neg_inv_gamma, want_x)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_panel_project_tiles runs on cuda or cpu tensors, got {dev}")
+    nig, x, out = _panel_args(buf, neg_inv_gamma, want_x, table.x_slots)
+    with torch.cuda.device(dev):
+        rc = _panel_lib().dualip_panel_project_tiles(
+            buf.data_ptr(), buf.element_size(), table.rows.data_ptr(), len(table.tiles), table.n_items,
+            nig.data_ptr(), x.data_ptr() if want_x else None, _panel_partials(dev).data_ptr(),
+            _PANEL_MAX_GRID, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_panel_project_tiles: CUDA error {rc} at launch ({len(table.tiles)} tiles, "
+                           f"{table.n_items} items)")
+    if not want_x:
+        fused_panel_project_tiles.launches += 1
+        return buf, out[0], out[1]
+    fused_panel_project_tiles.launches_x += 1
+    xs = [x[t.x_off:t.x_off + t.a.numel()].view(t.a.shape) for t in table.tiles]
+    return buf, out[0], out[1], xs
+
+
+fused_panel_project_tiles.launches = 0
+fused_panel_project_tiles.launches_x = 0
 
 
 def fused_panel_project(
@@ -421,7 +611,9 @@ def fused_panel_project(
     pack: Tuple = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Compute z from the carried srow, project, and write ``a*x``: one tile's
-    region of the (N,) carry buffer, in place.
+    region of the (N,) carry buffer, in place.  The TPU kernel's contract,
+    one tile a call; the objective launches all tiles at once
+    (``fused_panel_project_tiles``, the same kernel).
 
     ``buf`` (float32 or bfloat16) holds ``srow = (-lambda/gamma)[row]`` in
     panel layout; the tile's region is rows ``[off/(128*L2), +KP)`` of
@@ -452,35 +644,28 @@ def fused_panel_project(
     if dev.type != "cuda":
         raise ValueError(f"fused_panel_project runs on cuda or cpu tensors, got {dev}")
 
-    if buf.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the panel kernel takes a float32 or bfloat16 carry buffer, got {buf.dtype}")
     if a_p.dtype != torch.float32 or c_p.dtype != torch.float32:
         raise TypeError("the panel kernel takes float32 a_p and c_p")
     if len_p.dtype != torch.int32:
         raise TypeError("len_p must be int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the panel kernel takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in tensors[1:]):
+        raise ValueError("the bulk copies need 16-byte aligned a_p, c_p and len_p")
     code, ineq, lo, hi, has_lo, has_hi, radius = _kernel_params(kind, dict(params_tuple))
-    if isinstance(neg_inv_gamma, torch.Tensor):
-        nig = neg_inv_gamma.to(device=dev, dtype=torch.float32).reshape(())
-    else:
-        nig = torch.full((), float(neg_inv_gamma), dtype=torch.float32, device=dev)
-
-    x = torch.empty_like(a_p) if want_x else None
-    partials = torch.empty((KP * q, 2), dtype=torch.float32, device=dev)
-    out = torch.empty(2, dtype=torch.float32, device=dev)
+    nig, x, out = _panel_args(buf, neg_inv_gamma, want_x, a_p.numel())
     with torch.cuda.device(dev):
-        rc = _panel_kernel()(
-            buf.data_ptr(), a_p.data_ptr(), c_p.data_ptr(), len_p.data_ptr(), nig.data_ptr(),
-            x.data_ptr() if want_x else None, partials.data_ptr(), out.data_ptr(),
-            off, buf.shape[0], buf.element_size(), KP, L, L2, q, code, ineq,
-            lo, hi, int(has_lo), int(has_hi), radius, torch.cuda.current_stream(dev).cuda_stream,
+        rc = _panel_lib().dualip_panel_project(
+            buf.data_ptr(), buf.shape[0], buf.element_size(), a_p.data_ptr(), c_p.data_ptr(), len_p.data_ptr(),
+            off, KP, L, L2, q, code, ineq, lo, hi, int(has_lo), int(has_hi), radius,
+            nig.data_ptr(), x.data_ptr() if want_x else None, _panel_partials(dev).data_ptr(), _PANEL_MAX_GRID,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_panel_project: CUDA error {rc} at launch (kind={kind}, KP={KP}, L={L}, L2={L2}, q={q})")
     if want_x:
         fused_panel_project.launches_x += 1
-        return buf, out[0], out[1], x
+        return buf, out[0], out[1], x.view(a_p.shape)
     fused_panel_project.launches += 1
     return buf, out[0], out[1]
 

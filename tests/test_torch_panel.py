@@ -5,7 +5,10 @@ Tolerance: 1e-5 of the largest |x| on ``a*x`` and ``x`` (both run 30 fp32
 bisection steps; XLA may contract ``a*s + nig*c`` where torch rounds twice),
 1e-4 relative on the two sums (tens of thousands of fp32 terms, added in
 another order).  Outside the tile's region, and in its ghost
-lanes, the buffer is compared exactly."""
+lanes, the buffer is compared exactly.
+
+The all-tiles form is held to one call per tile: a*x and x bit for bit, the
+sums within 1e-6 relative (the same terms, added tile by tile)."""
 
 import numpy as np
 import pytest
@@ -15,8 +18,14 @@ import jax.numpy as jnp
 
 from dualip_tpu.ops.pallas_matching import fused_panel_project as jax_panel
 from dualip_tpu_torch.objectives.matching import _panel_x_to_kl
-from dualip_tpu_torch.ops.fused_matching import fused_panel_project, fused_panel_project_reference
-from dualip_tpu_torch.sparse.rowmajor import _pack_geometry
+from dualip_tpu_torch.ops.fused_matching import (
+    _panel_args,
+    build_panel_table,
+    fused_panel_project,
+    fused_panel_project_reference,
+    fused_panel_project_tiles,
+)
+from dualip_tpu_torch.sparse.rowmajor import PanelTile, _pack_geometry
 
 torch.set_num_threads(1)
 
@@ -130,3 +139,112 @@ def test_panel_x_to_kl_unstacks_both_packings():
     BP = 8
     stacked = np.concatenate([plain, np.zeros((BP * q - K // 128, L, 128), np.float32)]).reshape(BP, q * L, 128)
     np.testing.assert_array_equal(_panel_x_to_kl(stacked, K, (L, L2, q)), x_kl)
+
+
+# ---------------------------------------------------------------------------
+# The all-tiles form (one launch over a layout's tile table)
+# ---------------------------------------------------------------------------
+
+# (L, compact) of a mixed table: plain panels wide and narrow, compact packings
+TABLE_SHAPES = [(1, False), (2, False), (5, False), (16, False), (29, False), (100, False),
+                (3, True), (29, True), (34, True)]
+
+
+def _mixed_table(shift, carry, seed=11, KP=2):
+    """A table of every TABLE_SHAPES tile, tile i projecting with CASES[i + shift],
+    regions placed as build_row_layout places them (descending L2), and a
+    carry buffer with a stretch beyond the last region."""
+    rng = np.random.default_rng(seed)
+    tiles, packs, kinds, geo = [], [], [], []
+    for i, (L, compact) in enumerate(TABLE_SHAPES):
+        a, c, length, _, _, _, pack, (kp, _, L2, q) = _tile(L, compact, seed=seed + i, KP=KP)
+        tiles.append(PanelTile(a=torch.from_numpy(a), c=torch.from_numpy(c), length=torch.from_numpy(length)))
+        packs.append(pack)
+        kinds.append(CASES[(i + shift) % len(CASES)])
+        geo.append((kp, L2))
+    offsets, cum = [0] * len(tiles), 0
+    for i in sorted(range(len(tiles)), key=lambda i: -geo[i][1]):
+        offsets[i] = cum
+        cum += geo[i][0] * geo[i][1] * 128
+    buf = torch.from_numpy((rng.normal(size=cum + 512) * 3).astype(np.float32)).to(carry)
+    return build_panel_table(tiles, offsets, packs, kinds), buf
+
+
+@pytest.mark.parametrize("want_x", [False, True], ids=["K3", "K4"])
+@pytest.mark.parametrize("carry", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shift", range(len(CASES)))
+def test_all_tiles_plain_version_is_the_per_tile_sequence(shift, carry, want_x):
+    """a*x and x bit for bit those of one call per tile; obj and reg within
+    1e-6 relative of the per-tile sums added in float64."""
+    table, buf = _mixed_table(shift, carry)
+    assert table.rows is None and table.device == torch.device("cpu")
+    got = fused_panel_project_tiles(buf.clone(), table, -2.0, want_x=want_x)
+    seq, objs, regs, xs = buf.clone(), [], [], []
+    for t in table.tiles:
+        _, o, r, *x = fused_panel_project(seq, t.a, t.c, t.length, t.off, t.kind, t.params, want_x=want_x,
+                                          neg_inv_gamma=-2.0, pack=t.pack)
+        objs.append(float(o))
+        regs.append(float(r))
+        xs += x
+    assert torch.equal(got[0], seq)
+    assert np.isclose(float(got[1]), np.sum(objs, dtype=np.float64), rtol=1e-6, atol=0)
+    assert np.isclose(float(got[2]), np.sum(regs, dtype=np.float64), rtol=1e-6, atol=0)
+    if want_x:
+        assert len(got[3]) == len(xs) == len(table.tiles)
+        for g, r, t in zip(got[3], xs, table.tiles):
+            assert g.shape == t.a.shape and torch.equal(g, r)
+    assert fused_panel_project_tiles.launches == fused_panel_project_tiles.launches_x == 0
+
+
+def test_panel_table_geometry():
+    table, buf = _mixed_table(0, torch.float32)
+    first = 0
+    for t, (L, compact) in zip(table.tiles, TABLE_SHAPES):
+        assert (t.L, t.q > 1) == (L, compact) and t.q * t.L <= t.L2 and t.KP == 2
+        assert t.first == first and t.off % (128 * t.L2) == 0
+        first += t.KP * t.q
+    assert table.n_items == first and table.n_buf == buf.shape[0] - 512
+    assert table.x_slots == sum(t.a.numel() for t in table.tiles)
+    assert [t.x_off for t in table.tiles] == np.cumsum([0] + [t.a.numel() for t in table.tiles[:-1]]).tolist()
+
+
+def test_all_tiles_wrapper_checks_its_arguments():
+    table, buf = _mixed_table(0, torch.float32)
+    with pytest.raises(ValueError, match="buf must be"):
+        fused_panel_project_tiles(buf.view(-1, 128), table, -1.0)
+    with pytest.raises(ValueError, match="past the"):
+        fused_panel_project_tiles(buf[: table.n_buf - 128], table, -1.0)
+    with pytest.raises(ValueError, match="panel table on cpu"):
+        fused_panel_project_tiles(torch.empty(table.n_buf, device="meta"), table, -1.0)
+    with pytest.raises(ValueError, match="neg_inv_gamma"):
+        fused_panel_project_tiles(buf, table, None)
+
+    tiles = [PanelTile(t.a, t.c, t.length) for t in table.tiles]
+    offsets, packs = [t.off for t in table.tiles], [t.pack for t in table.tiles]
+    kinds = [(t.kind, t.params) for t in table.tiles]
+    with pytest.raises(ValueError, match="one offset, pack and kind per tile"):
+        build_panel_table(tiles, offsets[:-1], packs, kinds)
+    with pytest.raises(ValueError, match="not a multiple of 128"):
+        build_panel_table(tiles, offsets[:-1] + [offsets[-1] + 128], packs, kinds)  # L2 = 512
+    with pytest.raises(ValueError, match="overlap"):
+        build_panel_table(tiles[:2], [0, 0], packs[:2], kinds[:2])
+    with pytest.raises(ValueError, match="length must be"):
+        build_panel_table([tiles[2]._replace(length=tiles[2].length[:, :, :64])], [0], [None], kinds[:1])
+    with pytest.raises(TypeError, match="float32 a and c"):
+        build_panel_table([tiles[2]._replace(a=tiles[2].a.double())], [0], [None], kinds[:1])
+    with pytest.raises(ValueError, match="packed tile shape"):
+        build_panel_table(tiles[6:7], [0], [(4, 8, 2)], kinds[:1])
+    with pytest.raises(ValueError, match="Unsupported projection kind"):
+        build_panel_table(tiles[:1], [0], [None], [("ball", ())])
+
+
+def test_panel_launch_refuses_a_misaligned_buffer():
+    """The kernel brings srow in by bulk copies from 16-byte aligned
+    addresses: a carry buffer that does not start on 16 bytes is refused
+    before the launch (the CUDA path's checks, run here on a CPU view)."""
+    _, buf = _mixed_table(0, torch.float32)
+    nig, x, out = _panel_args(buf, -1.0, True, 256)
+    assert (float(nig), tuple(x.shape), tuple(out.shape)) == (-1.0, (256,), (2,))
+    for view in (buf[1:], buf[3:], buf.to(torch.bfloat16)[7:]):
+        with pytest.raises(ValueError, match="16-byte aligned carry buffer"):
+            _panel_args(view, -1.0, False, 0)

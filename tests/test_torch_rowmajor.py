@@ -6,6 +6,8 @@ Layouts are exact (every array and static tuple of ``build_row_layout``, and
 fp32 tolerance 1e-5 (gradient 2e-5 of its scale, as the JAX package's own
 layout tests); the bf16 carry to the JAX tests' 4e-2/6e-2; golden traces 1e-5."""
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -28,12 +30,18 @@ from dualip_tpu_torch.checkpoint import save_dual
 from dualip_tpu_torch.objectives.matching import (
     MatchingInputArgs,
     MatchingSolverDualObjectiveFunction,
+    layout_panel_table,
     matching_local_parts_rowmajor,
 )
 from dualip_tpu_torch.projections import create_projection_map
 from dualip_tpu_torch.sparse import build_blockcsc, csc_from_dense
 from dualip_tpu_torch.sparse.bcsc import _exact_thresholds, _geom_thresholds, blockcsc_from_numpy
-from dualip_tpu_torch.sparse.rowmajor import _col_geometry, _pack_geometry, build_row_layout, row_layout_from_numpy
+from dualip_tpu_torch.sparse.rowmajor import (
+    _col_geometry,
+    _pack_geometry,
+    build_row_layout,
+    row_layout_from_numpy,
+)
 from tests.objectives.test_dualip_matching_simplex import A_COMPACT, TRUE_VALUES
 
 torch.set_num_threads(1)
@@ -147,6 +155,42 @@ def test_row_layout_errors_are_the_jax_packages():
     ref_a, got_a, _ = _args(1)
     with pytest.raises(ValueError, match="divisible by 128"):
         build_row_layout(build_blockcsc(got_a.A, got_a.c, got_a.projection_map, pad_cols_to=8), method="butterfly")
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["plain", "compact"])
+def test_panel_table_holds_the_per_tile_arguments(compact):
+    """The layout's panel table, row by row, against the arguments the
+    objective passed per tile (offsets, KP, L, L2, q, kinds, the tensors);
+    the objective builds it once with its layout, and a layout whose
+    regions do not sit on its tiles' panel rows is refused."""
+    _, got_a, _ = _args(1)
+    got_o = MatchingSolverDualObjectiveFunction(
+        got_a, gamma=1e-2, layout="butterfly", compact=compact, device="cpu")
+    got_b, rl = got_o.bcsc, got_o.row_layout
+    table = got_o.panel_table
+    packs = rl.col_pack if compact else (None,) * len(rl.col_tiles_T)
+    first = x_off = 0
+    assert len(table.tiles) == len(rl.col_tiles_T) == len(got_b.specs)
+    for t, pt, off, pk, spec in zip(table.tiles, rl.col_tiles_T, rl.col_offsets, packs, got_b.specs):
+        assert t.a is pt.a and t.c is pt.c and t.length is pt.length
+        assert (t.off, t.pack, t.kind, t.params) == (off, pk, spec.proj_type, spec.proj_params)
+        L2 = pk[1] if pk else (1 << max(spec.L - 1, 0).bit_length() if spec.L > 1 else 1)
+        assert (t.KP, t.L, t.L2, t.q) == (pt.a.shape[0], spec.L, L2, pk[2] if pk else 1)
+        assert (t.first, t.x_off) == (first, x_off)
+        first += t.KP * t.q
+        x_off += pt.a.numel()
+    assert table.n_items == first and table.x_slots == x_off
+    assert table.n_buf == max(t.off + t.KP * t.L2 * 128 for t in table.tiles)
+    if compact:
+        assert any(t.q > 1 for t in table.tiles)
+    again = layout_panel_table(rl, got_b.specs)
+    assert again.tiles == table.tiles and (again.n_items, again.n_buf) == (table.n_items, table.n_buf)
+    other = copy.copy(rl)
+    other.col_offsets = tuple(o + 128 for o in rl.col_offsets)
+    with pytest.raises(ValueError, match="not a multiple of 128"):
+        layout_panel_table(other, got_b.specs)
+    with pytest.raises(ValueError, match="no panel tiles"):
+        layout_panel_table(build_row_layout(got_b, method="gather"), got_b.specs)
 
 
 def test_plan_cache_roundtrip(tmp_path):
