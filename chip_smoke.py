@@ -22,13 +22,14 @@ result lines at the end are printed only by a full run):
    kernels build on the card against the index the plain stages build;
 6. panel: the panel kernel (K3/K4) one tile a launch against its plain
    version for every projection kind, q = 1 and q > 1, L a power of two and
-   not, either side of the largest L the kernel's ring holds (47 with an
-   fp32 carry, 57 with bf16), fp32 and bf16 carry; the rest of the buffer
-   unchanged, ghost lanes zero; then all tiles of a mixed table (L = 1, 2, 5,
-   16, 29, 48, 64, 100 plain, 3, 29, 34 compact, the kinds mixed across
-   tiles) in one launch, against the
-   plain version, against one launch per tile bit for bit on a*x and x, and
-   repeated bit for bit on (obj, reg);
+   not, either side of the largest L the kernel's ring holds (47, 57, 71 or
+   95 by carry and tile type), in all four instances: fp32 and bf16 carry x
+   fp32 and bf16 a/c tiles, a bf16 tile's launch bit for bit with the fp32
+   launch on the same values; the rest of the buffer unchanged, ghost lanes
+   zero; then all tiles of a mixed table (L = 1, 2, 5, 16, 29, 48, 64, 100
+   plain, 3, 29, 34 compact, the kinds mixed across tiles) in one launch, in
+   all four instances, against the plain version, against one launch per
+   tile bit for bit on a*x and x, and repeated bit for bit on (obj, reg);
 7. golden: the 5x5 matching golden trace through ``run_solver`` on the card,
    csc layout and butterfly layout (plain, compact, ``srow_gather``, bf16);
 8. slice: the synthetic matching LP (2,500,000 sources x 10,000 destinations,
@@ -39,7 +40,9 @@ result lines at the end are printed only by a full run):
    and the segment-sum against a float64 ``index_add_`` on the tiles' own a*x,
    each kernel timed on the slice's tiles beside its plain version and bound,
    and a ``torch.profiler`` window over 10 iterations (device busy share,
-   kernels by name, no per-iteration ``index_select``);
+   kernels by name, no per-iteration ``index_select``); then tiles in bf16
+   (``dtype="bfloat16"``, the plain csc path) for 20 iterations against the
+   segment-sum's plain version and beside the fp32 tiles' run;
 9. butterfly: the same data through ``run_solver`` with
    ``layout="butterfly"``: launches counted, plain versions compared, the csc
    log compared, a bit-identical repeat, a 250,000-source solve (the K6
@@ -48,7 +51,19 @@ result lines at the end are printed only by a full run):
    forms, which build the index, and K7 at 32 B rows as well as 64 B; K3/K4
    in one launch for all tiles beside one launch per tile, and each tile
    alone, on the plain and the compact packing), and ``torch.profiler``
-   windows over 10 butterfly and 10 compact iterations.
+   windows over 10 butterfly and 10 compact iterations; then tiles in bf16
+   for 20 iterations (K3/K4's bf16-tile instances, timed and bounded) against
+   the plain versions and beside the fp32 tiles' run;
+10. cert: the exact matching certificate at the csc solve's final dual on
+   the csc and butterfly layouts (they agree to 1e-3 relative) and at the
+   butterfly solve's own dual: ``dual_lb <= primal_ub`` and its time;
+11. lp: the general LP through ``run_solver(objective_type="miplib2017")``:
+   the bundled MIPLIB instance v150d30 (10,000 iterations on the COO layout,
+   the dual at 27 +- 1, a bit-identical repeat, the butterfly layout on the
+   whole instance against COO per ``calculate``, the PDLP bound), and the
+   slice's matrix as an LP in the box [0, 1] with c ~ U(-1, 0) (lp-2.5M: COO
+   200 iterations and butterfly 50, timed and profiled, COO repeated bit for
+   bit, the layouts against each other per ``calculate``).
 
 Kernel times (``ms``) are CUDA-graph replays of the wrapper's calls, so the
 host's launch gaps are not in them; each ``[timing]`` line also gives the eager
@@ -87,7 +102,7 @@ NON_FMA_OPS_PER_S = 132 * 128 * 1.98e9
 BISECTION_ITERS = 30
 
 SMALL_SOURCES = 250_000  # the second butterfly solve: few enough blocks for one single-axis group a side
-ALL_PHASES = ("kernels", "segsum", "benes", "panel", "golden", "slice", "butterfly")
+ALL_PHASES = ("kernels", "segsum", "benes", "panel", "golden", "slice", "butterfly", "cert", "lp")
 
 # 5x5 Scala golden problem and trace (tests/objectives/test_dualip_matching_simplex.py).
 A_COMPACT = np.array(
@@ -411,9 +426,9 @@ def phase_benes(dev) -> None:
             check(used[1] == 4 and used[2] == 0, f"benes {what}: expected 4 K6 launches, got {used}")
 
 
-def panel_tile(rng, L, compact, KP, dev):
-    """Random panel-form a, c, length of one tile (masked columns included):
-    (PanelTile, pack, L2, q)."""
+def panel_tile(rng, L, compact, KP, dev, tiles=torch.float32):
+    """Random panel-form a, c, length of one tile (masked columns included),
+    a and c in ``tiles``: (PanelTile, pack, L2, q)."""
     from dualip_tpu_torch.sparse.rowmajor import PanelTile, _pack_geometry
 
     if compact:
@@ -427,8 +442,14 @@ def panel_tile(rng, L, compact, KP, dev):
     mask = np.arange(L)[None, None, :, None] < length
     a = np.where(mask, a, 0).astype(np.float32).reshape(KP, q * L, 128)
     c = np.where(mask, c, 0).astype(np.float32).reshape(KP, q * L, 128)
-    t = PanelTile(*(torch.from_numpy(v).to(dev) for v in (a, c, length.reshape(KP, q, 128))))
+    t = PanelTile(torch.from_numpy(a).to(dev).to(tiles), torch.from_numpy(c).to(dev).to(tiles),
+                  torch.from_numpy(length.reshape(KP, q, 128)).to(dev))
     return t, pack, L2, q
+
+
+def widened(tile):
+    """The same tile with a and c in float32 (bf16 values widen exactly)."""
+    return tile._replace(a=tile.a.float(), c=tile.c.float())
 
 
 def panel_tol(ref: torch.Tensor, carry) -> float:
@@ -436,13 +457,18 @@ def panel_tol(ref: torch.Tensor, carry) -> float:
     return tol_x(ref) + (float(ref.abs().max()) * 2.0 ** -7 if carry == torch.bfloat16 else 0.0)
 
 
+DTYPES = (torch.float32, torch.bfloat16)
+
+
 def phase_panel(dev):
     """K3/K4 one tile a launch against the plain version: every case, q = 1
-    and q > 1, both carries."""
+    and q > 1, both carries, both tile types (a bf16 tile's launch also
+    against the fp32 launch on the same values, bit for bit)."""
     from dualip_tpu_torch.ops.fused_matching import fused_panel_project, fused_panel_project_reference
 
     rng = np.random.default_rng(3)
-    err = {False: 0.0, True: 0.0}
+    err = {(w, c, t): 0.0 for w in (False, True) for c in DTYPES for t in DTYPES}
+    plain_bits = {k: True for k in err}
     n = 0
     # (L, compact): plain panels with L a power of two and not; compact packings with q > 1
     shapes = [(1, False), (2, False), (5, False), (16, False), (29, False), (48, False), (64, False),
@@ -450,19 +476,29 @@ def phase_panel(dev):
     for kind, params in CASES:
         for L, compact in shapes:
             KP = 16
-            tile, pack, L2, q = panel_tile(rng, L, compact, KP, dev)
+            tile16, pack, L2, q = panel_tile(rng, L, compact, KP, dev, tiles=torch.bfloat16)
             region = KP * L2 * 128
             off = 3 * region  # the region lies inside a larger buffer
             N = 8 * region
-            for carry in (torch.float32, torch.bfloat16):
+            for carry, tiles in ((c, t) for c in DTYPES for t in DTYPES):
+                # fp32 tiles hold the bf16 tile's values, so both tile types must give the same bits
+                tile = tile16 if tiles == torch.bfloat16 else widened(tile16)
                 buf0 = torch.from_numpy(rng.normal(size=N).astype(np.float32) * 50).to(dev).to(carry)
                 for want_x in (False, True):
                     got = fused_panel_project(buf0.clone(), *tile, off, kind, params, want_x=want_x,
                                               neg_inv_gamma=-2.0, pack=pack)
                     ref = fused_panel_project_reference(buf0.clone(), *tile, off, kind, params, want_x=want_x,
                                                         neg_inv_gamma=-2.0, pack=pack)
+                    if tiles == torch.bfloat16:
+                        wide = fused_panel_project(buf0.clone(), *widened(tile), off, kind, params, want_x=want_x,
+                                                   neg_inv_gamma=-2.0, pack=pack)
                     torch.cuda.synchronize()
-                    name = f"{kind}{params} L={L} q={q} {carry} want_x={want_x}"
+                    name = f"{kind}{params} L={L} q={q} carry {carry} tiles {tiles} want_x={want_x}"
+                    if tiles == torch.bfloat16:
+                        check(all(torch.equal(u, v) for u, v in zip(got, wide)),
+                              f"panel {name}: bf16 tiles differ from fp32 tiles of the same values")
+                    key = (want_x, carry, tiles)
+                    plain_bits[key] &= torch.equal(got[0], ref[0]) and (not want_x or torch.equal(got[3], ref[3]))
                     gb, rb = got[0], ref[0]
                     check(torch.equal(gb[:off], buf0[:off]) and torch.equal(gb[off + region:], buf0[off + region:]),
                           f"panel {name}: wrote outside its region")
@@ -474,17 +510,19 @@ def phase_panel(dev):
                     if want_x:
                         e_x = float((got[3] - ref[3]).abs().max())
                         check(e_x <= tol_x(ref[3]), f"panel {name}: |x| err {e_x}")
-                        e = max(e, e_x) if carry == torch.float32 else e_x
+                        e = max(e, e_x)
                     for i, nm in ((1, "obj"), (2, "reg")):
                         g, r = float(got[i]), float(ref[i])
                         check(abs(g - r) <= 1e-3 + 1e-4 * abs(r), f"panel {name}: {nm} {g} vs {r}")
-                    if carry == torch.float32 or want_x:
-                        err[want_x] = max(err[want_x], e)
+                    err[key] = max(err[key], e)
                     n += 1
-    say("panel", form="one tile a launch", cases=n, shapes_L_compact=shapes, max_abs_err_K3=err[False],
-        max_abs_err_K4=err[True],
+    for (want_x, carry, tiles), e in err.items():
+        say("panel", form="one tile a launch", kernel="K4" if want_x else "K3", carry=str(carry)[6:],
+            tiles=str(tiles)[6:], max_abs_err=e, bit_for_bit_with_plain=plain_bits[(want_x, carry, tiles)])
+    say("panel", form="one tile a launch", cases=n, shapes_L_compact=shapes,
         tolerance="ax,x: 5e-5*max(1,max|.|) (+1 bf16 ulp on a bf16 carry); obj,reg: 1e-3+1e-4*|ref|",
-        outside_region="unchanged", ghost_lanes="zero")
+        bf16_tiles_vs_fp32_tiles="bit for bit on a*x, x, obj and reg", outside_region="unchanged",
+        ghost_lanes="zero")
     return phase_panel_tiles(dev, err)
 
 
@@ -495,7 +533,8 @@ TABLE_SHAPES = [(1, False), (2, False), (5, False), (16, False), (29, False), (4
 def phase_panel_tiles(dev, err):
     """All tiles of a mixed table in one launch: against the plain version,
     against one launch per tile bit for bit on a*x and x, and a second launch
-    bit for bit on (obj, reg); the kinds rotate across the tiles."""
+    bit for bit on (obj, reg); the kinds rotate across the tiles; every carry
+    and tile type, bf16 tiles bit for bit with fp32 tiles of the same values."""
     from dualip_tpu_torch.ops.fused_matching import (
         build_panel_table,
         fused_panel_project,
@@ -507,7 +546,7 @@ def phase_panel_tiles(dev, err):
     KP = 16
     tiles, packs, geo = [], [], []
     for L, compact in TABLE_SHAPES:
-        tile, pack, L2, q = panel_tile(rng, L, compact, KP, dev)
+        tile, pack, L2, q = panel_tile(rng, L, compact, KP, dev, tiles=torch.bfloat16)
         tiles.append(tile)
         packs.append(pack)
         geo.append((L, L2, q))
@@ -522,11 +561,18 @@ def phase_panel_tiles(dev, err):
     n = 0
     for shift in range(len(CASES)):
         kinds = [CASES[(i + shift) % len(CASES)] for i in range(len(tiles))]
-        table = build_panel_table(tiles, offsets, packs, kinds)
-        for carry in (torch.float32, torch.bfloat16):
+        tables = {torch.bfloat16: build_panel_table(tiles, offsets, packs, kinds),
+                  torch.float32: build_panel_table([widened(t) for t in tiles], offsets, packs, kinds)}
+        for carry, tile_dt in ((c, t) for c in DTYPES for t in DTYPES):
+            table = tables[tile_dt]
             buf0 = torch.from_numpy(rng.normal(size=N).astype(np.float32) * 50).to(dev).to(carry)
             for want_x in (False, True):
                 got = fused_panel_project_tiles(buf0.clone(), table, -2.0, want_x=want_x)
+                if tile_dt == torch.bfloat16:
+                    wide = fused_panel_project_tiles(buf0.clone(), tables[torch.float32], -2.0, want_x=want_x)
+                    check(all(torch.equal(u, v) for u, v in zip(got[:3], wide[:3]))
+                          and (not want_x or all(torch.equal(u, v) for u, v in zip(got[3], wide[3]))),
+                          f"panel all tiles, case {shift}, carry {carry}: bf16 tiles differ from fp32 tiles")
                 again = fused_panel_project_tiles(buf0.clone(), table, -2.0, want_x=want_x)
                 ref = fused_panel_project_tiles_reference(buf0.clone(), table, -2.0, want_x=want_x)
                 per, per_x = buf0.clone(), []
@@ -534,7 +580,8 @@ def phase_panel_tiles(dev, err):
                     per_x += fused_panel_project(per, t.a, t.c, t.length, t.off, t.kind, t.params, want_x=want_x,
                                                  neg_inv_gamma=-2.0, pack=t.pack)[3:]
                 torch.cuda.synchronize()
-                name = f"all tiles, kinds from case {shift}, {carry} want_x={want_x}"
+                name = f"all tiles, kinds from case {shift}, carry {carry}, tiles {tile_dt}, want_x={want_x}"
+                key = (want_x, carry, tile_dt)
                 check(torch.equal(got[0], per), f"panel {name}: a*x differs from one launch per tile")
                 check(all(torch.equal(g, p) for g, p in zip(got[3], per_x)) if want_x else True,
                       f"panel {name}: x differs from one launch per tile")
@@ -549,20 +596,20 @@ def phase_panel_tiles(dev, err):
                     check(not g_reg[:, t.q * t.L:, :].any(), f"panel {name}: ghost lanes of L={t.L} not zero")
                     e = float((g_reg - r_reg).abs().max())
                     check(e <= panel_tol(r_reg, carry), f"panel {name}: |ax| err {e} on L={t.L} q={t.q}")
-                    if carry == torch.float32:
-                        err[want_x] = max(err[want_x], e)
+                    err[key] = max(err[key], e)
                 if want_x:
                     for g, r, t in zip(got[3], ref[3], table.tiles):
                         e_x = float((g - r).abs().max())
                         check(e_x <= tol_x(r), f"panel {name}: |x| err {e_x} on L={t.L} q={t.q}")
-                        err[True] = max(err[True], e_x)
+                        err[key] = max(err[key], e_x)
                 for i, nm in ((1, "obj"), (2, "reg")):
                     g, r = float(got[i]), float(ref[i])
                     check(abs(g - r) <= 1e-3 + 1e-4 * abs(r), f"panel {name}: {nm} {g} vs {r}")
                 n += 1
-    say("panel", form="all tiles a launch", cases=n, tiles_L_compact=TABLE_SHAPES, max_abs_err_K3=err[False],
-        max_abs_err_K4=err[True], vs_one_launch_per_tile="bit for bit on a*x and x",
-        repeat="bit for bit on a*x, obj and reg", outside_regions="unchanged", ghost_lanes="zero")
+    say("panel", form="all tiles a launch", cases=n, tiles_L_compact=TABLE_SHAPES,
+        max_abs_err={f"{'K4' if k[0] else 'K3'} carry {str(k[1])[6:]} tiles {str(k[2])[6:]}": v for k, v in err.items()},
+        vs_one_launch_per_tile="bit for bit on a*x and x", repeat="bit for bit on a*x, obj and reg",
+        bf16_tiles_vs_fp32_tiles="bit for bit", outside_regions="unchanged", ghost_lanes="zero")
     return err
 
 
@@ -572,7 +619,7 @@ def time_panel(what, obj, dev, kernels, panel_err, launches=None):
     bit for bit and against itself (obj, reg too) bit for bit; timed beside
     the per-tile form, the plain version and, for K3, each tile alone and a
     bf16 carry.  With ``launches`` (the solve's counts), K3 and K4 join
-    ``kernels``."""
+    ``kernels``, named for bf16 tiles where the table's a and c are bf16."""
     from dualip_tpu_torch.ops.fused_matching import (
         fused_panel_project,
         fused_panel_project_tiles,
@@ -583,6 +630,8 @@ def time_panel(what, obj, dev, kernels, panel_err, launches=None):
     nig = torch.full((), -1.0 / 1e-3, dtype=torch.float32, device=dev)
     table = obj.panel_table
     ts = table.tiles
+    tile_bytes = ts[0].a.element_size()
+    suffix = " (bf16 tiles)" if table.tile_dtype == torch.bfloat16 else ""
     n_carry = _plan_size(obj.row_layout.plan)  # the carry buffer's length
     srow0 = torch.from_numpy(np.random.default_rng(7).normal(size=n_carry).astype(np.float32) * 0.01).to(dev)
 
@@ -590,7 +639,7 @@ def time_panel(what, obj, dev, kernels, panel_err, launches=None):
         real = sum(t.a.numel() for t in tiles_)
         ghost = sum(t.KP * t.L2 * 128 - t.a.numel() for t in tiles_)
         cols = sum(t.length.numel() for t in tiles_)
-        nbytes = real * (8 + 2 * carry_bytes + (4 if want_x else 0)) + ghost * carry_bytes + cols * 4
+        nbytes = real * (2 * tile_bytes + 2 * carry_bytes + (4 if want_x else 0)) + ghost * carry_bytes + cols * 4
         nops = sum(t.a.numel() * ops_per_slot(t.kind) for t in tiles_)
         t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_FLOP_PER_S * 1e3
         return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, nops, real, ghost
@@ -600,7 +649,7 @@ def time_panel(what, obj, dev, kernels, panel_err, launches=None):
                                     neg_inv_gamma=nig, pack=t.pack) for t in tiles_]
 
     for want_x in (False, True):
-        name = "K4 fused_panel_project_tiles want_x" if want_x else "K3 fused_panel_project_tiles"
+        name = ("K4 fused_panel_project_tiles want_x" if want_x else "K3 fused_panel_project_tiles") + suffix
         got = fused_panel_project_tiles(srow0.clone(), table, nig, want_x=want_x)
         again = fused_panel_project_tiles(srow0.clone(), table, nig, want_x=want_x)
         per = srow0.clone()
@@ -653,12 +702,151 @@ def time_panel(what, obj, dev, kernels, panel_err, launches=None):
             kernels.append({
                 "name": name, "route": "cuda", "source": "dualip_tpu_torch/csrc/panel_matching.cu",
                 "replaces": "dualip_tpu/ops/pallas_matching.py:" + ("287" if want_x else "305"),
-                "launches": launches["K4" if want_x else "K3"], "max_abs_err": max(e, panel_err[want_x]),
+                "launches": launches["K4" if want_x else "K3"],
+                "max_abs_err": max(e, panel_err.get((want_x, torch.float32, table.tile_dtype), 0.0)),
                 "ms": t_k.ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None,  # no single PyTorch call computes the projection
                 "per_tile_form_ms": t_per.ms,
             })
         del srow
+
+
+V150D30 = ROOT / "examples" / "miplib_2017" / "v150d30-2hopcds.mps.gz"
+V150D30_JAX_DUAL = 27.62  # the JAX package's dual at 10,000 iterations (PARITY.md, section 2.5)
+LP_SOLVER = dict(gamma=1e-3, initial_step_size=1e-5)  # the reference's MIPLIB solve
+
+
+def phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, ms_per_iteration, Timed):
+    """The general LP through ``run_solver(objective_type="miplib2017")``:
+    the bundled MIPLIB instance (10,000 iterations on the COO layout, a
+    bit-identical repeat, the butterfly layout on the whole instance held to
+    COO per ``calculate``, the PDLP bound) and the slice's matrix read as a
+    general LP (COO and butterfly, timed and profiled)."""
+    import dualip_tpu_torch.objectives.miplib as miplib_mod
+    from dualip_tpu_torch.io.mps import read_mps_file
+    from dualip_tpu_torch.objectives.matching import _plan_size
+    from dualip_tpu_torch.objectives.miplib import MIPLIB2017ObjectiveFunction, MIPLIBInputArgs
+    from dualip_tpu_torch.optimizers.agd import AcceleratedGradientDescent
+    from dualip_tpu_torch.projections import ProjectionEntry
+
+    class TimedMIPLIB(Timed, MIPLIB2017ObjectiveFunction):
+        def __init__(self, *a, **kw):
+            t = time.perf_counter()
+            super().__init__(*a, **kw)
+            torch.cuda.synchronize()
+            self.events = []
+            captured["obj"], captured["build_s"] = self, time.perf_counter() - t
+
+    def lp_solve(data, iters, **kw):
+        """run_solver's miplib2017 branch, its objective timed: (result,
+        launches, seconds), counts set to 0 just before."""
+        reset_counts()
+        t = time.perf_counter()
+        with rebound(miplib_mod, MIPLIB2017ObjectiveFunction=TimedMIPLIB):
+            res = dt.run_solver(data, dt.SolverArgs(max_iter=iters, **LP_SOLVER), dt.ComputeArgs(),
+                                dt.ObjectiveArgs(objective_type="miplib2017", objective_kwargs=kw))
+        torch.cuda.synchronize()
+        n = counts()
+        check(res.dual_val.device.type == "cuda", "lp: the solve did not run on the card")
+        check(len(res.dual_objective_log) == iters and all(np.isfinite(res.dual_objective_log)),
+              "lp: non-finite dual objective log")
+        return res, n, time.perf_counter() - t
+
+    def repeat(obj, iters):
+        r = AcceleratedGradientDescent(max_iter=iters, **LP_SOLVER).maximize(
+            obj, torch.zeros(obj.b_vec.shape[0], device=obj.device))
+        return np.asarray(r.dual_objective_log)
+
+    def agree(what, coo, bfly, m, seeds, obj_rtol):
+        """COO and butterfly per calculate at seeded duals: the gradient
+        within 1e-3 of its largest entry, the objective to ``obj_rtol``, the
+        penalty to 1e-4; returns the largest deviations and the butterfly's
+        Benes launches."""
+        worst = [0.0, 0.0, 0.0]
+        reset_counts()
+        for seed in seeds:
+            lam = torch.from_numpy(np.abs(np.random.default_rng(seed).normal(size=m)).astype(np.float32)).to(coo.device)
+            r1, r2 = coo.calculate(lam, gamma=1e-3), bfly.calculate(lam, gamma=1e-3)
+            g1 = r1.dual_gradient
+            d = [float((g1 - r2.dual_gradient).abs().max() / max(1.0, float(g1.abs().max()))),
+                 abs(float(r1.dual_objective) - float(r2.dual_objective)) / max(1.0, abs(float(r1.dual_objective))),
+                 abs(float(r1.reg_penalty) - float(r2.reg_penalty)) / max(1e-6, abs(float(r1.reg_penalty)))]
+            worst = [max(u, v) for u, v in zip(worst, d)]
+        n = counts()
+        check(worst[0] <= 1e-3 and worst[1] <= obj_rtol and worst[2] <= 1e-4,
+              f"lp {what}: butterfly vs COO per calculate: gradient, objective, penalty {worst}")
+        check(n["K5"] > 0 and n["segsum"] > 0, f"lp {what}: kernels not launched: {n}")
+        return worst, n
+
+    # ---- v150d30: the bundled MIPLIB 2017 instance
+    lp = read_mps_file(str(V150D30))
+    args = lp.to_miplib_input_args()
+    check(lp.shape == (7822, 150) and args.A.nnz == 103991, f"lp v150d30: read {lp.shape}, {args.A.nnz} nnz")
+    res, n_launch, solve_s = lp_solve(args, 10000)
+    obj = captured["obj"]
+    final = res.dual_objective
+    say("lp", instance="v150d30-2hopcds", rows=lp.shape[0], variables=lp.shape[1], nnz=args.A.nnz, layout="coo",
+        iterations=10000, final_dual_objective=final, reference_assertion="27 +- 1",
+        deviation_from_jax_package_27_62=final - V150D30_JAX_DUAL, run_solver_s=f"{solve_s:.2f}",
+        objective_build_s=f"{captured['build_s']:.3f}", ms_per_iteration=f"{ms_per_iteration(obj.events):.4f}",
+        launches=n_launch, card=card)
+    check(abs(final - 27.0) < 1.0, f"lp v150d30: dual {final}, the reference asserts 27 +- 1")
+    check(n_launch["segsum"] == 2 * 10000 and n_launch["K5"] == 0, f"lp v150d30: launches {n_launch}")
+    again = repeat(obj, 10000)
+    check(np.array_equal(again, np.asarray(res.dual_objective_log)), "lp v150d30: two COO solves differ")
+    x = obj.calculate(res.dual_val, gamma=1e-3, save_primal=True).primal_var
+    gap_ub, gap_lb, p_feas, d_feas, conv = obj.calculate_convergence_bound(res.dual_val, x=x, tol=1e-4)
+    say("lp", instance="v150d30-2hopcds", repeat_of_the_solve="bit-identical", pdlp_gap_upperbound=gap_ub,
+        pdlp_gap_lowerbound=gap_lb, primal_feasibility=p_feas, dual_feasibility=d_feas, converged_at_1e_4=conv)
+    t0 = time.perf_counter()
+    bfly = MIPLIB2017ObjectiveFunction(args, layout="butterfly")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    worst, n_b = agree("v150d30", obj, bfly, lp.shape[0], (0, 1, 2), 1e-5)
+    say("lp", instance="v150d30-2hopcds", butterfly_vs_coo_gradient_objective_penalty=worst,
+        tolerance="1e-3 of max|grad|, 1e-5, 1e-4 (tests/test_mps_reader.py)", butterfly_build_s=f"{build_s:.2f}",
+        carry_slots=_plan_size(bfly.ops.rl.plan), launches_three_calculates=n_b)
+    del obj, bfly, res, captured["obj"], x
+    torch.cuda.empty_cache()
+
+    # ---- lp-2.5M: the slice's matrix as a general LP, x in [0, 1], c ~ U(-1, 0)
+    m, n = inp.A.shape
+    c_lp = np.random.default_rng(42).uniform(-1.0, 0.0, size=n).astype(np.float32)
+    lp_args = MIPLIBInputArgs(A=inp.A, c=c_lp, b_vec=inp.b_vec,
+                              projection_map={"box": ProjectionEntry("box", {"lower": 0.0, "upper": 1.0}, np.arange(n))})
+    results = {}
+    for layout, iters in (("coo", 200), ("butterfly", 50)):
+        res, n_launch, solve_s = lp_solve(lp_args, iters, layout=layout)
+        obj = captured["obj"]
+        ev = obj.events
+        first_ms = ev[0][0].elapsed_time(ev[0][1])
+        say("lp", instance="lp-2.5M", rows=m, variables=n, nnz=inp.A.nnz, layout=layout, iterations=iters,
+            ms_per_iteration=f"{ms_per_iteration(ev):.4f}", objective_build_s=f"{captured['build_s']:.2f}",
+            time_to_first_iteration_s=f"{captured['build_s'] + first_ms / 1e3:.3f}", first_iteration_ms=f"{first_ms:.3f}",
+            run_solver_s=f"{solve_s:.2f}", final_dual_objective=res.dual_objective,
+            peak_device_bytes=torch.cuda.max_memory_allocated(), launches=n_launch, card=card)
+        check(res.dual_objective_log[-1] > res.dual_objective_log[0], f"lp-2.5M {layout}: the dual objective did not rise")
+        if layout == "coo":
+            check(n_launch["segsum"] == 2 * iters, f"lp-2.5M coo: launches {n_launch}")
+            again = repeat(obj, iters)
+            check(np.array_equal(again, np.asarray(res.dual_objective_log)), "lp-2.5M: two COO solves differ")
+            say("lp", instance="lp-2.5M", layout=layout, repeat_of_the_solve="bit-identical")
+        else:
+            check(n_launch["K5"] == 2 * iters and n_launch["segsum"] == 0, f"lp-2.5M butterfly: launches {n_launch}")
+            say("lp", instance="lp-2.5M", layout=layout, carry_slots=_plan_size(obj.ops.rl.plan),
+                layout_build_s=f"{obj.ops.rl.build_seconds['total']:.2f}",
+                routing_s=f"{obj.ops.rl.build_seconds['route']:.2f}")
+        profile_window(f"lp-2.5M {layout}", obj, res.dual_val, kw=LP_SOLVER)
+        results[layout] = (obj, res.dual_val)
+        del res, captured["obj"]
+        if layout == "coo":
+            obj.events = []
+        torch.cuda.empty_cache()
+    worst, _ = agree("lp-2.5M", results["coo"][0], results["butterfly"][0], m, (0,), 1e-4)
+    say("lp", instance="lp-2.5M", butterfly_vs_coo_gradient_objective_penalty=worst,
+        tolerance="1e-3 of max|grad|, 1e-4, 1e-4 (25M-term fp32 sums in two orders)")
+    del results
+    torch.cuda.empty_cache()
 
 
 def phase_golden(dev_name):
@@ -793,7 +981,7 @@ def main(argv=None) -> int:
         seconds=f"{time.perf_counter() - t0:.2f}")
 
     # 8a. generate the slice's data once, for both layouts
-    need_data = "slice" in phases or "butterfly" in phases
+    need_data = bool({"slice", "butterfly", "lp"} & set(phases))
     inp, gen_s, l_max = None, 0.0, 29
     if need_data:
         t0 = time.perf_counter()
@@ -804,7 +992,7 @@ def main(argv=None) -> int:
             seed=args.seed, nnz=inp.A.nnz, max_column_degree=l_max, seconds=f"{gen_s:.2f}")
 
     check_err = {False: 0.0, True: 0.0}
-    panel_err = {False: 0.0, True: 0.0}
+    panel_err = {}
     segsum_err = 0.0
     if "kernels" in phases:
         check_err = phase_kernels(sorted({1, 2, 8, 16, 32, 100, l_max}), dev)
@@ -885,14 +1073,14 @@ def main(argv=None) -> int:
         return np.array(AcceleratedGradientDescent(max_iter=n_chk, **solver_kw).maximize(
             objective, torch.zeros(m, device=dev)).dual_objective_log)
 
-    def profile_window(path, objective, dual, iters=10):
+    def profile_window(path, objective, dual, iters=10, kw=None):
         """A torch.profiler window over ``iters`` iterations of ``path``: the
         device's busy share of the window and the kernels' time by name;
         returns the kernels' launches per name (None if nothing was
         recorded)."""
         from torch.profiler import ProfilerActivity, profile
 
-        agd = AcceleratedGradientDescent(max_iter=iters, **solver_kw)
+        agd = AcceleratedGradientDescent(max_iter=iters, **(kw or solver_kw))
         agd.maximize(objective, dual)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -942,6 +1130,29 @@ def main(argv=None) -> int:
             check(x.shape == (obj.bcsc.nnz,) and np.isfinite(x).all() and (x >= 0).all(), f"{what}: primal_var malformed")
             col_sums = np.add.reduceat(x, data.A.indptr[:-1][data.A.col_lengths > 0])
             check(col_sums.max() <= 1.0 + 1e-4, f"{what}: primal column sums exceed the simplex: {col_sums.max()}")
+
+    def variant(obj, cls=None, **attrs):
+        """A shallow copy of a built objective with some attributes replaced."""
+        new = (cls or type(obj)).__new__(cls or type(obj))
+        new.__dict__.update({k: v for k, v in obj.__dict__.items() if k != "events"})
+        new.events = []
+        for k, v in attrs.items():
+            setattr(new, k, v)
+        return new
+
+    certs, cert_dual = {}, None
+
+    def certify(what, objective, dual):
+        """The exact certificate at ``dual``: its numbers and its time."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = objective.exact_certificate(dual)
+        ms = (time.perf_counter() - t0) * 1e3
+        say("cert", layout=what, primal_ub=c["primal_ub"], dual_lb=c["dual_lb"], gap_rel=c["gap_rel"],
+            max_row_violation=c["max_row_violation"], ms=f"{ms:.1f}", card=card)
+        check(c["dual_lb"] <= c["primal_ub"], f"cert {what}: dual_lb {c['dual_lb']} > primal_ub {c['primal_ub']}")
+        check(all(np.isfinite(v) for v in c.values()), f"cert {what}: not finite: {c}")
+        return c
 
     csc_log = None
     # ------------------------------------------------------------------ 8. csc slice
@@ -1146,7 +1357,35 @@ def main(argv=None) -> int:
         if names is not None:
             n_select = sum(c for nm, c in names.items() if "ndexSelect" in nm or "index_select" in nm)
             check(n_select < n_tiles * 10, f"{n_select} index_select kernels in 10 iterations: the lambda gather runs")
+        if "cert" in phases:
+            cert_dual = res.dual_val.clone()
+            certs["csc at the csc dual"] = certify("csc", obj, cert_dual)
         del obj, captured["obj"], res
+        torch.cuda.empty_cache()
+
+        # Tiles in bf16 (the plain csc path: K1 has no bf16 form), 20 iterations,
+        # beside the fp32 tiles' csc run; the same tiles with the segment-sum's
+        # plain version give the same log.
+        r16, n_launch, _ = solve(inp, n_chk, False, dtype="bfloat16")
+        obj16 = captured["obj"]
+        check(obj16.bcsc.tiles[0].a.dtype == torch.bfloat16, "csc bf16 tiles: the tiles are not bf16")
+        log16 = np.asarray(r16.dual_objective_log)
+
+        class PlainSegsum(MatchingSolverDualObjectiveFunction):
+            def _local(self, *a, **kw):
+                with rebound(matching_mod, segment_sum_rows=segment_sum_rows_reference):
+                    return super()._local(*a, **kw)
+
+        plain16 = rel_dev(first_iterations(variant(obj16, PlainSegsum), obj16.bcsc.m), log16)
+        vs32 = rel_dev(log16, csc_log[:n_chk])
+        say("slice", option="'dtype=bfloat16 (tiles), use_pallas=False'", iterations=n_chk,
+            ms_per_iteration=f"{ms_per_iteration(obj16.events):.4f}", fp32_tiles_use_pallas_ms_per_iteration=f"{ms_per_iter:.4f}",
+            objective_build_s=f"{captured['build_s']:.2f}", max_rel_dev_vs_plain=float(plain16.max()),
+            max_rel_dev_vs_fp32_tiles=float(vs32.max()), launches=n_launch, card=card)
+        check(plain16.max() <= 1e-5, f"csc bf16 tiles: kernel vs plain versions differ by {plain16.max()} relative")
+        check(vs32.max() <= 4e-2, f"csc bf16 tiles drift {vs32.max()} relative from the fp32 tiles")
+        check(n_launch["segsum"] == n_chk and n_launch["K1g"] == 0, f"csc bf16 tiles: launches {n_launch}")
+        del obj16, r16, captured["obj"]
         torch.cuda.empty_cache()
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
@@ -1164,15 +1403,6 @@ def main(argv=None) -> int:
                 with rebound(matching_mod, _carry=plain_carry), \
                         rebound(fm, fused_panel_project_tiles=fused_panel_project_tiles_reference):
                     return super()._local(bcsc, dual_val, gamma, want_primal, row_layout)
-
-        def variant(obj, cls=None, **attrs):
-            """A shallow copy of a built objective with some attributes replaced."""
-            new = (cls or type(obj)).__new__(cls or type(obj))
-            new.__dict__.update({k: v for k, v in obj.__dict__.items() if k != "events"})
-            new.events = []
-            for k, v in attrs.items():
-                setattr(new, k, v)
-            return new
 
         def butterfly_solve(data, sources, what, expect_coarse, index_launches):
             """The solve, its counts, the plain-version and repeat checks."""
@@ -1318,7 +1548,30 @@ def main(argv=None) -> int:
             check(not any("reduce_partials" in nm for nm in names), "butterfly: reduce_partials ran")
             n_panel = sum(c for nm, c in names.items() if "panel_tiles_kernel" in nm)
             check(n_panel == 10, f"butterfly: {n_panel} panel launches in 10 iterations, expected 10")
+        if "cert" in phases:
+            certs["butterfly at its own dual"] = certify("butterfly", obj, res.dual_val)
+            if cert_dual is not None:
+                certs["butterfly at the csc dual"] = certify("butterfly", obj, cert_dual)
         del buf, obj, res, captured["obj"], rl, plan, m7, src7
+        torch.cuda.empty_cache()
+        say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
+
+        # ---- tiles in bf16: the panel kernel's bf16-tile instances, 20 iterations
+        r16, n16, _ = solve(inp, n_chk, True, layout="butterfly", dtype="bfloat16")
+        obj16 = captured["obj"]
+        check(obj16.panel_table.tile_dtype == torch.bfloat16, "butterfly bf16 tiles: the panel table is not bf16")
+        log16 = np.asarray(r16.dual_objective_log)
+        plain16 = rel_dev(first_iterations(variant(obj16, PlainButterfly), obj16.bcsc.m), log16)
+        vs32 = rel_dev(log16, log[:n_chk])
+        say("butterfly", option="'dtype=bfloat16 (tiles)'", iterations=n_chk,
+            ms_per_iteration=f"{ms_per_iteration(obj16.events):.4f}", fp32_tiles_ms_per_iteration=f"{bfly_ms:.4f}",
+            objective_build_s=f"{captured['build_s']:.2f}", max_rel_dev_vs_plain=float(plain16.max()),
+            max_rel_dev_vs_fp32_tiles=float(vs32.max()), launches=n16, card=card)
+        check(plain16.max() <= 1e-5, f"butterfly bf16 tiles: kernels vs plain versions differ by {plain16.max()}")
+        check(vs32.max() <= 4e-2, f"butterfly bf16 tiles drift {vs32.max()} relative from the fp32 tiles")
+        check(n16["K3"] == n_chk and n16["K4"] == 1, f"butterfly bf16 tiles: launches {n16}")
+        time_panel("butterfly, bf16 tiles", obj16, dev, kernels, panel_err, n16)
+        del obj16, r16, captured["obj"]
         torch.cuda.empty_cache()
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
@@ -1359,6 +1612,20 @@ def main(argv=None) -> int:
             lambda v: bf.benes_coarse_reference(v, m6, steps6, E6, I6),
             m6.shape[0], small_launches["K6"])
         del buf, ids, obj_s, res_s, plan, m6, captured["obj"]
+        say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
+
+    # ------------------------------------------------------------------ 10. cert
+    if "cert" in phases:
+        same = [certs.get(k) for k in ("csc at the csc dual", "butterfly at the csc dual")]
+        check(all(same), "cert: needs the slice and butterfly phases")
+        devs = {k: abs(same[0][k] - same[1][k]) / max(1.0, abs(same[0][k])) for k in ("primal_ub", "dual_lb")}
+        say("cert", csc_vs_butterfly_at_one_dual=devs, tolerance="1e-3 relative (fp32 sums in another order)",
+            certificates=len(certs))
+        check(max(devs.values()) <= 1e-3, f"cert: csc and butterfly differ at one dual: {devs}")
+
+    # ------------------------------------------------------------------ 11. lp
+    if "lp" in phases:
+        phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, ms_per_iteration, Timed)
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
     if not full:

@@ -12,12 +12,12 @@
 // segment s, column c of row kp sits at
 //
 //     buf[off + kp*L2*128 + (s*L + l)*128 + c]        (fp32 or bf16)
-//     a, c[(kp*q*L + s*L + l)*128 + c]                (fp32)
+//     a, c[(kp*q*L + s*L + l)*128 + c]                (fp32 or bf16, one type for all tiles)
 //     length[(kp*q + s)*128 + c]                      (int32)
 //
 // In place on that region, for every column:
 //
-//     z[l]  = a[l] * srow[l] + neg_inv_gamma * c[l]          srow read from buf
+//     z[l]  = a[l] * srow[l] + neg_inv_gamma * c[l]          srow read from buf, all in fp32
 //     x     = Proj(z) over the L lanes, x[l] = 0 for l >= length
 //     buf   <- a*x (rounded once to the carry type); ghost lanes [q*L, L2) <- 0
 //     obj  += c*x;  reg += x*x                          (+ x with WANT_X)
@@ -26,7 +26,8 @@
 //
 // What bounds it on an H100: device memory and the projection's arithmetic
 // about equally. srow, a, c in and a*x out are 16 B per real slot with an fp32
-// carry (12 B with bf16, +4 B for x); the simplex projection does about 106
+// carry and fp32 tiles (12 B with a bf16 carry or bf16 tiles, 8 B with both;
+// +4 B for x); the simplex projection does about 106
 // fp32 operations per slot, none of them an FMA, so at the card's non-FMA
 // issue rate the arithmetic takes about two thirds of the bytes' time. The
 // copies of one work item overlap the projection of another, so what is left
@@ -59,8 +60,9 @@
 //    compiler drops the per-lane tests; the arithmetic is the same. a and c
 //    are read for the emit from shared memory, so once from device memory;
 //    a*x (and x) go out as coalesced stores from registers.
-//  * L = 33 up to the largest item the ring holds (L = 47 with an fp32
-//    carry, 57 with bf16) go through the ring but re-read their lanes from
+//  * L = 33 up to the largest item the ring holds (ring_l_cap: 47 with fp32
+//    carry and tiles, 57 with a bf16 carry, 71 with bf16 tiles, 95 with
+//    both) go through the ring but re-read their lanes from
 //    shared memory on every pass (project_column_stream): a 64-lane column
 //    in registers raised the whole kernel's register use and spills, and
 //    cost the common tiles more than it saved the rare wide ones. Wider
@@ -69,6 +71,10 @@
 //  * Each slot of a region is read (by its item's copy) and written (by its
 //    column's thread) once, so the update is in place with no second buffer.
 //    The thread of segment 0 also zeroes its row's ghost lanes.
+//  * Tiles in bf16 (a and c) are the TPU kernel's other tile type: the
+//    kernel is instanced for {fp32, bf16} carry x {fp32, bf16} tiles, and a
+//    and c are widened to fp32 where they are read. The widening is exact,
+//    so bf16 tiles give the bits of fp32 tiles holding the same values.
 //  * Numerics: z, the projection and the emit are those of the per-tile
 //    kernel this replaces, lane by lane, so a*x and x are bit for bit those
 //    of a launch per tile. Only the order of the (obj, reg) sums changes:
@@ -111,8 +117,8 @@ constexpr int MAX_DEVICES = 64;
 
 // One row of the tile table. Must match ops/fused_matching.py::_TILE_DTYPE.
 struct Tile {
-  const float* a;    // (KP, q*L, 128)
-  const float* c;
+  const void* a;     // (KP, q*L, 128), the launch's tile type
+  const void* c;
   const int* len;    // (KP, q, 128)
   long long off;     // region start in the carry buffer, in slots
   long long x_off;   // first slot of the tile's x in the x buffer
@@ -159,21 +165,26 @@ struct TileWalk {
   }
 };
 
-// Bytes of one item in the ring: a, c (fp32), srow (carry type), length
-// (a multiple of 128, as C is).
-__host__ __device__ __forceinline__ constexpr unsigned item_bytes(int L, int carry_bytes) {
-  return (unsigned)L * C * (8 + carry_bytes) + C * 4;
+// Bytes of one item in the ring: a, c (tile type TA), srow (carry type T),
+// length. Every part is a multiple of 256 B (C = 128 lanes of 2 or 4 B), so
+// each bulk copy and each part's place in the ring stay on 16 B.
+template <typename T, typename TA>
+__host__ __device__ __forceinline__ constexpr unsigned item_bytes(int L) {
+  return (unsigned)L * C * (2 * sizeof(TA) + sizeof(T)) + C * 4;
 }
 
-// The largest L whose item the ring holds: 47 (fp32 carry), 57 (bf16).
-template <typename T>
+// The largest L whose item the ring holds: 47 (fp32 carry and tiles), 57
+// (bf16 carry), 71 (bf16 tiles), 95 (both).
+template <typename T, typename TA>
 __host__ __device__ __forceinline__ constexpr int ring_l_cap() {
-  return (int)((RING_BYTES - C * 4) / (C * (8 + sizeof(T))));
+  return (int)((RING_BYTES - C * 4) / (C * (2 * sizeof(TA) + sizeof(T))));
 }
-static_assert(ring_l_cap<float>() > REG_L_CAP && ring_l_cap<float>() < 64, "ring size");
+static_assert(ring_l_cap<float, float>() == 47 && ring_l_cap<__nv_bfloat16, float>() == 57, "ring size");
+static_assert(ring_l_cap<float, __nv_bfloat16>() == 71 && ring_l_cap<__nv_bfloat16, __nv_bfloat16>() == 95,
+              "ring size");
 
-template <typename T>
-__device__ __forceinline__ bool in_ring(const Tile& t) { return t.L <= ring_l_cap<T>(); }
+template <typename T, typename TA>
+__device__ __forceinline__ bool in_ring(const Tile& t) { return t.L <= ring_l_cap<T, TA>(); }
 
 // Where the items go in the ring: one after the other, back to the start
 // when an item does not fit before the end. The producer and the consumers
@@ -264,11 +275,12 @@ struct Where {
 
 // One thread's column of one item: lane l of a, c and srow at a[l*C], c[l*C],
 // s[l*C] (shared memory for an item of the ring, device memory otherwise);
-// a*x goes to b[l*C] in the carry buffer.
-template <typename T>
+// a*x goes to b[l*C] in the carry buffer. a and c are widened to fp32 on the
+// read.
+template <typename T, typename TA>
 struct Column {
-  const float* a;
-  const float* c;
+  const TA* a;
+  const TA* c;
   const T* s;
   T* b;
   float* x;
@@ -277,14 +289,14 @@ struct Column {
 
   // a*srow + nig*c, rounded as two products and a sum (no contraction)
   __device__ __forceinline__ float z(int l) const {
-    return __fadd_rn(__fmul_rn(a[l * C], load(s + l * C)), __fmul_rn(nig, c[l * C]));
+    return __fadd_rn(__fmul_rn(load(a + l * C), load(s + l * C)), __fmul_rn(nig, load(c + l * C)));
   }
 
   template <bool WANT_X>
   __device__ __forceinline__ void emit(int l, float w, float& cx, float& xx) const {
     const float xv = (l < len) ? w : 0.f;
-    const float cv = c[l * C];
-    store(b + l * C, __fmul_rn(a[l * C], xv));
+    const float cv = load(c + l * C);
+    store(b + l * C, __fmul_rn(load(a + l * C), xv));
     if (WANT_X) x[l * C] = xv;
     cx += cv * xv;
     xx += xv * xv;
@@ -295,8 +307,9 @@ struct Column {
 // every lane real when L is the cap (no per-lane test), and for the simplex
 // its radius of 1 as well (no per-lane division test). The arithmetic is
 // the same.
-template <typename T, int KIND, int LCAP, bool WANT_X>
-__device__ __forceinline__ void project(const Tile& t, const Proj& pr, const Column<T>& col, float& cx, float& xx) {
+template <typename T, typename TA, int KIND, int LCAP, bool WANT_X>
+__device__ __forceinline__ void project(const Tile& t, const Proj& pr, const Column<T, TA>& col, float& cx,
+                                        float& xx) {
   const auto z = [&](int l) { return col.z(l); };
   const auto emit = [&](int l, float w) { col.template emit<WANT_X>(l, w, cx, xx); };
   if (t.L == LCAP && (KIND != SIMPLEX || pr.radius == 1.f)) {
@@ -307,8 +320,8 @@ __device__ __forceinline__ void project(const Tile& t, const Proj& pr, const Col
   }
 }
 
-template <typename T, int KIND, bool WANT_X>
-__device__ __forceinline__ void project_any(const Tile& t, const Proj& pr, const Column<T>& col, float& cx,
+template <typename T, typename TA, int KIND, bool WANT_X>
+__device__ __forceinline__ void project_any(const Tile& t, const Proj& pr, const Column<T, TA>& col, float& cx,
                                             float& xx) {
   const int L = t.L;
   if (L > REG_L_CAP) {
@@ -316,25 +329,25 @@ __device__ __forceinline__ void project_any(const Tile& t, const Proj& pr, const
         L, pr, [&](int l) { return col.z(l); },
         [&](int l, float w) { col.template emit<WANT_X>(l, w, cx, xx); });
   } else if (L <= 1) {
-    project<T, KIND, 1, WANT_X>(t, pr, col, cx, xx);
+    project<T, TA, KIND, 1, WANT_X>(t, pr, col, cx, xx);
   } else if (L <= 2) {
-    project<T, KIND, 2, WANT_X>(t, pr, col, cx, xx);
+    project<T, TA, KIND, 2, WANT_X>(t, pr, col, cx, xx);
   } else if (L <= 4) {
-    project<T, KIND, 4, WANT_X>(t, pr, col, cx, xx);
+    project<T, TA, KIND, 4, WANT_X>(t, pr, col, cx, xx);
   } else if (L <= 8) {
-    project<T, KIND, 8, WANT_X>(t, pr, col, cx, xx);
+    project<T, TA, KIND, 8, WANT_X>(t, pr, col, cx, xx);
   } else if (L <= 16) {
-    project<T, KIND, 16, WANT_X>(t, pr, col, cx, xx);
+    project<T, TA, KIND, 16, WANT_X>(t, pr, col, cx, xx);
   } else if (REG_L_CAP <= 32 || L <= 32) {
-    project<T, KIND, 32, WANT_X>(t, pr, col, cx, xx);
+    project<T, TA, KIND, 32, WANT_X>(t, pr, col, cx, xx);
   } else {
-    if constexpr (REG_L_CAP > 32) project<T, KIND, 64, WANT_X>(t, pr, col, cx, xx);
+    if constexpr (REG_L_CAP > 32) project<T, TA, KIND, 64, WANT_X>(t, pr, col, cx, xx);
   }
 }
 
 // identity / box / cone: elementwise, any L.
-template <typename T, bool WANT_X>
-__device__ __forceinline__ void clamp_item(const Tile& t, const Proj& pr, const Column<T>& col, float& cx,
+template <typename T, typename TA, bool WANT_X>
+__device__ __forceinline__ void clamp_item(const Tile& t, const Proj& pr, const Column<T, TA>& col, float& cx,
                                            float& xx) {
   for (int l = 0; l < t.L; ++l) {
     float w = col.z(l);
@@ -346,22 +359,22 @@ __device__ __forceinline__ void clamp_item(const Tile& t, const Proj& pr, const 
 
 // One item of the ring, one column: project and emit (the column
 // in registers up to L = 32).
-template <typename T, bool WANT_X>
-__device__ __forceinline__ void ring_item(const Tile& t, const Column<T>& col, float& cx, float& xx) {
+template <typename T, typename TA, bool WANT_X>
+__device__ __forceinline__ void ring_item(const Tile& t, const Column<T, TA>& col, float& cx, float& xx) {
   const Proj pr{t.inequality, t.lo, t.hi, t.has_lo, t.has_hi, t.radius};
-  if (t.kind == CLAMP) clamp_item<T, WANT_X>(t, pr, col, cx, xx);
-  else if (t.kind == SIMPLEX) project_any<T, SIMPLEX, WANT_X>(t, pr, col, cx, xx);
-  else project_any<T, BOXCUT, WANT_X>(t, pr, col, cx, xx);
+  if (t.kind == CLAMP) clamp_item<T, TA, WANT_X>(t, pr, col, cx, xx);
+  else if (t.kind == SIMPLEX) project_any<T, TA, SIMPLEX, WANT_X>(t, pr, col, cx, xx);
+  else project_any<T, TA, BOXCUT, WANT_X>(t, pr, col, cx, xx);
 }
 
 // One item wider than the ring takes, one column, from device
 // memory: nothing kept, every pass re-reads the lanes.
-template <typename T, bool WANT_X>
-__device__ __forceinline__ void wide_item(const Tile& t, const Column<T>& col, float& cx, float& xx) {
+template <typename T, typename TA, bool WANT_X>
+__device__ __forceinline__ void wide_item(const Tile& t, const Column<T, TA>& col, float& cx, float& xx) {
   const Proj pr{t.inequality, t.lo, t.hi, t.has_lo, t.has_hi, t.radius};
   const auto z = [&](int l) { return col.z(l); };
   const auto emit = [&](int l, float w) { col.template emit<WANT_X>(l, w, cx, xx); };
-  if (t.kind == CLAMP) clamp_item<T, WANT_X>(t, pr, col, cx, xx);
+  if (t.kind == CLAMP) clamp_item<T, TA, WANT_X>(t, pr, col, cx, xx);
   else if (t.kind == SIMPLEX) project_column_stream<SIMPLEX>(t.L, pr, z, emit);
   else project_column_stream<BOXCUT>(t.L, pr, z, emit);
 }
@@ -391,7 +404,7 @@ __device__ void finish(const Args& p) {
   }
 }
 
-template <typename T, bool WANT_X>
+template <typename T, typename TA, bool WANT_X>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) panel_tiles_kernel(Args p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const unsigned full0 = smem_u32(smem), empty0 = full0 + SLOTS * 8;
@@ -422,7 +435,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) panel_tiles_kernel(Args p
       int in_flight = 0;
       for (long long item = blockIdx.x; item < p.n_items; item += gridDim.x, slot.next()) {
         tw.seek(p, item);
-        const unsigned bytes = in_ring<T>(tile) ? item_bytes(tile.L, sizeof(T)) : 0u;
+        const unsigned bytes = in_ring<T, TA>(tile) ? item_bytes<T, TA>(tile.L) : 0u;
         const unsigned at = walk.place(bytes);
         for (;;) {
           bool clash = in_flight == SLOTS;
@@ -441,12 +454,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) panel_tiles_kernel(Args p
         if (bytes) {
           const Where w(tile, item);
           const unsigned lanes = (unsigned)tile.L * C;
+          const unsigned ab = lanes * (unsigned)sizeof(TA);  // bytes of a (and of c)
           const unsigned dst = smem_u32(ring + at);
-          mbar_expect_tx(full, (unsigned)(lanes * (8 + sizeof(T)) + C * 4));
-          bulk_load(dst, tile.a + w.local * lanes, lanes * 4, full);
-          bulk_load(dst + lanes * 4, tile.c + w.local * lanes, lanes * 4, full);
-          bulk_load(dst + lanes * 8, buf + w.srow(tile), lanes * (unsigned)sizeof(T), full);
-          bulk_load(dst + lanes * (8 + (unsigned)sizeof(T)), tile.len + w.local * C, C * 4, full);
+          mbar_expect_tx(full, bytes);
+          bulk_load(dst, static_cast<const TA*>(tile.a) + w.local * lanes, ab, full);
+          bulk_load(dst + ab, static_cast<const TA*>(tile.c) + w.local * lanes, ab, full);
+          bulk_load(dst + 2 * ab, buf + w.srow(tile), lanes * (unsigned)sizeof(T), full);
+          bulk_load(dst + 2 * ab + lanes * (unsigned)sizeof(T), tile.len + w.local * C, C * 4, full);
         } else {
           mbar_arrive(full);  // read from device memory by the consumers
         }
@@ -460,8 +474,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) panel_tiles_kernel(Args p
     for (long long item = blockIdx.x; item < p.n_items; item += gridDim.x, slot.next()) {
       tw.seek(p, item);
       const Where w(tile, item);
-      const bool ringed = in_ring<T>(tile);
-      const unsigned at = walk.place(ringed ? item_bytes(tile.L, sizeof(T)) : 0u);
+      const bool ringed = in_ring<T, TA>(tile);
+      const unsigned at = walk.place(ringed ? item_bytes<T, TA>(tile.L) : 0u);
       const long long lanes = (long long)tile.L * C;
       const long long srow = w.srow(tile);
       T* const b = buf + srow + col_i;
@@ -469,15 +483,17 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) panel_tiles_kernel(Args p
       mbar_wait(full0 + 8 * slot.i, slot.parity);
       if (ringed) {  // a, c, srow and length from shared memory
         const unsigned char* sb = ring + at;
-        const Column<T> col{reinterpret_cast<const float*>(sb) + col_i,
-                            reinterpret_cast<const float*>(sb + lanes * 4) + col_i,
-                            reinterpret_cast<const T*>(sb + lanes * 8) + col_i, b, x,
-                            reinterpret_cast<const int*>(sb + lanes * (8 + sizeof(T)))[col_i], nig};
-        ring_item<T, WANT_X>(tile, col, cx, xx);
+        const long long ab = lanes * (long long)sizeof(TA);
+        const Column<T, TA> col{reinterpret_cast<const TA*>(sb) + col_i,
+                                reinterpret_cast<const TA*>(sb + ab) + col_i,
+                                reinterpret_cast<const T*>(sb + 2 * ab) + col_i, b, x,
+                                reinterpret_cast<const int*>(sb + 2 * ab + lanes * sizeof(T))[col_i], nig};
+        ring_item<T, TA, WANT_X>(tile, col, cx, xx);
       } else {
-        const Column<T> col{tile.a + w.local * lanes + col_i, tile.c + w.local * lanes + col_i, b, b, x,
-                            tile.len[w.local * C + col_i], nig};
-        wide_item<T, WANT_X>(tile, col, cx, xx);
+        const Column<T, TA> col{static_cast<const TA*>(tile.a) + w.local * lanes + col_i,
+                                static_cast<const TA*>(tile.c) + w.local * lanes + col_i, b, b, x,
+                                tile.len[w.local * C + col_i], nig};
+        wide_item<T, TA, WANT_X>(tile, col, cx, xx);
       }
       if (w.seg == 0) {  // ghost lanes of this buffer row
         T* g = buf + tile.off + w.row * tile.L2 * C + col_i;
@@ -498,7 +514,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) panel_tiles_kernel(Args p
 // Blocks a launch may take on the current device: as many as fit on every
 // SM, worked out (and the kernel's shared memory opted in) at the first
 // launch on each device.
-template <typename T, bool WANT_X>
+template <typename T, typename TA, bool WANT_X>
 cudaError_t full_grid(int& grid) {
   static std::atomic<int> cached[MAX_DEVICES];
   int dev = 0;
@@ -506,7 +522,7 @@ cudaError_t full_grid(int& grid) {
   if (e != cudaSuccess) return e;
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if ((grid = cached[dev].load(std::memory_order_relaxed)) > 0) return cudaSuccess;
-  auto kernel = panel_tiles_kernel<T, WANT_X>;
+  auto kernel = panel_tiles_kernel<T, TA, WANT_X>;
   // dynamic shared memory above the default 48 KB needs an opt-in per kernel
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (e != cudaSuccess) return e;
@@ -521,26 +537,33 @@ cudaError_t full_grid(int& grid) {
   return cudaSuccess;
 }
 
-template <typename T, bool WANT_X>
+template <typename T, typename TA, bool WANT_X>
 int launch(Args& p, int max_grid, cudaStream_t s) {
   int grid = 0;
-  const cudaError_t e = full_grid<T, WANT_X>(grid);
+  const cudaError_t e = full_grid<T, TA, WANT_X>(grid);
   if (e != cudaSuccess) return (int)e;
   if (grid > max_grid) grid = max_grid;
   if (grid > p.n_items) grid = (int)p.n_items;
-  panel_tiles_kernel<T, WANT_X><<<grid, THREADS, SMEM_BYTES, s>>>(p);
+  panel_tiles_kernel<T, TA, WANT_X><<<grid, THREADS, SMEM_BYTES, s>>>(p);
   return (int)cudaGetLastError();
 }
 
-int dispatch(Args& p, int carry_bytes, int max_grid, cudaStream_t s) {
+template <typename T, typename TA>
+int launch_x(Args& p, int max_grid, cudaStream_t s) {
+  return p.x != nullptr ? launch<T, TA, true>(p, max_grid, s) : launch<T, TA, false>(p, max_grid, s);
+}
+
+template <typename T>
+int launch_tiles(Args& p, int tile_bytes, int max_grid, cudaStream_t s) {
+  if (tile_bytes == 4) return launch_x<T, float>(p, max_grid, s);
+  if (tile_bytes == 2) return launch_x<T, __nv_bfloat16>(p, max_grid, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch(Args& p, int carry_bytes, int tile_bytes, int max_grid, cudaStream_t s) {
   if (p.n_items < 1 || p.n_items >= (1ll << 31) || max_grid < 1) return (int)cudaErrorInvalidValue;
-  const bool want_x = p.x != nullptr;
-  if (carry_bytes == 4) {
-    return want_x ? launch<float, true>(p, max_grid, s) : launch<float, false>(p, max_grid, s);
-  }
-  if (carry_bytes == 2) {
-    return want_x ? launch<__nv_bfloat16, true>(p, max_grid, s) : launch<__nv_bfloat16, false>(p, max_grid, s);
-  }
+  if (carry_bytes == 4) return launch_tiles<float>(p, tile_bytes, max_grid, s);
+  if (carry_bytes == 2) return launch_tiles<__nv_bfloat16>(p, tile_bytes, max_grid, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -548,10 +571,11 @@ int dispatch(Args& p, int carry_bytes, int max_grid, cudaStream_t s) {
 
 // Every tile of ``table`` (n_tiles rows in device memory, checked by the
 // caller against the layout): n_items work items. carry_bytes: 4 (float32
-// buffer) or 2 (bfloat16). x == nullptr: K3; else K4. ``partials`` holds
-// ``max_grid`` (obj, reg) pairs; ``out`` receives the two sums.
+// buffer) or 2 (bfloat16); tile_bytes: the same for every tile's a and c.
+// x == nullptr: K3; else K4. ``partials`` holds ``max_grid`` (obj, reg)
+// pairs; ``out`` receives the two sums.
 extern "C" int dualip_panel_project_tiles(
-    void* buf, int carry_bytes, const void* table, int n_tiles, long long n_items,
+    void* buf, int carry_bytes, int tile_bytes, const void* table, int n_tiles, long long n_items,
     const float* neg_inv_gamma, float* x, float* partials, int max_grid, float* out, void* stream) {
   if (table == nullptr || n_tiles < 1) return (int)cudaErrorInvalidValue;
   Args p{};
@@ -563,14 +587,14 @@ extern "C" int dualip_panel_project_tiles(
   p.x = x;
   p.partials = partials;
   p.out = out;
-  return dispatch(p, carry_bytes, max_grid, static_cast<cudaStream_t>(stream));
+  return dispatch(p, carry_bytes, tile_bytes, max_grid, static_cast<cudaStream_t>(stream));
 }
 
 // One tile, its table row passed by value: region ``off`` of the (n_buf,)
 // buffer, KP buffer rows of q segments of L lanes in L2; x (if any) is the
 // tile's own (KP, q*L, 128) output.
 extern "C" int dualip_panel_project(
-    void* buf, long long n_buf, int carry_bytes, const float* a, const float* c, const int* length,
+    void* buf, long long n_buf, int carry_bytes, int tile_bytes, const void* a, const void* c, const int* length,
     long long off, int KP, int L, int L2, int q, int kind, int inequality,
     float lo, float hi, int has_lo, int has_hi, float radius,
     const float* neg_inv_gamma, float* x, float* partials, int max_grid, float* out, void* stream) {
@@ -588,5 +612,5 @@ extern "C" int dualip_panel_project(
   p.x = x;
   p.partials = partials;
   p.out = out;
-  return dispatch(p, carry_bytes, max_grid, static_cast<cudaStream_t>(stream));
+  return dispatch(p, carry_bytes, tile_bytes, max_grid, static_cast<cudaStream_t>(stream));
 }

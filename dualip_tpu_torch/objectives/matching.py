@@ -30,6 +30,7 @@ objective.  Three layouts compute it:
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -43,7 +44,11 @@ from dualip_tpu_torch.sparse.bcsc import (
     BlockCSC,
     Tile,
     build_blockcsc,
+    build_row_sum_plan,
     device_put_blockcsc,
+    is_bfloat16,
+    put_row_sum_plan,
+    round_bfloat16,
     tile_valid_mask,
     tiles_values_to_flat,
 )
@@ -84,7 +89,8 @@ def transpose_tiles(bcsc: BlockCSC) -> BlockCSC:
         )
         for t in bcsc.tiles
     ]
-    return BlockCSC(tiles=tiles_T, specs=bcsc.specs, m=bcsc.m, n=bcsc.n, nnz=bcsc.nnz, transposed=True)
+    return BlockCSC(tiles=tiles_T, specs=bcsc.specs, m=bcsc.m, n=bcsc.n, nnz=bcsc.nnz, transposed=True,
+                    value_dtype=bcsc.value_dtype)
 
 
 def _scalar(v, dtype, device) -> torch.Tensor:
@@ -143,7 +149,9 @@ def matching_local_parts(
     bcsc: BlockCSC, dual_val: torch.Tensor, gamma, want_primal: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, List[torch.Tensor]]:
     """(grad, dual_obj, reg, [x tiles in (K, L)]) through the registry
-    projections on (K, L) tiles."""
+    projections on (K, L) tiles.  Bfloat16 tiles compute in the dual's dtype,
+    as the JAX package's type promotion has it (torch would keep
+    ``(-1/gamma) * c`` in bfloat16: a 0-d tensor does not promote)."""
     dtype, dev = dual_val.dtype, dual_val.device
     neg_inv_gamma = _neg_inv_gamma(gamma, dtype, dev)
     scaled = neg_inv_gamma * dual_val
@@ -156,27 +164,118 @@ def matching_local_parts(
     zero = torch.zeros((), dtype=dtype, device=dev)
     for tile, spec in zip(bcsc.tiles, bcsc.specs):
         rows = tile.rows.reshape(-1)
-        z = tile.a * scaled.index_select(0, rows).view(tile.a.shape) + neg_inv_gamma * tile.c
+        a, c = tile.a.to(dtype), tile.c.to(dtype)
+        z = a * scaled.index_select(0, rows).view(a.shape) + neg_inv_gamma * c
         x = spec.projection()(z)
         x = torch.where(tile_valid_mask(tile, spec.L), x, zero)
-        ax_parts.append((tile.a * x).reshape(-1))
+        ax_parts.append((a * x).reshape(-1))
         reg = reg + half_gamma * torch.sum(x * x)
-        dual_obj = dual_obj + torch.sum(tile.c * x)
+        dual_obj = dual_obj + torch.sum(c * x)
         if want_primal:
             xs.append(x)
     grad = segment_sum_rows(torch.zeros(bcsc.m, dtype=dtype, device=dev), torch.cat(ax_parts), bcsc.row_sum)
     return grad, dual_obj, reg, xs
 
 
-def _srow_parts(rl, values: torch.Tensor, fill: torch.Tensor) -> List[torch.Tensor]:
-    """Per row tile, ``values[row_ids]`` broadcast along each row's valid
-    lanes and ``fill`` on its padding lanes, flattened."""
+def matching_exact_cert_csc(
+    bcsc: BlockCSC, dual_val: torch.Tensor, gamma
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pieces of the exact matching certificate on column tiles:
+    ``(term, cxrow, ax)`` with ``term = sum_i radius_i * max(0, max_k z_ik)``
+    (the unregularized dual bound is ``-lambda.b - gamma*term``),
+    ``cxrow[r]`` the sum of ``c*x`` over row r's nonzeros and ``ax = A x`` at
+    the gamma-subproblem's primal x.  Padding slots enter z as zeros, which
+    the ``max(0, .)`` absorbs (a simplex always admits x = 0).
+
+    Tiles may be (K, L) or, for the fused kernel, (L, K) (``transposed``);
+    the lanes' axis follows.  The row sums are the fixed-order segment-sum
+    of the tiles' ``RowSumPlan``, as in the solve."""
+    dtype, dev = dual_val.dtype, dual_val.device
+    neg_inv_gamma = _neg_inv_gamma(gamma, dtype, dev)
+    scaled = neg_inv_gamma * dual_val
+    lanes = 0 if bcsc.transposed else 1
+    term = torch.zeros((), dtype=dtype, device=dev)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    ax_parts, cx_parts = [], []
+    for tile, spec in zip(bcsc.tiles, bcsc.specs):
+        a, c = tile.a.to(dtype), tile.c.to(dtype)
+        z = a * scaled.index_select(0, tile.rows.reshape(-1)).view(a.shape) + neg_inv_gamma * c
+        radius = float(dict(spec.proj_params).get("z", 1.0))
+        term = term + radius * torch.sum(torch.clamp_min(torch.amax(z, dim=lanes), 0.0))
+        x = spec.projection()(z.movedim(lanes, -1)).movedim(-1, lanes)
+        mask = tile_valid_mask(tile, spec.L)
+        x = torch.where(mask.T if bcsc.transposed else mask, x, zero)
+        ax_parts.append((a * x).reshape(-1))
+        cx_parts.append((c * x).reshape(-1))
+    sums = [segment_sum_rows(torch.zeros(bcsc.m, dtype=dtype, device=dev), torch.cat(p), bcsc.row_sum)
+            for p in (cx_parts, ax_parts)]
+    return term, sums[0], sums[1]
+
+
+def matching_exact_cert_rowmajor(
+    bcsc: BlockCSC, rl, dual_val: torch.Tensor, gamma
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The certificate's pieces (as ``matching_exact_cert_csc``) through the
+    butterfly layout, plain or compact: one forward carry of srow, the
+    projection by the panel kernel's plain version (the certificate is a rare
+    check, not the hot loop), and two reverse carries (``a*x`` for ``ax``,
+    ``c*x`` for ``cxrow``).  The carries run in the dual's dtype whatever the
+    solve's ``carry_dtype``."""
+    if rl.plan is None:
+        raise ValueError("exact certificate on the row layout needs the butterfly plan")
+    from dualip_tpu_torch.ops.fused_matching import _project_block_reference
+
+    dtype, dev = dual_val.dtype, dual_val.device
+    neg_inv_gamma = _neg_inv_gamma(gamma, dtype, dev)
+    scaled = neg_inv_gamma * dual_val
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    N = _plan_size(rl.plan)
+    buf = _srow_carried(rl, scaled, zero)
+
+    term = torch.zeros((), dtype=dtype, device=dev)
+    u = torch.zeros(N, dtype=dtype, device=dev)  # a*x in panel layout, ghost lanes zero
+    w = torch.zeros(N, dtype=dtype, device=dev)  # c*x
+    packs = rl.col_pack if rl.col_pack is not None else (None,) * len(rl.col_tiles_T)
+    for pt, spec, off, pk in zip(rl.col_tiles_T, bcsc.specs, rl.col_offsets, packs):
+        kind, params = spec.proj_type, dict(spec.proj_params)
+        radius = float(params.get("z", 1.0))
+        a_p, c_p = pt.a.to(dtype), pt.c.to(dtype)
+        BP, QL, C = a_p.shape
+        L, L2, q = pk if pk is not None else (QL, (1 << max(QL - 1, 0).bit_length()) if QL > 1 else 1, 1)
+        region = slice(off, off + BP * L2 * C)
+        z = a_p * buf[region].view(BP, L2, C)[:, :QL, :] + neg_inv_gamma * c_p
+        z4 = z.view(BP, q, L, C)
+        term = term + radius * torch.sum(torch.clamp_min(torch.amax(z4, dim=2), 0.0))
+        x = _project_block_reference(z4, kind, params, pt.length[:, :, None, :], L, axis=2).reshape(BP, QL, C)
+        u[region].view(BP, L2, C)[:, :QL, :] = a_p * x
+        w[region].view(BP, L2, C)[:, :QL, :] = c_p * x
+
+    def back_to_rows(vec):
+        vec_row = _carry(rl, vec, reverse=True)
+        sums, offr = [], 0
+        for R, Lr in rl.row_shapes:
+            sums.append(torch.sum(vec_row[offr : offr + R * Lr].view(R, Lr), dim=1, dtype=dtype))
+            offr += R * Lr
+        return torch.cat(sums + [zero.reshape(1)]).index_select(0, rl.row_pos)
+
+    return term, back_to_rows(w), back_to_rows(u)
+
+
+def _srow_carried(rl, values: torch.Tensor, fill: torch.Tensor, dtype=None) -> torch.Tensor:
+    """The forward carry of ``values[row_ids]`` broadcast along each row
+    tile's valid lanes, ``fill`` on the padding lanes and after the row
+    space, in ``dtype`` (default: ``values``'), over the plan's full (N,)
+    buffer (the kernels work in place)."""
     parts = []
     for rt, (R, Lr) in zip(rl.row_tiles, rl.row_shapes):
         lane = torch.arange(Lr, dtype=torch.int32, device=values.device)
         s = torch.where(lane[None, :] < rt.length[:, None], values.index_select(0, rt.row_ids)[:, None], fill)
         parts.append(s.reshape(-1))
-    return parts
+    used = sum(p.numel() for p in parts)
+    vec = torch.cat(parts + [fill.expand(_plan_size(rl.plan) - used)])
+    if dtype is not None:
+        vec = vec.to(dtype)
+    return _carry(rl, vec, reverse=False, truncate=False)
 
 
 def _plan_size(plan) -> int:
@@ -204,12 +303,8 @@ def route_row_ids(rl, m: int) -> torch.Tensor:
             f"m={m} exceeds the 2^24 exact-integer range"
         )
     dev = rl.row_pos.device
-    N = _plan_size(rl.plan)
     sent = torch.full((), float(m), dtype=torch.float32, device=dev)
-    parts = _srow_parts(rl, torch.arange(m, dtype=torch.float32, device=dev), sent)
-    used = sum(p.numel() for p in parts)
-    vec = torch.cat(parts + [sent.expand(N - used)])
-    return _carry(rl, vec, reverse=False, truncate=False).to(torch.int32)
+    return _srow_carried(rl, torch.arange(m, dtype=torch.float32, device=dev), sent).to(torch.int32)
 
 
 def layout_panel_table(rl, specs):
@@ -264,7 +359,6 @@ def matching_local_parts_rowmajor(
     if butterfly:
         from dualip_tpu_torch.ops.fused_matching import fused_panel_project_tiles
 
-        N = _plan_size(rl.plan)
         if rl.srow_colidx is not None:
             # the forward carry's action on the row-id broadcast was computed
             # at setup, so the (m+1)-entry scaled table (sentinel slot = 0) is
@@ -277,12 +371,7 @@ def matching_local_parts_rowmajor(
             # srow carry: ship the masked dual broadcast, zero on padding
             # slots, in a buffer of the plan's full length so the kernels
             # work in place
-            parts = _srow_parts(rl, scaled, zero)
-            used = sum(p.numel() for p in parts)
-            z_cat = torch.cat(parts + [torch.zeros(N - used, dtype=dtype, device=dev)])
-            if carry_dtype is not None:
-                z_cat = z_cat.to(carry_dtype)
-            buf = _carry(rl, z_cat, reverse=False, truncate=False)  # full (N,)
+            buf = _srow_carried(rl, scaled, zero, carry_dtype)  # full (N,)
         if panel_table is None:
             panel_table = layout_panel_table(rl, bcsc.specs)
         # every tile in one launch of the panel kernel, in place on buf
@@ -304,7 +393,7 @@ def matching_local_parts_rowmajor(
         reg = torch.zeros((), dtype=dtype, device=dev)
         # z in row layout: the dual value is constant along a row
         z_parts = [
-            (rt.a * scaled.index_select(0, rt.row_ids)[:, None] + neg_inv_gamma * rt.c).reshape(-1)
+            (rt.a.to(dtype) * scaled.index_select(0, rt.row_ids)[:, None] + neg_inv_gamma * rt.c.to(dtype)).reshape(-1)
             for rt in rl.row_tiles
         ]
         z_cat = torch.cat(z_parts + [zero.reshape(1)])
@@ -313,9 +402,9 @@ def matching_local_parts_rowmajor(
             z = z_cat.index_select(0, rl.zidx[i].reshape(-1)).view(rl.zidx[i].shape)
             x = spec.projection()(z)
             x = torch.where(tile_valid_mask(tile, spec.L), x, zero)
-            ax_parts.append((tile.a * x).reshape(-1))
+            ax_parts.append((tile.a.to(dtype) * x).reshape(-1))
             reg = reg + half_gamma * torch.sum(x * x)
-            dual_obj = dual_obj + torch.sum(tile.c * x)
+            dual_obj = dual_obj + torch.sum(tile.c.to(dtype) * x)
             if want_primal:
                 xs.append(x)
         ax_cat = torch.cat(ax_parts + [zero.reshape(1)])
@@ -430,6 +519,11 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
                     "srow_gather is single-device only (the stacked sharded "
                     "layout carries per-shard plans; route srow there)"
                 )
+        if use_pallas and is_bfloat16(dtype):
+            raise TypeError(
+                "use_pallas=True takes float32 tiles: the fused tile kernel (K1/K2) has no bfloat16 form, as the "
+                "JAX package's Pallas kernel has none; bfloat16 tiles run on layout='csc' with use_pallas=False "
+                "or on layout='butterfly'")
         if mesh is not None:
             _later_slice("mesh (entity-sharded solve)", "distributed")
         if tile_cache_dir is not None:
@@ -479,7 +573,8 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
         if layout == "butterfly" and not keep_col_tiles:
             # the butterfly hot path never reads the (K, L) column tiles (the
             # layout carries panel copies)
-            self.bcsc = BlockCSC(tiles=[], specs=bcsc.specs, m=bcsc.m, n=bcsc.n, nnz=bcsc.nnz)
+            self.bcsc = BlockCSC(tiles=[], specs=bcsc.specs, m=bcsc.m, n=bcsc.n, nnz=bcsc.nnz,
+                                 value_dtype=bcsc.value_dtype)
         else:
             if use_pallas:
                 bcsc = transpose_tiles(bcsc)
@@ -490,12 +585,12 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
         # the panel kernel's tile table, built once with the layout
         self.panel_table = layout_panel_table(self.row_layout, bcsc.specs) if layout == "butterfly" else None
         # every input in the objective's dtype (numpy float64 b would
-        # otherwise stay float64 in torch)
-        self.b_vec = (
-            torch.as_tensor(np.asarray(args.b_vec, dtype=dtype), device=self.device)
-            if args.b_vec is not None
-            else None
-        )
+        # otherwise stay float64 in torch); bfloat16 rounds b as the JAX
+        # package does, kept in float32
+        self.b_vec = None
+        if args.b_vec is not None:
+            b = round_bfloat16(args.b_vec) if is_bfloat16(dtype) else np.asarray(args.b_vec, dtype=dtype)
+            self.b_vec = torch.as_tensor(b, device=self.device)
 
     @property
     def params(self):
@@ -561,3 +656,56 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
             xs_kl.append(x)
         res.primal_var = tiles_values_to_flat(self.bcsc, xs_kl)
         return res
+
+    def exact_certificate(self, dual_val, gamma: Optional[float] = None) -> dict:
+        """A certified optimality gap of the matching LP at ``dual_val``
+        (simplex-inequality polytopes).  Both sides are closed form:
+
+        * the exact dual lower bound (weak duality at ``lambda >= 0``): a
+          linear program over {x >= 0, sum x <= radius} attains its minimum at
+          a vertex or at 0, so ``g0 = -lambda.b - gamma * sum_i radius_i *
+          max(0, max_k z_ik)`` (``z = -r/gamma``, r the reduced costs);
+        * a feasible primal upper bound: the gamma-subproblem's primal, each
+          nonzero of a violated row r scaled by ``b_r / (A x)_r <= 1`` (each
+          nonzero lies in one row; needs A >= 0 and b > 0, as the matching
+          workload has).
+
+        Returns floats: ``primal_ub``, ``dual_lb``, ``gap_abs``, ``gap_rel``
+        (``|p - d| / (1 + |p| + |d|)``) and ``max_row_violation`` (before the
+        repair)."""
+        if self.b_vec is None:
+            raise ValueError("exact_certificate needs the finalized objective (b_vec)")
+        if self.equality_mask is not None:
+            raise NotImplementedError(
+                "exact_certificate covers inequality rows only (the scaling repair cannot restore equality rows)")
+        kinds = {spec.proj_type for spec in self.bcsc.specs}
+        if kinds - {"simplex"}:
+            raise NotImplementedError(
+                f"exact_certificate supports simplex-inequality polytopes only (got {sorted(kinds)}); box "
+                f"polytopes are covered by the general-LP PDLP certificate (objectives/miplib.py)")
+        g = self.gamma if gamma is None else gamma
+        dv = torch.clamp_min(torch.as_tensor(dual_val, device=self.device).to(torch.float32), 0.0)  # lambda >= 0
+        rl = self.row_layout
+        if rl is not None and rl.plan is not None:
+            term, cxrow, ax = matching_exact_cert_rowmajor(self.bcsc, rl, dv, g)
+        else:
+            if not self.bcsc.tiles:
+                raise ValueError("exact_certificate on the csc formulation needs the column tiles")
+            bcsc = self.bcsc
+            if bcsc.row_sum is None:  # the row layout in gather mode keeps no segment-sum plan
+                plan = build_row_sum_plan([t.rows.cpu().numpy() for t in bcsc.tiles],
+                                          [t.length.cpu().numpy() for t in bcsc.tiles], bcsc.m, bcsc.transposed)
+                bcsc = dataclasses.replace(bcsc, row_sum=put_row_sum_plan(plan, self.device))
+            term, cxrow, ax = matching_exact_cert_csc(bcsc, dv, g)
+        b = self.b_vec
+        s = torch.where(ax > b, b / ax, torch.ones((), dtype=ax.dtype, device=ax.device))
+        p = float(torch.dot(s, cxrow))
+        d = float(-torch.dot(dv, b) - _scalar(g, dv.dtype, dv.device) * term)
+        gap = p - d
+        return {
+            "primal_ub": p,
+            "dual_lb": d,
+            "gap_abs": gap,
+            "gap_rel": gap / (1.0 + abs(p) + abs(d)),
+            "max_row_violation": float(torch.amax(ax - b)),
+        }

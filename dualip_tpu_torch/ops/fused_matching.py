@@ -384,7 +384,8 @@ def fused_panel_project_reference(
     C = 128
     region = buf[off : off + KP * L2 * C].view(KP, L2, C)
     s = region[:, : q * L, :]
-    compute = torch.float32 if s.dtype == torch.bfloat16 else s.dtype
+    # the TPU kernel's rule (_panel_body): fp32 when srow or a is bf16
+    compute = torch.float32 if torch.bfloat16 in (s.dtype, a_p.dtype) else s.dtype
     s = s.to(compute)
     a, c = a_p.to(compute), c_p.to(compute)
     nig = torch.as_tensor(neg_inv_gamma, device=buf.device).to(compute)
@@ -420,7 +421,7 @@ class PanelTableTile(NamedTuple):
     """One column tile of a panel table: its panel-form tensors, its region
     of the carry buffer, its projection and its place in the work items."""
 
-    a: torch.Tensor  # (KP, q*L, 128) float32
+    a: torch.Tensor  # (KP, q*L, 128) float32 or bfloat16
     c: torch.Tensor
     length: torch.Tensor  # (KP, q, 128) int32
     off: int  # region start in the carry buffer
@@ -445,6 +446,7 @@ class PanelTable(NamedTuple):
     tiles: Tuple[PanelTableTile, ...]
     rows: Optional[torch.Tensor]  # (n_tiles * 88,) uint8
     device: torch.device
+    tile_dtype: torch.dtype  # of every tile's a and c
     n_items: int
     n_buf: int  # the end of the last region: the least buffer length
     x_slots: int  # slots of the x buffer
@@ -454,14 +456,17 @@ def build_panel_table(col_tiles, offsets, packs, kinds) -> PanelTable:
     """The panel table of ``col_tiles`` (each with ``a``, ``c``, ``length`` in
     panel form), their region ``offsets`` in the carry buffer, their ``packs``
     ((L, L2, q) or None each) and their ``kinds`` ((proj_type, proj_params)
-    each).  Raises on a tile whose shapes, types, devices or region disagree
-    with the geometry, and on regions that overlap."""
+    each).  a and c are float32 or bfloat16, one type for every tile.
+    Raises on a tile whose shapes, types, devices or region disagree with the
+    geometry, and on regions that overlap."""
     col_tiles, offsets, packs, kinds = list(col_tiles), list(offsets), list(packs), list(kinds)
     if not col_tiles or not len(col_tiles) == len(offsets) == len(packs) == len(kinds):
         raise ValueError(
             f"a panel table needs one offset, pack and kind per tile: {len(col_tiles)} tiles, "
             f"{len(offsets)} offsets, {len(packs)} packs, {len(kinds)} kinds")
-    dev = col_tiles[0].a.device
+    dev, tile_dtype = col_tiles[0].a.device, col_tiles[0].a.dtype
+    if tile_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the panel kernel takes float32 a and c, or bfloat16 a and c; got {tile_dtype}")
     tiles, rows = [], np.zeros(len(col_tiles), dtype=_TILE_DTYPE)
     first = x_off = 0
     for i, (pt, off, pack, (kind, params)) in enumerate(zip(col_tiles, offsets, packs, kinds)):
@@ -471,8 +476,9 @@ def build_panel_table(col_tiles, offsets, packs, kinds) -> PanelTable:
             raise ValueError(f"tile {i}: c shape {tuple(c.shape)} != a shape {tuple(a.shape)}")
         if tuple(length.shape) != (KP, q, 128):
             raise ValueError(f"tile {i}: length must be ({KP}, {q}, 128), got {tuple(length.shape)}")
-        if a.dtype != torch.float32 or c.dtype != torch.float32 or length.dtype != torch.int32:
-            raise TypeError(f"tile {i}: the panel kernel takes float32 a and c and int32 length")
+        if a.dtype != tile_dtype or c.dtype != tile_dtype or length.dtype != torch.int32:
+            raise TypeError(f"tile {i}: the panel kernel takes float32 a and c, or bfloat16 a and c, one type "
+                            f"for all tiles ({tile_dtype} here), and int32 length")
         if any(t.device != dev for t in (a, c, length)):
             raise ValueError(f"tile {i}: every tile's tensors must be on {dev}")
         if not all(t.is_contiguous() for t in (a, c, length)):
@@ -495,7 +501,8 @@ def build_panel_table(col_tiles, offsets, packs, kinds) -> PanelTable:
             raise ValueError(f"panel regions overlap: one ends at {end}, the next starts at {start}")
     table_rows = torch.from_numpy(rows.view(np.uint8).copy()).to(dev) if dev.type == "cuda" else None
     return PanelTable(
-        tiles=tuple(tiles), rows=table_rows, device=dev, n_items=first, n_buf=spans[-1][1], x_slots=x_off,
+        tiles=tuple(tiles), rows=table_rows, device=dev, tile_dtype=tile_dtype, n_items=first, n_buf=spans[-1][1],
+        x_slots=x_off,
     )
 
 
@@ -519,9 +526,9 @@ def fused_panel_project_tiles_reference(
 def _panel_lib():
     lib = _build.load("panel_matching")
     vp, ci, cf, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.dualip_panel_project_tiles.argtypes = [vp, ci, vp, ci, ll, vp, vp, vp, ci, vp, vp]
+    lib.dualip_panel_project_tiles.argtypes = [vp, ci, ci, vp, ci, ll, vp, vp, vp, ci, vp, vp]
     lib.dualip_panel_project.argtypes = (
-        [vp, ll, ci, vp, vp, vp, ll] + [ci] * 6 + [cf, cf, ci, ci, cf] + [vp, vp, vp, ci, vp, vp])
+        [vp, ll, ci, ci, vp, vp, vp, ll] + [ci] * 6 + [cf, cf, ci, ci, cf] + [vp, vp, vp, ci, vp, vp])
     for fn in (lib.dualip_panel_project_tiles, lib.dualip_panel_project):
         fn.restype = ci
     return lib
@@ -579,7 +586,8 @@ def fused_panel_project_tiles(
     nig, x, out = _panel_args(buf, neg_inv_gamma, want_x, table.x_slots)
     with torch.cuda.device(dev):
         rc = _panel_lib().dualip_panel_project_tiles(
-            buf.data_ptr(), buf.element_size(), table.rows.data_ptr(), len(table.tiles), table.n_items,
+            buf.data_ptr(), buf.element_size(), table.tiles[0].a.element_size(), table.rows.data_ptr(),
+            len(table.tiles), table.n_items,
             nig.data_ptr(), x.data_ptr() if want_x else None, _panel_partials(dev).data_ptr(),
             _PANEL_MAX_GRID, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -617,8 +625,8 @@ def fused_panel_project(
 
     ``buf`` (float32 or bfloat16) holds ``srow = (-lambda/gamma)[row]`` in
     panel layout; the tile's region is rows ``[off/(128*L2), +KP)`` of
-    ``buf.view(-1, L2, 128)``.  ``a_p``/``c_p`` are (KP, q*L, 128) float32,
-    ``len_p`` (KP, q, 128) int32; ``pack`` = (L, L2, q) on the compact packing.
+    ``buf.view(-1, L2, 128)``.  ``a_p``/``c_p`` are (KP, q*L, 128) float32
+    or both bfloat16, ``len_p`` (KP, q, 128) int32; ``pack`` = (L, L2, q) on the compact packing.
     Only the region is written; its ghost lanes ``[q*L, L2)`` become zeros.
     Returns ``(buf, sum(c*x), sum(x*x))`` plus ``x`` (KP, q*L, 128) float32
     with ``want_x``.
@@ -644,8 +652,9 @@ def fused_panel_project(
     if dev.type != "cuda":
         raise ValueError(f"fused_panel_project runs on cuda or cpu tensors, got {dev}")
 
-    if a_p.dtype != torch.float32 or c_p.dtype != torch.float32:
-        raise TypeError("the panel kernel takes float32 a_p and c_p")
+    if a_p.dtype not in (torch.float32, torch.bfloat16) or c_p.dtype != a_p.dtype:
+        raise TypeError(f"the panel kernel takes float32 or bfloat16 a_p and c_p of one type, got {a_p.dtype} "
+                        f"and {c_p.dtype}")
     if len_p.dtype != torch.int32:
         raise TypeError("len_p must be int32")
     if not all(t.is_contiguous() for t in tensors):
@@ -656,7 +665,8 @@ def fused_panel_project(
     nig, x, out = _panel_args(buf, neg_inv_gamma, want_x, a_p.numel())
     with torch.cuda.device(dev):
         rc = _panel_lib().dualip_panel_project(
-            buf.data_ptr(), buf.shape[0], buf.element_size(), a_p.data_ptr(), c_p.data_ptr(), len_p.data_ptr(),
+            buf.data_ptr(), buf.shape[0], buf.element_size(), a_p.element_size(), a_p.data_ptr(), c_p.data_ptr(),
+            len_p.data_ptr(),
             off, KP, L, L2, q, code, ineq, lo, hi, int(has_lo), int(has_hi), radius,
             nig.data_ptr(), x.data_ptr() if want_x else None, _panel_partials(dev).data_ptr(), _PANEL_MAX_GRID,
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,

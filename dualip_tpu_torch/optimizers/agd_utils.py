@@ -38,6 +38,16 @@ def init_step_size_state(
     )
 
 
+def norm_of_difference(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """L2 norm of ``x - y``."""
+    return torch.linalg.vector_norm(x - y)
+
+
+def estimate_lipschitz_constant(grad_one, grad_two, dual_one, dual_two) -> torch.Tensor:
+    """Secant Lipschitz estimate ``||g1 - g2|| / ||d1 - d2||``."""
+    return norm_of_difference(grad_one, grad_two) / norm_of_difference(dual_one, dual_two)
+
+
 def calculate_step_size(
     dual_grad: torch.Tensor,
     dual_val: torch.Tensor,

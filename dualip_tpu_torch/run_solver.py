@@ -76,7 +76,13 @@ def build_objective(
             **objective_kwargs,
         )
     if objective_type == "miplib2017":
-        raise NotImplementedError("the miplib2017 objective belongs to the general-LP slice of the port")
+        from dualip_tpu_torch.objectives.miplib import MIPLIB2017ObjectiveFunction
+
+        kwargs = dict(objective_kwargs)
+        if objective_args.use_jacobi_precondition:
+            kwargs.setdefault("use_jacobi_precondition", True)
+        kwargs.setdefault("device", compute_args.host_device)
+        return MIPLIB2017ObjectiveFunction(miplib_input_args=input_args, **kwargs)
     if objective_type == "matching":
         kwargs = dict(objective_kwargs)
         kwargs.setdefault("device", compute_args.host_device)

@@ -12,6 +12,13 @@ group, ``L`` the largest column degree in it.  Padding lanes hold
 take int32 or int64 indices, not the uint16 the JAX package stores for
 ``m <= 65535``.  The tile builder is the numpy fill; the JAX package's native
 parallel fill belongs to the I/O slice of the port.
+
+Tiles in bfloat16 (``dtype`` ``torch.bfloat16``, ``"bfloat16"`` or a numpy
+dtype of that name) are rounded on the host to the nearest bfloat16, ties to
+even, as the JAX package's are, and kept there as float32 arrays that hold
+those values exactly; ``BlockCSC.value_dtype`` says the device takes them in
+bfloat16.  Numpy bfloat16 arrays from another package go to the device through
+a 16-bit view (``host_tensor``).
 """
 
 from __future__ import annotations
@@ -96,6 +103,36 @@ class BlockCSC:
     nnz: int
     transposed: bool = False  # tiles hold (L, K) arrays (``transpose_tiles``)
     row_sum: Optional[RowSumPlan] = None  # csc layouts on a device
+    value_dtype: Optional[torch.dtype] = None  # a and c on the device when the host arrays are wider
+
+
+def is_bfloat16(dtype) -> bool:
+    """``dtype`` names bfloat16: ``torch.bfloat16``, the string, or a numpy
+    dtype (or scalar type) of that name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype == torch.bfloat16
+    if isinstance(dtype, str):
+        return dtype == "bfloat16"
+    return getattr(dtype, "name", None) == "bfloat16" or getattr(dtype, "__name__", None) == "bfloat16"
+
+
+def round_bfloat16(x) -> np.ndarray:
+    """float32 array of ``x`` rounded to the nearest bfloat16, ties to even
+    (bfloat16 values are float32 values, so the array holds them exactly)."""
+    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    return t.to(torch.bfloat16).to(torch.float32).numpy()
+
+
+def host_tensor(x, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A numpy array as a tensor on ``device`` (a copy), then in ``dtype``.
+    A numpy bfloat16 array goes through its 16-bit view, bit for bit."""
+    x = np.ascontiguousarray(x)
+    if x.dtype.name == "bfloat16":
+        t = torch.from_numpy(x.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.as_tensor(x)
+    t = t.to(device)
+    return t if dtype is None else t.to(dtype)
 
 
 def _pow2_thresholds(max_nnz: int) -> np.ndarray:
@@ -150,12 +187,15 @@ def _build_tile(
     idx_in_col = np.arange(total) - prefix[cols_rep]
     flat = starts[cols_rep] + idx_in_col
 
+    bf16 = is_bfloat16(dtype)
     rows = np.zeros((K, L), dtype=np.int32)
-    a = np.zeros((K, L), dtype=dtype)
-    c = np.zeros((K, L), dtype=dtype)
+    a = np.zeros((K, L), dtype=np.float32 if bf16 else dtype)
+    c = np.zeros((K, L), dtype=np.float32 if bf16 else dtype)
     rows[cols_rep, idx_in_col] = A.row_indices[flat]
     a[cols_rep, idx_in_col] = A.data[flat]
     c[cols_rep, idx_in_col] = C.data[flat]
+    if bf16:
+        a, c = round_bfloat16(a), round_bfloat16(c)
 
     length = np.zeros(K, dtype=np.int32)
     length[:K_valid] = lens
@@ -194,7 +234,8 @@ def build_blockcsc(
     keeps one tile per entry.  ``bucketing`` selects the boundaries: ``"pow2"``
     or ``"exact"`` (one bucket per distinct degree, the compact butterfly
     layout's column rule).  Empty columns are dropped; columns no entry covers
-    get the identity projection.
+    get the identity projection.  A bfloat16 ``dtype`` in any of its forms
+    rounds a and c (see the module's docstring).
     """
     if not same_pattern(A, C):
         raise ValueError("A and c must share the same CSC sparsity pattern")
@@ -242,7 +283,8 @@ def build_blockcsc(
     uncovered = np.nonzero(~covered)[0]
     add_entry("__identity__", "identity", {}, uncovered)
 
-    return BlockCSC(tiles=tiles, specs=specs, m=m, n=n, nnz=A.nnz)
+    return BlockCSC(tiles=tiles, specs=specs, m=m, n=n, nnz=A.nnz,
+                    value_dtype=torch.bfloat16 if is_bfloat16(dtype) else None)
 
 
 def _windows(shapes: Sequence[Tuple[int, int]], cap_slots: int):
@@ -319,25 +361,32 @@ def build_row_sum_plan(
     )
 
 
+def put_row_sum_plan(plan: RowSumPlan, device) -> RowSumPlan:
+    """A host ``RowSumPlan`` with its index arrays on ``device``."""
+    return plan._replace(**{f: host_tensor(getattr(plan, f), device)
+                            for f in ("order", "seg_ptr", "seg_row", "item_ptr", "row_ptr", "row_segs")})
+
+
 def device_put_blockcsc(bcsc: BlockCSC, device, row_sum: bool = False) -> BlockCSC:
-    """Copy every tile array to ``device`` as a tensor (rows widened to int32).
-    ``row_sum=True`` also builds the tiles' ``RowSumPlan`` on the host and
-    places it beside the tiles."""
+    """Copy every tile array to ``device`` as a tensor (rows widened to int32,
+    a and c in ``bcsc.value_dtype`` where it is set).  ``row_sum=True`` also
+    builds the tiles' ``RowSumPlan`` on the host and places it beside the
+    tiles."""
 
     def put(x, dtype=None):
-        t = torch.as_tensor(np.ascontiguousarray(x), device=device)
-        return t if dtype is None else t.to(dtype)
+        return host_tensor(x, device, dtype)
 
     plan = None
     if row_sum:
-        p = build_row_sum_plan([t.rows for t in bcsc.tiles], [t.length for t in bcsc.tiles], bcsc.m, bcsc.transposed)
-        plan = p._replace(**{f: put(getattr(p, f)) for f in ("order", "seg_ptr", "seg_row", "item_ptr", "row_ptr", "row_segs")})
+        plan = put_row_sum_plan(
+            build_row_sum_plan([t.rows for t in bcsc.tiles], [t.length for t in bcsc.tiles], bcsc.m, bcsc.transposed),
+            device)
 
     tiles = [
         Tile(
             rows=put(t.rows, torch.int32),
-            a=put(t.a),
-            c=put(t.c),
+            a=put(t.a, bcsc.value_dtype),
+            c=put(t.c, bcsc.value_dtype),
             length=put(t.length, torch.int32),
             col_ids=put(t.col_ids, torch.int32),
         )
@@ -345,7 +394,7 @@ def device_put_blockcsc(bcsc: BlockCSC, device, row_sum: bool = False) -> BlockC
     ]
     return BlockCSC(
         tiles=tiles, specs=bcsc.specs, m=bcsc.m, n=bcsc.n, nnz=bcsc.nnz,
-        transposed=bcsc.transposed, row_sum=plan,
+        transposed=bcsc.transposed, row_sum=plan, value_dtype=bcsc.value_dtype,
     )
 
 
@@ -383,6 +432,18 @@ def tile_valid_mask(tile: Tile, L: int) -> torch.Tensor:
     return lane[None, :] < tile.length[:, None]
 
 
+def apply_projections(bcsc: BlockCSC, values: Sequence[torch.Tensor], mask_output: bool = True) -> List[torch.Tensor]:
+    """Each tile's registered projection on its (K, L) value block; with
+    ``mask_output`` the padding lanes are zeroed afterwards."""
+    out = []
+    for tile, spec, v in zip(bcsc.tiles, bcsc.specs, values):
+        x = spec.projection()(v)
+        if mask_output:
+            x = torch.where(tile_valid_mask(tile, spec.L), x, torch.zeros((), dtype=x.dtype, device=x.device))
+        out.append(x)
+    return out
+
+
 def tiles_values_to_flat(bcsc: BlockCSC, values: Sequence[np.ndarray]) -> np.ndarray:
     """Scatter per-tile (K, L) value blocks back to a flat CSC-ordered nnz
     vector on the host.  Needs ``keep_flat_idx=True``."""
@@ -393,3 +454,18 @@ def tiles_values_to_flat(bcsc: BlockCSC, values: Sequence[np.ndarray]) -> np.nda
         sel = spec.flat_idx >= 0
         flat[spec.flat_idx[sel]] = np.asarray(v)[sel]
     return flat
+
+
+def flat_to_tiles_values(bcsc: BlockCSC, flat: np.ndarray, dtype=None) -> List[np.ndarray]:
+    """Gather a flat CSC-ordered nnz vector into per-tile (K, L) value blocks
+    on the host (zero on padding).  Needs ``keep_flat_idx=True``."""
+    out = []
+    dtype = dtype or np.asarray(flat).dtype
+    for spec in bcsc.specs:
+        if spec.flat_idx is None:
+            raise ValueError("BlockCSC was built with keep_flat_idx=False")
+        v = np.zeros((spec.K, spec.L), dtype=dtype)
+        sel = spec.flat_idx >= 0
+        v[sel] = np.asarray(flat)[spec.flat_idx[sel]]
+        out.append(v)
+    return out

@@ -37,7 +37,7 @@ from dualip_tpu_torch.ops.butterfly import (
     benes_route_planes,
     pack_plan_from_planes,
 )
-from dualip_tpu_torch.sparse.bcsc import _geom_thresholds, _pow2_thresholds
+from dualip_tpu_torch.sparse.bcsc import _geom_thresholds, _pow2_thresholds, host_tensor
 
 
 class RowTile(NamedTuple):
@@ -159,7 +159,9 @@ def build_row_layout(
     a hash of the permutation.  ``compact=True`` (butterfly only): q = L2//L
     columns share each pow2 buffer row and the row side buckets geometrically
     (1.05x); build the BlockCSC with ``bucketing="exact"``.  On a CUDA device
-    the plan is packed for the kernels (``ops/butterfly.py::DEFAULT_BLOCK_LOG2``)."""
+    the plan is packed for the kernels (``ops/butterfly.py::DEFAULT_BLOCK_LOG2``).
+    a and c take ``bcsc.value_dtype`` on the device where it is set (bfloat16
+    tiles)."""
     if method not in ("gather", "butterfly"):
         raise ValueError(f"Unknown row-layout method {method!r}")
     if compact and method != "butterfly":
@@ -168,8 +170,10 @@ def build_row_layout(
     device = torch.device(device)
     m = bcsc.m
 
-    def put(x):
-        return torch.as_tensor(np.ascontiguousarray(x), device=device)
+    value_dtype = getattr(bcsc, "value_dtype", None)
+
+    def put(x, dtype=None):
+        return host_tensor(x, device, dtype)
 
     transposed = method == "butterfly"
     if transposed:
@@ -271,7 +275,8 @@ def build_row_layout(
             c_t[r_rep, l_in_row] = c_all[src]
             axidx_t[r_rep, l_in_row] = axflat_all[src]
             row_tiles.append(
-                RowTile(a=put(a_t), c=put(c_t), row_ids=put(row_ids_t), axidx=put(axidx_t.astype(np.int32)))
+                RowTile(a=put(a_t, value_dtype), c=put(c_t, value_dtype), row_ids=put(row_ids_t),
+                        axidx=put(axidx_t.astype(np.int32)))
             )
         else:  # butterfly: srow carry, only row ids + lengths needed
             lens_t = np.zeros(R, dtype=np.int32)
@@ -354,8 +359,8 @@ def build_row_layout(
                 col_tiles_T.append(
                     PanelTile(
                         # (K, L) -> (K//128, L, 128): panel p, lane l, col c = (p*128+c, l)
-                        a=put(a_np.reshape(K // 128, 128, L).transpose(0, 2, 1)),
-                        c=put(c_np.reshape(K // 128, 128, L).transpose(0, 2, 1)),
+                        a=put(a_np.reshape(K // 128, 128, L).transpose(0, 2, 1), value_dtype),
+                        c=put(c_np.reshape(K // 128, 128, L).transpose(0, 2, 1), value_dtype),
                         length=put(np.asarray(t.length).reshape(K // 128, 1, 128)),
                     )
                 )
@@ -375,7 +380,8 @@ def build_row_layout(
                 if pad:
                     lens = np.concatenate([lens, np.zeros((pad, 1, 128), dtype=lens.dtype)])
                 col_tiles_T.append(
-                    PanelTile(a=put(_stack(a_np)), c=put(_stack(c_np)), length=put(lens.reshape(BP, q, 128)))
+                    PanelTile(a=put(_stack(a_np), value_dtype), c=put(_stack(c_np), value_dtype),
+                              length=put(lens.reshape(BP, q, 128)))
                 )
         return RowLayout(
             row_tiles=row_tiles,
@@ -427,7 +433,7 @@ def row_layout_from_numpy(
         if x is None:
             return None
         # a copy: another package's arrays may be read-only
-        return torch.as_tensor(np.array(x, dtype=dtype, order="C"), device=device)
+        return host_tensor(np.array(x, dtype=dtype, order="C"), device)
 
     tiles = [
         RowTile(a=put(a), c=put(c), row_ids=put(r, np.int32), axidx=put(ax, np.int32), length=put(ln, np.int32))
