@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--sources N] [--iters N] [--phases a,b,...]
 
 Phases, one output line or more each (``--phases`` runs a subset; the two
-result lines at the end are printed only by a full run):
+result lines at the end are printed only by a run of every default phase):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile every hand-written kernel from this checkout (one ``nvcc``
@@ -37,12 +37,13 @@ result lines at the end are printed only by a full run):
    fused kernel in its gather form, its launches counted, its first 20
    iterations repeated with the plain version and compared, a repeat that must
    be bit-identical, the gather form held against the lam_g form bit for bit
-   and the segment-sum against a float64 ``index_add_`` on the tiles' own a*x,
+   and the segment-sum against a float64 ``index_add_`` and against its plain
+   version (bit for bit) on the tiles' own a*x,
    each kernel timed on the slice's tiles beside its plain version and bound,
    and a ``torch.profiler`` window over 10 iterations (device busy share,
    kernels by name, no per-iteration ``index_select``); then tiles in bf16
    (``dtype="bfloat16"``, the plain csc path) for 20 iterations against the
-   segment-sum's plain version and beside the fp32 tiles' run;
+   segment-sum's plain version (bit for bit) and beside the fp32 tiles' run;
 9. butterfly: the same data through ``run_solver`` with
    ``layout="butterfly"``: launches counted, plain versions compared, the csc
    log compared, a bit-identical repeat, a 250,000-source solve (the K6
@@ -63,7 +64,25 @@ result lines at the end are printed only by a full run):
    whole instance against COO per ``calculate``, the PDLP bound), and the
    slice's matrix as an LP in the box [0, 1] with c ~ U(-1, 0) (lp-2.5M: COO
    200 iterations and butterfly 50, timed and profiled, COO repeated bit for
-   bit, the layouts against each other per ``calculate``).
+   bit, the layouts against each other per ``calculate``);
+12. io: the I/O tiers at the slice's shape on the native generator's data
+   (the native library must build), in a fresh temporary cache directory:
+   generation timed beside the numpy generator, a warm load equal to the cold
+   arrays, the native tile fill equal to the numpy fill (both timed), and the
+   butterfly objective built cold (routing, plan and tile caches written) and
+   warm (from the tile cache): each one's time to first iteration, K3, K5, K7
+   and the index-building window kernels launched on the warm objective, and
+   the two 20-iteration dual logs bit-identical;
+13. obs: ``run_solver`` with MLflow enabled completes (a no-op without
+   mlflow) and gives the log of the solve without it, ``trace`` around three
+   csc iterations writes a trace naming K1's and the segment-sum's kernels and
+   the ``annotate`` span, and ``collect_stats`` fills ``last_run_stats``.
+
+Opt-in, not in the default list (its host work exceeds the default run's
+budget): ``--phases canonical`` generates the canonical shape (25,000,000
+sources) with the native generator, checks its nnz against the JAX package's
+canonical run exactly (249,665,824) and holds the csc solve's 200-iteration
+dual within 1e-2 relative of that run's fp32 dual (-1,421,878.75).
 
 Kernel times (``ms``) are CUDA-graph replays of the wrapper's calls, so the
 host's launch gaps are not in them; each ``[timing]`` line also gives the eager
@@ -81,12 +100,15 @@ import argparse
 import contextlib
 import copy
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple
+from unittest import mock
 
 import numpy as np
 import torch
@@ -102,7 +124,13 @@ NON_FMA_OPS_PER_S = 132 * 128 * 1.98e9
 BISECTION_ITERS = 30
 
 SMALL_SOURCES = 250_000  # the second butterfly solve: few enough blocks for one single-axis group a side
-ALL_PHASES = ("kernels", "segsum", "benes", "panel", "golden", "slice", "butterfly", "cert", "lp")
+ALL_PHASES = ("kernels", "segsum", "benes", "panel", "golden", "slice", "butterfly", "cert", "lp", "io", "obs")
+OPT_IN_PHASES = ("canonical",)  # host time beyond the default run's budget: run alone
+CANONICAL_SOURCES = 25_000_000
+# benchmark/results/canonical_250m.json: the native generator's nnz at the
+# canonical shape and the JAX package's fp32 dual after 200 iterations
+CANONICAL_NNZ = 249_665_824
+CANONICAL_DUAL = -1_421_878.75
 
 # 5x5 Scala golden problem and trace (tests/objectives/test_dualip_matching_simplex.py).
 A_COMPACT = np.array(
@@ -849,6 +877,237 @@ def phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, ms_p
     torch.cuda.empty_cache()
 
 
+def phase_io(dt, args, card, numpy_gen_s, numpy_inp, captured, counts, solve, ms_per_iteration, n_chk):
+    """The I/O tiers at the slice's shape on the native generator's data, in
+    a fresh temporary cache directory: generation cold and warm (the warm load
+    equal to the cold arrays), the native tile fill against the numpy fill
+    (equal tiles, both timed), then the butterfly objective with the plan and
+    tile caches built cold and loaded warm: each one's time to first
+    iteration, the launches on the warm objective (counts set to 0 just
+    before it is built: K3, K5, K7 and the window kernels that build the
+    source index) and the two 20-iteration dual logs bit-identical."""
+    import dualip_tpu_torch.sparse.bcsc as bcsc_mod
+    from dualip_tpu_torch.io import native_loader
+    from dualip_tpu_torch.synthetic import generate_synthetic_matching_input_args
+
+    check(native_loader.native_available(),
+          "io: the native library did not build (g++); the data would silently be the numpy generator's")
+    shape = (args.sources, args.destinations, args.sparsity)
+    native_env = mock.patch.dict(os.environ, DUALIP_GEN_BACKEND="native")
+    with tempfile.TemporaryDirectory(prefix="dualip-io-") as tmp, native_env:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        raw = native_loader.generate_matching_native(*shape, seed=args.seed)
+        native_s = time.perf_counter() - t0
+        del raw
+        t0 = time.perf_counter()
+        inp = generate_synthetic_matching_input_args(*shape, seed=args.seed, cache_dir=tmp / "gen")
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = generate_synthetic_matching_input_args(*shape, seed=args.seed, cache_dir=tmp / "gen")
+        warm_s = time.perf_counter() - t0
+        fields = lambda a: (a.A.indptr, a.A.row_indices, a.A.data, a.c.data, a.b_vec)  # noqa: E731
+        check(all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(fields(inp), fields(warm))),
+              "io: the warm generator load differs from the cold arrays")
+        del warm
+        say("io", backend="native", sources=args.sources, nnz=inp.A.nnz, native_generate_s=f"{native_s:.2f}",
+            generate_and_cache_write_s=f"{cold_s:.2f}", warm_load_s=f"{warm_s:.2f}", warm_equals_cold=True,
+            numpy_generate_s=f"{numpy_gen_s:.2f}" if numpy_inp is not None else "not run",
+            numpy_nnz=numpy_inp.A.nnz if numpy_inp is not None else "not run", card=card)
+
+        # the slice's tiles filled natively and by numpy: equal element for element
+        def tiles(threshold):
+            with rebound(bcsc_mod, NATIVE_FILL_SLOTS=threshold):
+                t = time.perf_counter()
+                b = bcsc_mod.build_blockcsc(inp.A, inp.c, inp.projection_map, pad_cols_to=128, keep_flat_idx=True)
+                return b, time.perf_counter() - t
+
+        b_nat, nat_s = tiles(1)
+        b_np, np_s = tiles(1 << 62)
+        for t1, t2, s1, s2 in zip(b_nat.tiles, b_np.tiles, b_nat.specs, b_np.specs):
+            check(all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(t1, t2))
+                  and np.array_equal(s1.flat_idx, s2.flat_idx), f"io: native and numpy fills differ on tile {s1.L}")
+        at_default = sum(int((t.length > 0).sum()) * s.L >= bcsc_mod.NATIVE_FILL_SLOTS for t, s in zip(b_np.tiles, b_np.specs))
+        say("io", tiles=len(b_np.tiles), tile_shapes=[(s.L, s.K) for s in b_np.specs], native_fill_build_s=f"{nat_s:.2f}",
+            numpy_fill_build_s=f"{np_s:.2f}", fills_equal=True, keep_flat_idx=True,
+            native_at_default_threshold=f"{at_default} of {len(b_np.tiles)} tiles")
+        del b_nat, b_np
+
+        # the butterfly objective cold (routing, layout, both caches written), then warm
+        kw = dict(layout="butterfly", keep_col_tiles=False, keep_flat_idx=False,
+                  plan_cache_dir=str(tmp / "plans"), tile_cache_dir=str(tmp / "tiles"))
+        out = {}
+        for what in ("cold", "warm"):
+            res, n_launch, solve_s = solve(inp, n_chk, False, **kw)  # counts set to 0 just before the build
+            obj = captured["obj"]
+            rl = obj.row_layout
+            first_ms = obj.events[0][0].elapsed_time(obj.events[0][1])
+            out[what] = (res.dual_objective_log, n_launch, obj.tile_cache_key)
+            say("io", objective=what, objective_build_s=f"{captured['build_s']:.2f}",
+                time_to_first_iteration_s=f"{captured['build_s'] + first_ms / 1e3:.3f}",
+                layout_build_s=f"{rl.build_seconds['total']:.2f}", routing_s=f"{rl.build_seconds['route']:.2f}",
+                index_build_s=f"{rl.plan.index_build_s:.3f}", iterations=n_chk,
+                ms_per_iteration=f"{ms_per_iteration(obj.events):.4f}", launches=n_launch, card=card,
+                # a miss's save: the leaves copied back from the card, then written
+                **{k: f"{v:.3f}" for k, v in rl.build_seconds.items() if k.startswith("tile_cache_")})
+            del res, obj, rl, captured["obj"]
+            torch.cuda.empty_cache()
+            if what == "cold":
+                entry = tmp / "tiles" / f"butterfly_{out['cold'][2]}"
+                check((entry / "meta.json").exists(), "io: the cold build wrote no tile-cache entry")
+                say("io", tile_cache_entry_bytes=sum(f.stat().st_size for f in entry.iterdir()),
+                    plan_cache_bytes=sum(f.stat().st_size for f in (tmp / "plans").iterdir()))
+        (log_c, _, key_c), (log_w, n_w, key_w) = out["cold"], out["warm"]
+        check(key_c == key_w, "io: the warm objective computed another cache key")
+        want = {"K3": n_chk, "K5": 2 * n_chk, "K7": 4 * n_chk}
+        check(all(n_w[k] == v for k, v in want.items()), f"io: warm launches {n_w}, expected {want}")
+        check(n_w["K5w"] > 0 and n_w["K7w"] > 0, f"io: the warm plan's source index was not built on the card: {n_w}")
+        check(n_w["K1g"] == n_w["segsum"] == 0, f"io: the csc kernels ran: {n_w}")
+        dev_ = rel_dev(log_w, log_c)
+        say("io", warm_vs_cold_dual_log="bit-identical" if dev_.max() == 0 else "DIFFERS",
+            max_rel_dev=float(dev_.max()), final_dual_objective=log_w[-1])
+        check(list(log_w) == list(log_c), f"io: the warm solve's dual log differs from the cold one by {dev_.max()}")
+
+
+def phase_obs(dt, inp, card, captured, reset_counts, counts, n_chk, solver_kw):
+    """Observability on the card at the slice's shape: ``run_solver`` with
+    MLflow enabled completes (mlflow is not installed there: a no-op) and
+    repeats the solve without it bit for bit; ``trace`` around three csc
+    iterations writes a trace naming K1's kernel, the segment-sum's two and
+    the ``annotate`` span; ``collect_stats`` fills ``last_run_stats``."""
+    from dualip_tpu_torch.optimizers.agd import AcceleratedGradientDescent
+    from dualip_tpu_torch.utils.mlflow_utils import MLflowConfig, is_mlflow_available
+    from dualip_tpu_torch.utils.profiling import annotate, trace
+
+    def run(mlflow_config=None, **kw):
+        reset_counts()
+        res = dt.run_solver(inp, dt.SolverArgs(max_iter=n_chk, **solver_kw), dt.ComputeArgs(),
+                            dt.ObjectiveArgs(objective_type="matching_smoke", objective_kwargs={"use_pallas": True}),
+                            mlflow_config=mlflow_config)
+        torch.cuda.synchronize()
+        return res, counts()
+
+    res_m, n_m = run(MLflowConfig(enabled=True))
+    obj = captured["obj"]
+    res_p, _ = run()
+    check(res_m.dual_val.device.type == "cuda" and all(np.isfinite(res_m.dual_objective_log)),
+          "obs: the solve with MLflow enabled did not complete on the card")
+    check(res_m.dual_objective_log == res_p.dual_objective_log, "obs: MLflow logging changed the solve")
+    check(n_m["K1g"] == len(obj.bcsc.tiles) * n_chk and n_m["segsum"] == n_chk, f"obs: launches {n_m}")
+    say("obs", mlflow_enabled=True, mlflow_available=is_mlflow_available(), iterations=n_chk,
+        same_log_as_without_mlflow=True, launches=n_m)
+
+    span = "dualip.csc_three_iterations"
+    agd = AcceleratedGradientDescent(max_iter=3, **solver_kw)
+    dual = torch.zeros(obj.bcsc.m, device=obj.device)
+    agd.maximize(obj, dual)  # warm
+    with tempfile.TemporaryDirectory(prefix="dualip-trace-") as tmp:
+        t0 = time.perf_counter()
+        with trace(tmp):
+            with annotate(span):
+                agd.maximize(obj, dual)
+        trace_s = time.perf_counter() - t0
+        files = list(Path(tmp).glob("*.json"))
+        check(len(files) == 1, f"obs: trace wrote {len(files)} files")
+        events = json.loads(files[0].read_text())["traceEvents"]
+        size = files[0].stat().st_size
+    names = {e.get("name", "") for e in events}
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    k1 = sorted(n for n in kernels if re.search(r"(column|wide|clamp)_kernel", n))
+    seg = sorted(n for n in kernels if re.search(r"window_sums|add_rows", n))
+    say("obs", trace_events=len(events), trace_bytes=size, kernel_names=len(kernels), K1=[n[:60] for n in k1],
+        segment_sum=[n[:40] for n in seg], annotate_span=span in names, traced_s=f"{trace_s:.2f}")
+    check(k1 and len(seg) == 2 and span in names, "obs: the trace lacks K1's or the segment-sum's kernels or the span")
+
+    agd = AcceleratedGradientDescent(max_iter=n_chk, **solver_kw)
+    agd.collect_stats = True
+    agd.maximize(obj, dual)
+    st = agd.last_run_stats
+    check(st is not None and st["iters"] == n_chk and st["total_s"] >= st["drain_s"] >= 0, f"obs: stats {st}")
+    say("obs", last_run_stats={k: (round(v, 4) if isinstance(v, float) else v) for k, v in st.items()}, card=card)
+    del obj, captured["obj"], res_m, res_p
+    torch.cuda.empty_cache()
+
+
+def phase_canonical(args, card, captured, solve, ms_per_iteration, solver_kw):
+    """The canonical shape (25,000,000 sources x 10,000 destinations,
+    sparsity 1e-3, seed 42) on the native generator: its nnz must be the JAX
+    package's canonical run's exactly, and the csc solve with the fused kernel
+    (200 iterations, gamma 1e-3, steps 1e-3/1e-1) must end within 1e-2
+    relative of that run's fp32 dual (the records' widest gap between two fp32
+    layouts of this solve is 3.14e-3).  That limit is the solve's own
+    spread, not a test of precision: rounding differences grow along the AGD
+    trajectory, and the JAX package's bf16-carry solve lands 1.16e-3 from its
+    fp32 one.  So a second witness solves the same problem in float64 on the
+    card (the plain csc path; the segment-sum's plain version, whose
+    ``index_add_`` takes float64): the fused solve's first 10 iterations must
+    lie within 1e-5 relative of it, and where the two logs part is printed."""
+    import dualip_tpu_torch.objectives.matching as matching_mod
+    from dualip_tpu_torch.io import native_loader
+    from dualip_tpu_torch.optimizers.agd import AcceleratedGradientDescent
+    from dualip_tpu_torch.ops.segment_sum import segment_sum_rows_reference
+    from dualip_tpu_torch.synthetic import generate_synthetic_matching_input_args
+
+    check(native_loader.native_available(), "canonical: the native library did not build (g++)")
+    native_env = mock.patch.dict(os.environ, DUALIP_GEN_BACKEND="native")
+    with tempfile.TemporaryDirectory(prefix="dualip-canonical-") as tmp, native_env:
+        t0 = time.perf_counter()
+        can = generate_synthetic_matching_input_args(CANONICAL_SOURCES, args.destinations, args.sparsity,
+                                                     seed=args.seed, cache_dir=tmp)
+        gen_s = time.perf_counter() - t0
+        say("canonical", sources=CANONICAL_SOURCES, nnz=can.A.nnz, expected_nnz=CANONICAL_NNZ,
+            generate_s=f"{gen_s:.2f}", memmap_tier=not can.A.data.flags.writeable)
+        check(can.A.nnz == CANONICAL_NNZ, f"canonical: nnz {can.A.nnz} != the JAX package's {CANONICAL_NNZ}")
+        res, n_launch, solve_s = solve(can, args.iters, False, use_pallas=True)
+        obj = captured["obj"]
+        first_ms = obj.events[0][0].elapsed_time(obj.events[0][1])
+        dual = res.dual_objective
+        rel = abs(dual - CANONICAL_DUAL) / abs(CANONICAL_DUAL)
+        slots = sum(s.L * s.K for s in obj.bcsc.specs)
+        say("canonical", iterations=len(res.dual_objective_log), tiles=len(obj.bcsc.specs), slots=slots,
+            objective_build_s=f"{captured['build_s']:.2f}",
+            time_to_first_iteration_s=f"{captured['build_s'] + first_ms / 1e3:.3f}",
+            ms_per_iteration=f"{ms_per_iteration(obj.events):.4f}", run_solver_s=f"{solve_s:.2f}",
+            peak_device_bytes=torch.cuda.max_memory_allocated(), launches=n_launch, card=card)
+        say("canonical", final_dual_objective=dual, jax_fp32_dual=CANONICAL_DUAL, rel_diff=f"{rel:.3e}",
+            tolerance=1e-2, note="the limit would pass a bf16 computation too (JAX bf16 carry: 1.16e-3)")
+        check(all(np.isfinite(res.dual_objective_log)) and n_launch["K1g"] == len(obj.bcsc.specs) * args.iters,
+              f"canonical: launches {n_launch}")
+        check(rel <= 1e-2, f"canonical: dual {dual} is {rel:.3e} relative from the JAX package's {CANONICAL_DUAL}")
+        log32 = np.array(res.dual_objective_log, dtype=np.float64)
+        dev = obj.device
+        del obj, res, captured["obj"]
+        torch.cuda.empty_cache()
+
+        # the second witness: the same tiles, the dual and every sum in float64
+        t0 = time.perf_counter()
+        with rebound(matching_mod, segment_sum_rows=segment_sum_rows_reference):
+            obj64 = matching_mod.MatchingSolverDualObjectiveFunction(can, gamma=solver_kw["gamma"], device=dev)
+            build_s = time.perf_counter() - t0
+            dual0 = torch.zeros(obj64.bcsc.m, dtype=torch.float64, device=dev)
+            res64 = AcceleratedGradientDescent(max_iter=args.iters, **solver_kw).maximize(obj64, dual0)
+            torch.cuda.synchronize()
+        log64 = np.array(res64.dual_objective_log, dtype=np.float64)
+        dev32 = np.abs(log32 - log64) / np.abs(log64)
+
+        def parts(tol):
+            return int(np.argmax(dev32 > tol)) + 1 if (dev32 > tol).any() else "never"
+
+        say("canonical", witness="float64 plain csc", dtype=str(res64.dual_val.dtype), iterations=len(log64),
+            build_s=f"{build_s:.2f}", solve_s=f"{time.perf_counter() - t0 - build_s:.2f}",
+            final_dual_objective_fp64=float(log64[-1]), fp32_vs_fp64_final=f"{dev32[-1]:.3e}",
+            jax_fp32_vs_fp64_final=f"{abs(CANONICAL_DUAL - log64[-1]) / abs(log64[-1]):.3e}",
+            fp32_vs_fp64_max_first_10=f"{dev32[:10].max():.3e}", fp32_vs_fp64_max_first_20=f"{dev32[:20].max():.3e}",
+            first_iteration_apart_1e_6=parts(1e-6), first_iteration_apart_1e_5=parts(1e-5),
+            first_iteration_apart_1e_4=parts(1e-4), first_iteration_apart_1e_3=parts(1e-3),
+            fp32_vs_fp64_max=f"{dev32.max():.3e}", tolerance_first_10=1e-5)
+        check(res64.dual_val.dtype == torch.float64 and np.isfinite(log64).all(), "canonical: the fp64 solve failed")
+        check(dev32[:10].max() <= 1e-5,
+              f"canonical: the fused solve's first 10 iterations part from the fp64 solve by {dev32[:10].max():.3e}")
+        del obj64, res64, can
+        torch.cuda.empty_cache()
+
+
 def phase_golden(dev_name):
     import dualip_tpu_torch as dt
     from dualip_tpu_torch.checkpoint import save_dual
@@ -918,13 +1177,14 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=200)
     ap.add_argument("--check-iters", type=int, default=20)
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
-                    help="comma-separated subset of: " + ", ".join(ALL_PHASES))
+                    help="comma-separated subset of: " + ", ".join(ALL_PHASES + OPT_IN_PHASES)
+                    + f" (default: all but {', '.join(OPT_IN_PHASES)})")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
-        if p not in ALL_PHASES:
+        if p not in ALL_PHASES + OPT_IN_PHASES:
             ap.error(f"unknown phase {p!r}")
-    full = set(phases) == set(ALL_PHASES)
+    full = set(ALL_PHASES) <= set(phases)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU", file=sys.stderr)
@@ -981,7 +1241,7 @@ def main(argv=None) -> int:
         seconds=f"{time.perf_counter() - t0:.2f}")
 
     # 8a. generate the slice's data once, for both layouts
-    need_data = bool({"slice", "butterfly", "lp"} & set(phases))
+    need_data = bool({"slice", "butterfly", "lp", "obs"} & set(phases))
     inp, gen_s, l_max = None, 0.0, 29
     if need_data:
         t0 = time.perf_counter()
@@ -1301,7 +1561,8 @@ def main(argv=None) -> int:
 
         # The segment-sum on the tiles' own a*x (the gather form's output at
         # the final dual): all tiles, then each tile alone (the others zero),
-        # against a float64 index_add_, and two launches bit for bit.
+        # against a float64 index_add_, two launches bit for bit, and the plain
+        # version (the kernel's order of additions) bit for bit.
         run_gather(False)
         rows_all = torch.cat(rows).long()
         ax_tiles = [ax_all]
@@ -1313,19 +1574,23 @@ def main(argv=None) -> int:
         for what, ax in zip(["all tiles"] + [(s_.L, s_.K) for s_ in specs], ax_tiles):
             got = segment_sum_rows(torch.zeros(obj.bcsc.m, device=dev), ax, plan)
             again = segment_sum_rows(torch.zeros(obj.bcsc.m, device=dev), ax, plan)
+            plain_sum = segment_sum_rows_reference(torch.zeros(obj.bcsc.m, device=dev), ax, plan)
             v64 = ax.double()
             ref = torch.zeros(obj.bcsc.m, dtype=torch.float64, device=dev).index_add_(0, rows_all, v64)
             scale = float(torch.zeros(obj.bcsc.m, dtype=torch.float64, device=dev).index_add_(0, rows_all, v64.abs()).max())
             torch.cuda.synchronize()
             check(torch.equal(got, again), f"segment-sum on slice {what}: two launches differ")
+            check(torch.equal(got, plain_sum), f"segment-sum on slice {what}: kernel and plain version differ "
+                                               f"by {float((got - plain_sum).abs().max())}")
             e = float((got.double() - ref).abs().max())
             check(e <= 1e-5 * max(1.0, scale), f"segment-sum on slice {what}: err {e} vs sum|v| {scale}")
             seg_err = max(seg_err, e)
-            del got, again, v64, ref
+            del got, again, plain_sum, v64, ref
         del ax_tiles
         say("slice", segment_sum_on=["all tiles"] + [(s_.L, s_.K) for s_ in specs], rows=obj.bcsc.m,
             windows=len(plan.windows), segments=plan.seg_row.numel(), items=plan.item_ptr.numel() - 1,
             max_abs_err_vs_float64=seg_err, tolerance="1e-5*max(1, max row sum of |v|)", repeat="bit-identical",
+            vs_plain_version="bit-identical",
             max_abs_err_synthetic_shapes=segsum_err)
         grad = torch.zeros(obj.bcsc.m, device=dev)
         seg_t = cuda_ms(lambda: segment_sum_rows(grad, ax_all, plan), reps=20, graph=True)
@@ -1365,7 +1630,8 @@ def main(argv=None) -> int:
 
         # Tiles in bf16 (the plain csc path: K1 has no bf16 form), 20 iterations,
         # beside the fp32 tiles' csc run; the same tiles with the segment-sum's
-        # plain version give the same log.
+        # plain version (the kernel's order of additions) give the same log, bit
+        # for bit.
         r16, n_launch, _ = solve(inp, n_chk, False, dtype="bfloat16")
         obj16 = captured["obj"]
         check(obj16.bcsc.tiles[0].a.dtype == torch.bfloat16, "csc bf16 tiles: the tiles are not bf16")
@@ -1382,7 +1648,7 @@ def main(argv=None) -> int:
             ms_per_iteration=f"{ms_per_iteration(obj16.events):.4f}", fp32_tiles_use_pallas_ms_per_iteration=f"{ms_per_iter:.4f}",
             objective_build_s=f"{captured['build_s']:.2f}", max_rel_dev_vs_plain=float(plain16.max()),
             max_rel_dev_vs_fp32_tiles=float(vs32.max()), launches=n_launch, card=card)
-        check(plain16.max() <= 1e-5, f"csc bf16 tiles: kernel vs plain versions differ by {plain16.max()} relative")
+        check(plain16.max() == 0.0, f"csc bf16 tiles: kernel vs plain versions differ by {plain16.max()} relative")
         check(vs32.max() <= 4e-2, f"csc bf16 tiles drift {vs32.max()} relative from the fp32 tiles")
         check(n_launch["segsum"] == n_chk and n_launch["K1g"] == 0, f"csc bf16 tiles: launches {n_launch}")
         del obj16, r16, captured["obj"]
@@ -1626,6 +1892,21 @@ def main(argv=None) -> int:
     # ------------------------------------------------------------------ 11. lp
     if "lp" in phases:
         phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, ms_per_iteration, Timed)
+        say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
+
+    # ------------------------------------------------------------------ 12. io
+    if "io" in phases:
+        phase_io(dt, args, card, gen_s, inp, captured, counts, solve, ms_per_iteration, n_chk)
+        say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
+
+    # ------------------------------------------------------------------ 13. obs
+    if "obs" in phases:
+        phase_obs(dt, inp, card, captured, reset_counts, counts, n_chk, solver_kw)
+        say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
+
+    # ------------------------------------------------------------------ canonical (opt-in)
+    if "canonical" in phases:
+        phase_canonical(args, card, captured, solve, ms_per_iteration, solver_kw)
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
     if not full:

@@ -451,6 +451,38 @@ def _finalize(grad, dual_obj, reg, dual_val, b_vec) -> ObjectiveResult:
     )
 
 
+def _layout_extra(compact: bool, batching: bool, n_shards: int) -> str:
+    """The tile-cache key's part for every option that changes the layout, as
+    the JAX package spells it: batching moves bucket boundaries, compact
+    packs columns (``/g2``: its buffer rows padded to 8), the shard count
+    changes every shape."""
+    extra = f"compact={compact}/batching={batching}"
+    if compact:
+        extra += "/g2"
+    if n_shards > 1:
+        extra += f"/shards={n_shards}"
+    return extra
+
+
+def matching_tile_cache_key(
+    matching_input_args,
+    n_shards: int = 1,
+    pallas_block_k: int = 1024,
+    dtype=np.float32,
+    compact: bool = False,
+    batching: bool = True,
+    tile_cache_key=None,
+) -> str:
+    """The tile-cache key the butterfly objective computes with these options,
+    for a process that publishes an entry a later solve looks up."""
+    from dualip_tpu_torch.io import tile_cache
+
+    args = matching_input_args
+    pad = max(1, n_shards) * max(pallas_block_k, 128)
+    return tile_cache.compute_cache_key(args.A, args.c, args.projection_map, pad, dtype, tile_cache_key,
+                                        extra=_layout_extra(compact, batching, max(1, n_shards)))
+
+
 def _later_slice(what: str, slice_name: str):
     raise NotImplementedError(f"{what} belongs to the {slice_name} slice of the port, not yet ported")
 
@@ -472,8 +504,16 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
     forward carry replaced by one table gather), ``plan_cache_dir`` (the routed
     plan cached on disk), ``keep_col_tiles=False`` (drop the (K, L) tiles the
     hot path never reads).  ``device`` (default ``cuda``) is where the tiles
-    and the solve live.  ``mesh`` (distributed) and ``tile_cache_dir`` (I/O
-    tiers) belong to later slices and raise ``NotImplementedError``.
+    and the solve live.  ``mesh`` (distributed) belongs to a later slice and
+    raises ``NotImplementedError``.
+
+    ``tile_cache_dir`` (butterfly with ``keep_col_tiles=False`` and
+    ``keep_flat_idx=False``; other layouts ignore it): the device-ready layout
+    cached on disk (``io/tile_cache.py``) under ``self.tile_cache_key``, a hash
+    of the problem and the layout's options, or of ``tile_cache_key`` (the
+    caller's own name for the problem) and the options.  A hit skips the tile
+    fill and the row layout's build; a miss builds them and saves the entry
+    when the layout has a plan-cache file (``plan_cache_dir``), on any device.
     """
 
     def __init__(
@@ -496,7 +536,6 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
         srow_gather: bool = False,
         device=None,
     ):
-        del tile_cache_key
         if layout not in ("csc", "row", "butterfly"):
             raise ValueError(f"Unknown layout {layout!r} (expected 'csc', 'row' or 'butterfly')")
         if layout == "row" and (mesh is not None or use_pallas):
@@ -526,8 +565,6 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
                 "or on layout='butterfly'")
         if mesh is not None:
             _later_slice("mesh (entity-sharded solve)", "distributed")
-        if tile_cache_dir is not None:
-            _later_slice("tile_cache_dir", "I/O-tiers")
 
         args = matching_input_args
         self.device = resolve_device(device)
@@ -548,28 +585,47 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
         if layout == "butterfly":
             # the panel kernel reads the carry buffer in 128-column panels
             pad = max(pad, max(pallas_block_k, 128))
-        bcsc = build_blockcsc(
-            args.A,
-            args.c,
-            args.projection_map,
-            batching=batching,
-            pad_cols_to=pad,
-            keep_flat_idx=keep_flat_idx,
-            dtype=dtype,
-            # compact: one bucket per distinct degree, no within-tile slot padding
-            bucketing="exact" if compact else "pow2",
-        )
-        self.row_layout = None
-        if layout in ("row", "butterfly"):
-            from dualip_tpu_torch.sparse.rowmajor import build_row_layout
 
-            self.row_layout = build_row_layout(  # host tiles
-                bcsc,
-                method="butterfly" if layout == "butterfly" else "gather",
-                plan_cache_dir=plan_cache_dir,
-                compact=compact,
-                device=self.device,
+        cached = self.tile_cache_key = None
+        use_cache = tile_cache_dir is not None and layout == "butterfly" and not keep_col_tiles and not keep_flat_idx
+        if use_cache:
+            from dualip_tpu_torch.io import tile_cache
+
+            self.tile_cache_key = tile_cache.compute_cache_key(
+                args.A, args.c, args.projection_map, pad, dtype, tile_cache_key,
+                extra=_layout_extra(compact, batching, 1))
+            cached = tile_cache.load_butterfly_state(tile_cache_dir, self.tile_cache_key, self.device)
+
+        if cached is not None:
+            bcsc, self.row_layout = cached
+        else:
+            bcsc = build_blockcsc(
+                args.A,
+                args.c,
+                args.projection_map,
+                batching=batching,
+                pad_cols_to=pad,
+                keep_flat_idx=keep_flat_idx,
+                dtype=dtype,
+                # compact: one bucket per distinct degree, no within-tile slot padding
+                bucketing="exact" if compact else "pow2",
             )
+            self.row_layout = None
+            if layout in ("row", "butterfly"):
+                from dualip_tpu_torch.sparse.rowmajor import build_row_layout
+
+                self.row_layout = build_row_layout(  # host tiles
+                    bcsc,
+                    method="butterfly" if layout == "butterfly" else "gather",
+                    plan_cache_dir=plan_cache_dir,
+                    compact=compact,
+                    device=self.device,
+                )
+            rl = self.row_layout
+            if use_cache and rl.plan_cache_path is not None:  # a miss: save beside the routing's plan file
+                save_s = tile_cache.save_butterfly_state(tile_cache_dir, self.tile_cache_key, bcsc, rl,
+                                                         rl.plan_cache_path)
+                rl.build_seconds.update({"tile_cache_" + k: v for k, v in save_s.items()})
         if layout == "butterfly" and not keep_col_tiles:
             # the butterfly hot path never reads the (K, L) column tiles (the
             # layout carries panel copies)

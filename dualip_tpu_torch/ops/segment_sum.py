@@ -27,14 +27,34 @@ _PLAN_INDEX = ("order", "seg_ptr", "item_ptr", "row_ptr", "row_segs")
 
 
 def segment_sum_rows_reference(out: torch.Tensor, vals: torch.Tensor, plan: RowSumPlan) -> torch.Tensor:
-    """The plain version, in the kernel's two steps: each segment's sum
-    (``index_add_`` by segment), then each row's segments added in window
-    order and the result added onto ``out``."""
-    v = vals.reshape(-1).index_select(0, plan.order.long())
+    """The plain version, in the kernel's two steps and its order of additions,
+    in ``out``'s dtype; on any device it repeats itself, and in float32 it
+    gives the kernel's bits.  Each segment: lane t of 32 adds entries t,
+    t + 32, ... in turn (a lane past the segment's end adds +0, which changes
+    nothing), then the 32 sums meet in the kernel's shuffle tree.  Each row:
+    its segments' sums added from zero in window order, the result added
+    onto ``out``."""
+    v = vals.reshape(-1).index_select(0, plan.order.long()).to(out.dtype)
     n_seg = plan.seg_row.numel()
-    seg_of = torch.repeat_interleave(torch.arange(n_seg, device=v.device), torch.diff(plan.seg_ptr.long()))
-    partial = torch.zeros(n_seg, dtype=out.dtype, device=out.device).index_add_(0, seg_of, v.to(out.dtype))
-    return out.add_(torch.zeros_like(out).index_add_(0, plan.seg_row.long(), partial))
+    if n_seg == 0:
+        return out
+    seg_ptr = plan.seg_ptr.long()
+    start, end = seg_ptr[:-1, None], seg_ptr[1:, None]
+    j = start + torch.arange(32, device=v.device)
+    acc = torch.zeros(n_seg, 32, dtype=out.dtype, device=out.device)
+    for _ in range(-(-int((end - start).max()) // 32)):
+        acc += torch.where(j < end, v[j.clamp(max=v.numel() - 1)], 0)
+        j += 32
+    for w in (16, 8, 4, 2, 1):
+        acc = acc[:, :w] + acc[:, w:2 * w]
+    partial = acc[:, 0]
+    row_ptr = plan.row_ptr.long()
+    first, count = row_ptr[:-1], torch.diff(row_ptr)
+    seg = partial[plan.row_segs.long()]
+    rsum = torch.zeros_like(out)
+    for k in range(int(count.max())):
+        rsum = torch.where(count > k, rsum + seg[(first + k).clamp(max=n_seg - 1)], rsum)
+    return out.copy_(torch.where(count > 0, out + rsum, out))
 
 
 @functools.lru_cache(maxsize=None)

@@ -9,14 +9,15 @@ Where the JAX package compiles the solve into one ``lax.scan``, this is an
 eager Python loop that queues each iteration's kernels on the device and
 never waits for them: the per-iteration metrics go into a preallocated
 ``(max_iter, 8)`` device tensor that is fetched once at the end.  Only an
-``iteration_callback`` or a ``stop_condition`` makes the loop wait for the
-device, at the iterations where it runs.
+``iteration_callback``, MLflow logging or a ``stop_condition`` makes the loop
+wait for the device, at the iterations where it runs.
 """
 
 from __future__ import annotations
 
 import inspect
 import math
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -29,6 +30,7 @@ from dualip_tpu_torch.optimizers.agd_utils import (
     init_step_size_state,
 )
 from dualip_tpu_torch.types import ObjectiveResult, SolverResult, resolve_device
+from dualip_tpu_torch.utils.mlflow_utils import _mlflow_state, log_metrics, log_objective_result
 
 # Columns of the per-iteration metrics tensor (``dualip_tpu`` ``_Metrics``).
 METRICS = (
@@ -101,10 +103,15 @@ class AcceleratedGradientDescent:
     """Maximizes a dual objective with Nesterov-accelerated ascent.
 
     Same constructor as ``dualip_tpu``'s.  ``callback_chunk``: with an
-    iteration callback, the loop fetches metrics every ``callback_chunk``
-    iterations and calls the callback once per iteration.  ``launch_chunk``
-    is accepted for parity and has no effect: the eager loop has no single
-    launch to cut.
+    iteration callback or MLflow logging, the loop fetches metrics every
+    ``callback_chunk`` iterations and calls the callback (and logs) once per
+    iteration.  ``launch_chunk`` is accepted for parity and has no effect: the
+    eager loop has no single launch to cut.
+
+    ``collect_stats = True`` records the next ``maximize``'s wall clock in
+    ``last_run_stats``: ``total_s`` (the whole call up to the metrics fetch),
+    ``iters`` (``max_iter``) and ``drain_s`` (the fetch, which waits for the
+    device to finish the queued iterations).
     """
 
     def __init__(
@@ -150,6 +157,8 @@ class AcceleratedGradientDescent:
             self.stop_check_every = 100
         self.restart = restart
         self.restart_min_spacing = int(restart_min_spacing)
+        self.collect_stats = False
+        self.last_run_stats = None
 
     @staticmethod
     def _default_iteration_callback(iteration: int, objective_result: ObjectiveResult) -> None:
@@ -177,6 +186,7 @@ class AcceleratedGradientDescent:
         window may be tensors or numpy arrays; numpy ones go to ``f.device``
         (``cuda`` when ``f`` names none), a float64 one as float32.
         """
+        t_start = time.perf_counter()
         if isinstance(initial_value, torch.Tensor):
             x0 = initial_value
         else:  # numpy float64 solves in float32, as in the JAX package (x64 off)
@@ -218,7 +228,8 @@ class AcceleratedGradientDescent:
 
         x = y = last_x = x0
         last_grad = torch.zeros(m, dtype=dtype, device=dev)
-        observing = self.iteration_callback is not None
+        logging = _mlflow_state.is_enabled()
+        observing = self.iteration_callback is not None or logging
         fetched = 0
         done = 0
         for i in range(self.max_iter):
@@ -258,7 +269,11 @@ class AcceleratedGradientDescent:
             if observing and (it_num - fetched >= self.callback_chunk or it_num == self.max_iter):
                 rows = metrics[fetched:it_num].cpu().numpy()
                 for k, r in enumerate(rows):
-                    self.iteration_callback(fetched + k + 1, self._row_to_result(r, fields_present))
+                    per_iter = self._row_to_result(r, fields_present)
+                    if self.iteration_callback is not None:
+                        self.iteration_callback(fetched + k + 1, per_iter)
+                    if logging:
+                        self._log_row(fetched + k + 1, r, per_iter)
                 fetched = it_num
             if self.stop_condition is not None and (
                 it_num % self.stop_check_every == 0 or it_num == self.max_iter
@@ -266,7 +281,11 @@ class AcceleratedGradientDescent:
                 if self.stop_condition(it_num, y):
                     break
 
+        t_drain = time.perf_counter()
         host = metrics[:done].cpu().numpy()  # the one fetch of the solve's metrics
+        if self.collect_stats:
+            now = time.perf_counter()
+            self.last_run_stats = {"total_s": now - t_start, "iters": self.max_iter, "drain_s": now - t_drain}
         dual_obj_log: List[float] = host[:, 0].tolist()
         step_size_log: List[float] = host[:, 1].tolist()
         dual_obj = dual_obj_log[-1]
@@ -295,6 +314,8 @@ class AcceleratedGradientDescent:
                 kwargs.update(save_primal=True, rank=rank)
             final_res = f.calculate(dual_val=last_x, **kwargs)
 
+        if logging:
+            log_objective_result(final_res, step=self.max_iter)
         if self.gamma is not None:
             self.gamma = float(gamma)
 
@@ -305,6 +326,14 @@ class AcceleratedGradientDescent:
             dual_objective_log=dual_obj_log,
             step_size_log=step_size_log,
         )
+
+    def _log_row(self, it: int, row: np.ndarray, per_iter: ObjectiveResult) -> None:
+        """The per-iteration MLflow metrics of one fetched metrics row."""
+        metrics = {"step_size": float(row[1]), "dual_objective": float(row[0])}
+        if self.gamma is not None:
+            metrics["gamma"] = float(row[3])
+        log_metrics(metrics, step=it)
+        log_objective_result(per_iter, step=it)
 
     @staticmethod
     def _row_to_result(row: np.ndarray, fields_present: dict) -> ObjectiveResult:

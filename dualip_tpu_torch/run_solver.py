@@ -1,14 +1,16 @@
 """Solver entry point (``dualip_tpu/run_solver.py``).
 
-``run_solver(input_args, solver_args, compute_args, objective_args)`` builds
-the objective on ``compute_args.host_device`` (``cuda`` unless the caller
-asks for ``cpu``), warm-starts from ``initial_dual_path`` if given, and runs
-the AGD maximizer.
+``run_solver(input_args, solver_args, compute_args, objective_args,
+mlflow_config)`` opens the MLflow run (a no-op without mlflow) and logs the
+hyperparameters, builds the objective on ``compute_args.host_device``
+(``cuda`` unless the caller asks for ``cpu``), warm-starts from
+``initial_dual_path`` if given, and runs the AGD maximizer.
 """
 
 from __future__ import annotations
 
 from dataclasses import fields
+from typing import Optional
 
 import numpy as np
 import torch
@@ -18,6 +20,7 @@ from dualip_tpu_torch.objectives.base import BaseInputArgs
 from dualip_tpu_torch.objectives.matching import MatchingSolverDualObjectiveFunction
 from dualip_tpu_torch.optimizers.agd import AcceleratedGradientDescent
 from dualip_tpu_torch.types import ComputeArgs, ObjectiveArgs, SolverArgs, SolverResult, resolve_device
+from dualip_tpu_torch.utils.mlflow_utils import MLflowConfig, log_hyperparameters, mlflow_run_context
 
 
 def transfer_tensors_to_device(input_args: BaseInputArgs, device: str) -> BaseInputArgs:
@@ -100,12 +103,20 @@ def run_solver(
     solver_args: SolverArgs,
     compute_args: ComputeArgs,
     objective_args: ObjectiveArgs,
-    mlflow_config=None,
+    mlflow_config: Optional[MLflowConfig] = None,
 ) -> SolverResult:
-    """Run one LP solve.  ``mlflow_config`` with ``enabled=True`` waits for
-    the observability slice of the port."""
-    if mlflow_config is not None and getattr(mlflow_config, "enabled", False):
-        raise NotImplementedError("MLflow logging belongs to the observability slice of the port")
+    """Run one LP solve, logged to MLflow when ``mlflow_config`` enables it
+    and mlflow is installed."""
+    if mlflow_config is None:
+        mlflow_config = MLflowConfig(enabled=False)
+
+    with mlflow_run_context(mlflow_config):
+        if mlflow_config.enabled and mlflow_config.log_hyperparameters:
+            log_hyperparameters({"solver": solver_args.__dict__, "objective": objective_args.__dict__})
+        return _solve(input_args, solver_args, compute_args, objective_args)
+
+
+def _solve(input_args, solver_args, compute_args, objective_args) -> SolverResult:
     device = resolve_device(compute_args.host_device)
     input_args = transfer_tensors_to_device(input_args, compute_args.host_device)
     objective = build_objective(input_args, solver_args, compute_args, objective_args)

@@ -10,8 +10,10 @@ group, ``L`` the largest column degree in it.  Padding lanes hold
 
 ``rows`` is int32 here at every ``m``: ``index_select`` and ``index_add_``
 take int32 or int64 indices, not the uint16 the JAX package stores for
-``m <= 65535``.  The tile builder is the numpy fill; the JAX package's native
-parallel fill belongs to the I/O slice of the port.
+``m <= 65535``.  Tiles of at least ``NATIVE_FILL_SLOTS`` slots are filled in
+parallel by the native data plane (``io/native_loader.py::fill_tile_native``,
+the JAX package's threshold), smaller ones and every tile without the library
+by numpy; both give the same arrays element for element.
 
 Tiles in bfloat16 (``dtype`` ``torch.bfloat16``, ``"bfloat16"`` or a numpy
 dtype of that name) are rounded on the host to the nearest bfloat16, ties to
@@ -164,6 +166,9 @@ def _exact_thresholds(lengths: np.ndarray) -> np.ndarray:
     return np.concatenate([[0], uniq, [uniq[-1] + 1] if uniq.size else [1]])
 
 
+NATIVE_FILL_SLOTS = 1 << 20  # K_valid * L from which a tile is filled natively
+
+
 def _build_tile(
     A: CSCMatrix,
     C: CSCMatrix,
@@ -180,32 +185,41 @@ def _build_tile(
     K = -(-K_valid // pad_cols_to) * pad_cols_to
     L = int(lens.max())
 
-    starts = A.indptr[cols]
-    total = int(lens.sum())
-    cols_rep = np.repeat(np.arange(K_valid), lens)
-    prefix = np.cumsum(lens) - lens
-    idx_in_col = np.arange(total) - prefix[cols_rep]
-    flat = starts[cols_rep] + idx_in_col
-
     bf16 = is_bfloat16(dtype)
-    rows = np.zeros((K, L), dtype=np.int32)
-    a = np.zeros((K, L), dtype=np.float32 if bf16 else dtype)
-    c = np.zeros((K, L), dtype=np.float32 if bf16 else dtype)
-    rows[cols_rep, idx_in_col] = A.row_indices[flat]
-    a[cols_rep, idx_in_col] = A.data[flat]
-    c[cols_rep, idx_in_col] = C.data[flat]
+    native = None
+    # the native fill writes float32 a and c, so it serves float32 and bfloat16 tiles
+    if K_valid * L >= NATIVE_FILL_SLOTS and (bf16 or np.dtype(dtype) == np.float32):
+        from dualip_tpu_torch.io.native_loader import fill_tile_native
+
+        native = fill_tile_native(A.indptr, A.row_indices, A.data, C.data, cols, K, L, keep_flat_idx)
+    if native is not None:
+        rows, a, c, length, col_ids, flat_idx = native
+    else:
+        starts = A.indptr[cols]
+        total = int(lens.sum())
+        cols_rep = np.repeat(np.arange(K_valid), lens)
+        prefix = np.cumsum(lens) - lens
+        idx_in_col = np.arange(total) - prefix[cols_rep]
+        flat = starts[cols_rep] + idx_in_col
+
+        rows = np.zeros((K, L), dtype=np.int32)
+        a = np.zeros((K, L), dtype=np.float32 if bf16 else dtype)
+        c = np.zeros((K, L), dtype=np.float32 if bf16 else dtype)
+        rows[cols_rep, idx_in_col] = A.row_indices[flat]
+        a[cols_rep, idx_in_col] = A.data[flat]
+        c[cols_rep, idx_in_col] = C.data[flat]
+
+        length = np.zeros(K, dtype=np.int32)
+        length[:K_valid] = lens
+        col_ids = np.full(K, -1, dtype=np.int32)
+        col_ids[:K_valid] = cols
+
+        flat_idx = None
+        if keep_flat_idx:
+            flat_idx = np.full((K, L), -1, dtype=np.int64)
+            flat_idx[cols_rep, idx_in_col] = flat
     if bf16:
         a, c = round_bfloat16(a), round_bfloat16(c)
-
-    length = np.zeros(K, dtype=np.int32)
-    length[:K_valid] = lens
-    col_ids = np.full(K, -1, dtype=np.int32)
-    col_ids[:K_valid] = cols
-
-    flat_idx = None
-    if keep_flat_idx:
-        flat_idx = np.full((K, L), -1, dtype=np.int64)
-        flat_idx[cols_rep, idx_in_col] = flat
 
     spec = TileSpec(
         entry_key=entry_key,

@@ -17,6 +17,7 @@ from dualip_tpu_torch.optimizers.agd_utils import StepSizeState
 from dualip_tpu_torch.projections import create_projection_map
 from dualip_tpu_torch.sparse import csc_from_dense
 from dualip_tpu_torch.synthetic import generate_synthetic_matching_input_args
+from dualip_tpu_torch.utils.mlflow_utils import MLflowConfig
 
 torch.set_num_threads(1)
 
@@ -79,13 +80,12 @@ def test_later_slices_raise():
             dualip_tpu_torch.ObjectiveArgs(),
         )
 
-    class Enabled:
-        enabled = True
-
-    with pytest.raises(NotImplementedError, match="observability"):
-        dualip_tpu_torch.run_solver(
-            *args, dualip_tpu_torch.ComputeArgs(host_device="cpu"), dualip_tpu_torch.ObjectiveArgs(), Enabled()
-        )
+    # MLflow logging is in (observability slice): enabled without mlflow, the solve runs
+    res = dualip_tpu_torch.run_solver(
+        *args, dualip_tpu_torch.ComputeArgs(host_device="cpu"), dualip_tpu_torch.ObjectiveArgs(),
+        MLflowConfig(enabled=True),
+    )
+    assert len(res.dual_objective_log) == 2 and np.isfinite(res.dual_objective)
 
 
 def test_warm_start_resumes_the_solve(tmp_path):
