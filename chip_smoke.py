@@ -76,7 +76,20 @@ result lines at the end are printed only by a run of every default phase):
 13. obs: ``run_solver`` with MLflow enabled completes (a no-op without
    mlflow) and gives the log of the solve without it, ``trace`` around three
    csc iterations writes a trace naming K1's and the segment-sum's kernels and
-   the ``annotate`` span, and ``collect_stats`` fills ``last_run_stats``.
+   the ``annotate`` span, and ``collect_stats`` fills ``last_run_stats``;
+14. dist: the entity-sharded solve (``dualip_tpu_torch/parallel``) on this
+   one card.  (a) A world of one NCCL rank in this process: the csc
+   ``use_pallas`` solve over a mesh, its 200-iteration log bit-identical to
+   the one-device log, and the all_reduce of m + 2 floats timed.  Whether
+   NCCL takes two ranks on one card (what it says).  (b) Two ranks spawned on
+   the card over gloo (the reduction through host memory), reading the slice
+   from the generator cache this process writes, each through ``run_solver
+   (compute_device_num=2)``: csc ``use_pallas`` 200 iterations and butterfly
+   50, each twice; the ranks' logs bit-identical to each other and to their
+   repeats, the first 10 iterations within 1e-5 and the last within 1e-2 of
+   the one-device logs, the launches, and each rank's K1 and segment-sum (and
+   its carries and K3) against their plain versions on its own shard.  The
+   ranks' times are two processes sharing one card, not a multi-GPU figure.
 
 Opt-in, not in the default list (its host work exceeds the default run's
 budget): ``--phases canonical`` generates the canonical shape (25,000,000
@@ -124,7 +137,8 @@ NON_FMA_OPS_PER_S = 132 * 128 * 1.98e9
 BISECTION_ITERS = 30
 
 SMALL_SOURCES = 250_000  # the second butterfly solve: few enough blocks for one single-axis group a side
-ALL_PHASES = ("kernels", "segsum", "benes", "panel", "golden", "slice", "butterfly", "cert", "lp", "io", "obs")
+ALL_PHASES = ("kernels", "segsum", "benes", "panel", "golden", "slice", "butterfly", "cert", "lp", "io", "obs",
+              "dist")
 OPT_IN_PHASES = ("canonical",)  # host time beyond the default run's budget: run alone
 CANONICAL_SOURCES = 25_000_000
 # benchmark/results/canonical_250m.json: the native generator's nnz at the
@@ -164,6 +178,43 @@ CASES = [
 
 class SmokeFailure(Exception):
     pass
+
+
+class Timed:
+    """Records a CUDA event around each evaluation (no host sync)."""
+
+    def calculate_traceable(self, params, dual_val, gamma):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        res = super().calculate_traceable(params, dual_val, gamma)
+        e.record()
+        self.events.append((s, e))
+        return res
+
+
+def _counted():
+    """The kernels' wrappers that count their launches, by the short name of
+    each count."""
+    import dualip_tpu_torch.ops.butterfly as bf
+    import dualip_tpu_torch.ops.fused_matching as fm
+    from dualip_tpu_torch.ops.segment_sum import segment_sum_rows
+
+    return {"K1g": (fm.fused_tile_gather_eval_T, "launches"), "K2g": (fm.fused_tile_gather_eval_T, "launches_x"),
+            "K1": (fm.fused_tile_eval_T, "launches"), "K2": (fm.fused_tile_eval_T, "launches_x"),
+            "K3": (fm.fused_panel_project_tiles, "launches"), "K4": (fm.fused_panel_project_tiles, "launches_x"),
+            "K3t": (fm.fused_panel_project, "launches"), "K4t": (fm.fused_panel_project, "launches_x"),
+            "K5": (bf.benes_fine, "launches"), "K6": (bf.benes_coarse, "launches"),
+            "K7": (bf.benes_coarse2, "launches"), "K5w": (bf.benes_fine_window, "launches"),
+            "K7w": (bf.benes_coarse2_window, "launches"), "segsum": (segment_sum_rows, "launches")}
+
+
+def reset_counts() -> None:
+    for fn, attr in _counted().values():
+        setattr(fn, attr, 0)
+
+
+def counts() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counted().items()}
 
 
 def check(cond, msg: str) -> None:
@@ -1108,6 +1159,245 @@ def phase_canonical(args, card, captured, solve, ms_per_iteration, solver_kw):
         torch.cuda.empty_cache()
 
 
+DIST_SOLVER = dict(gamma=1e-3, initial_step_size=1e-3, max_step_size=1e-1)  # main's solver_kw
+DIST_BUTTERFLY_ITERS = 50
+
+
+def _data_digest(inp) -> str:
+    import hashlib
+
+    h = hashlib.sha1()
+    for arr in (inp.A.indptr, inp.A.row_indices, inp.A.data, inp.c.data, inp.b_vec):
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
+def _dist_rank(mesh, cache_dir, shape, seed, iters, bfly_iters):
+    """One of the ranks that share the card in phase ``dist`` (gloo): the
+    slice from the generator's ``.npz`` cache, then through ``run_solver
+    (compute_device_num=world)`` the csc ``use_pallas`` solve and the
+    butterfly solve, each run twice on the same objective, and this rank's
+    kernels against their plain versions on its own shard at the final dual.
+    Returns numbers only; the parent checks them."""
+    import dualip_tpu_torch as dt
+    import dualip_tpu_torch.ops.butterfly as bf
+    from dualip_tpu_torch.objectives.matching import MatchingSolverDualObjectiveFunction, _srow_carried
+    from dualip_tpu_torch.ops.fused_matching import (
+        fused_panel_project_tiles,
+        fused_panel_project_tiles_reference,
+        fused_tile_gather_eval_T,
+        fused_tile_gather_eval_T_reference,
+    )
+    from dualip_tpu_torch.ops.segment_sum import segment_sum_rows, segment_sum_rows_reference
+    from dualip_tpu_torch.synthetic import _cache_path, generate_synthetic_matching_input_args
+
+    dev = mesh.device
+    path = _cache_path(cache_dir, *shape, np.float32, (seed, "numpy"))
+    check(path.exists(), f"rank {mesh.rank}: the parent's generator cache {path} is missing")
+    t0 = time.perf_counter()
+    inp = generate_synthetic_matching_input_args(*shape, seed=seed, cache_dir=cache_dir)
+    out = {"load_s": time.perf_counter() - t0, "digest": _data_digest(inp)}
+    built = {}
+
+    class TimedMatching(Timed, MatchingSolverDualObjectiveFunction):
+        pass
+
+    @dt.register_objective("dist_smoke")
+    def _factory(input_args, solver_args, compute_args, mesh, objective=None, **kw):
+        if objective is None:
+            t = time.perf_counter()
+            objective = TimedMatching(input_args, gamma=solver_args.gamma, mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            built["obj"], built["s"] = objective, time.perf_counter() - t
+        objective.events = []
+        return objective
+
+    def solve(n, **kw):
+        reset_counts()
+        res = dt.run_solver(inp, dt.SolverArgs(max_iter=n, **DIST_SOLVER),
+                            dt.ComputeArgs(host_device=str(dev), compute_device_num=mesh.world_size),
+                            dt.ObjectiveArgs(objective_type="dist_smoke", objective_kwargs=kw))
+        torch.cuda.synchronize()
+        return res, counts()
+
+    def timed(path, res, n_launch, obj, build_s):
+        ev = obj.events
+        again, _ = solve(len(res.dual_objective_log), objective=obj)
+        out[path] = {"log": list(res.dual_objective_log), "launches": n_launch, "tiles": len(obj.panel_table.tiles)
+                     if obj.panel_table is not None else len(obj.bcsc.tiles),
+                     "ms_per_iteration": ev[1][0].elapsed_time(ev[-1][1]) / (len(ev) - 1),
+                     "time_to_first_iteration_s": build_s + ev[0][0].elapsed_time(ev[0][1]) / 1e3,
+                     "objective_build_s": build_s, "repeat": list(again.dual_objective_log)}
+
+    g = torch.full((), 1e-3, dtype=torch.float32, device=dev)
+    nig = -1.0 / g
+
+    # csc, use_pallas=True: K1 per local tile, one segment-sum, one all_reduce
+    res, n_launch = solve(iters, use_pallas=True)
+    obj = built["obj"]
+    timed("csc", res, n_launch, obj, built["s"])
+    scaled = nig * res.dual_val
+    plan = obj.bcsc.row_sum
+    ax_all = torch.empty(plan.slots, device=dev)
+    err = 0.0
+    for t, s_, off in zip(obj.bcsc.tiles, obj.bcsc.specs, plan.offsets):
+        got = fused_tile_gather_eval_T(scaled, t.rows, t.a, t.c, t.length, nig, s_.proj_type, s_.proj_params,
+                                       block_k=1024, out=ax_all[off:off + t.a.numel()].view(t.a.shape))
+        ref = fused_tile_gather_eval_T_reference(scaled, t.rows, t.a, t.c, t.length, nig, s_.proj_type,
+                                                 s_.proj_params)
+        e = float((got[0] - ref[0]).abs().max())
+        check(e <= tol_x(ref[0]), f"rank {mesh.rank} K1 on its tile {(s_.L, s_.K)}: err {e}")
+        for i in (1, 2):
+            check(abs(float(got[i]) - float(ref[i])) <= 1e-3 + 1e-4 * abs(float(ref[i])), f"rank {mesh.rank} K1 sums")
+        err = max(err, e)
+    zero_m = torch.zeros(obj.bcsc.m, device=dev)
+    seg = segment_sum_rows(zero_m, ax_all, plan)
+    check(torch.equal(seg, segment_sum_rows_reference(zero_m, ax_all, plan)),
+          f"rank {mesh.rank}: the segment-sum and its plain version differ on the rank's a*x")
+    out["csc"]["K1_max_abs_err"] = err
+    out["csc"]["segsum_vs_plain"] = "bit-identical"
+    buf = torch.zeros(obj.bcsc.m + 2, device=dev)
+    for _ in range(5):
+        mesh.all_reduce_(buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        mesh.all_reduce_(buf)
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - t0) * 10.0
+    del obj, built["obj"], res, ax_all, seg
+    torch.cuda.empty_cache()
+
+    # butterfly: this rank's layout, K7/K5/K7 carries and K3 (K6 where a shard has <= 256 blocks)
+    res, n_launch = solve(bfly_iters, layout="butterfly")
+    obj = built["obj"]
+    timed("butterfly", res, n_launch, obj, built["s"])
+    rl, p = obj.row_layout, obj.row_layout.plan
+    ids = torch.arange(p.N, dtype=torch.int32, device=dev)
+    for reverse in (False, True):
+        check(torch.equal(bf.apply_butterfly_cuda(p, ids.clone(), reverse=reverse, truncate=False),
+                          plain_blocked(bf, p, ids.clone(), reverse)),
+              f"rank {mesh.rank}: the carry (K5/K6/K7) differs from the plain stages, reverse={reverse}")
+    srow = _srow_carried(rl, nig * res.dual_val, torch.zeros((), device=dev))
+    got = fused_panel_project_tiles(srow.clone(), obj.panel_table, nig)
+    ref = fused_panel_project_tiles_reference(srow.clone(), obj.panel_table, nig)
+    e = float((got[0] - ref[0]).abs().max())
+    check(e <= panel_tol(ref[0], None), f"rank {mesh.rank} K3 on its layout: err {e}")
+    for i in (1, 2):
+        check(abs(float(got[i]) - float(ref[i])) <= 1e-3 + 1e-4 * abs(float(ref[i])), f"rank {mesh.rank} K3 sums")
+    out["butterfly"].update(carry_vs_plain="bit-identical", K3_max_abs_err=e, carry_slots=p.N,
+                            blocks=p.N >> p.block_log2, routing_s=rl.build_seconds["route"])
+    return out
+
+
+def _nccl_probe(mesh):
+    mesh.all_reduce_(torch.ones(1, device=mesh.device))
+    torch.cuda.synchronize()
+    return "all_reduce completed"
+
+
+def phase_dist(dt, args, inp, card, dev, refs, solve, captured, ms_per_iteration):
+    """The entity-sharded solve on the one card.  (a) NCCL, world 1, in this
+    process: the csc ``use_pallas`` solve over a mesh, its log bit-identical
+    to the one-device log, and the all_reduce's time.  Then whether NCCL
+    takes two ranks on one card.  (b) Two ranks sharing the card over gloo
+    (the reduction goes through host memory), spawned, reading the slice from
+    the generator cache this process writes: csc 200 iterations and
+    butterfly 50, held to each other (bit for bit), to themselves (a repeat),
+    to the one-device logs (first 10 iterations within 1e-5, the last within
+    1e-2) and each rank's kernels to their plain versions.  Their times are
+    two processes time-sharing one card, not a multi-GPU figure."""
+    import torch.distributed as dist
+
+    from dualip_tpu_torch import synthetic
+    from dualip_tpu_torch.parallel import default_mesh, initialize_multihost, run_ranks
+    from dualip_tpu_torch.parallel.launch import _free_port
+
+    # (a) one rank over NCCL: an all_reduce over one rank is a copy
+    initialize_multihost(f"127.0.0.1:{_free_port()}", world_size=1, rank=0, device=dev, timeout_s=300)
+    try:
+        mesh = default_mesh(1, device=dev)
+        res, n_launch, _ = solve(inp, args.iters, False, use_pallas=True, mesh=mesh)
+        obj = captured["obj"]
+        log = res.dual_objective_log
+        same = list(log) == list(refs["csc"])
+        check(n_launch["K1g"] == len(obj.bcsc.tiles) * args.iters and n_launch["segsum"] == args.iters,
+              f"dist (a): launches {n_launch}")
+        # the same objective without its mesh, in turns with it (mesh, one device, one device, mesh):
+        # what the reduction adds to an iteration, within this call
+        one = copy.copy(obj)
+        one.mesh = None
+        turns = [ms_per_iteration(obj.events)]
+        for o in (one, one, obj):
+            r, _, _ = solve(inp, args.iters, False, objective_type="matching_smoke_prebuilt", objective=o)
+            same = same and list(r.dual_objective_log) == list(log)
+            turns.append(ms_per_iteration(o.events))
+        buf = torch.zeros(obj.bcsc.m + 2, device=dev)
+        t_ar = cuda_ms(lambda: mesh.all_reduce_(buf), reps=200)
+        say("dist", step="a", backend=dist.get_backend(), world=1, iterations=len(log),
+            log_vs_one_device="bit-identical" if same else "DIFFERS",
+            ms_per_iteration_mesh_one_one_mesh=[f"{t:.4f}" for t in turns],
+            one_device_ms_per_iteration_phase_slice=refs.get("csc_ms", "not run"),
+            allreduce_ms=f"{t_ar.eager_ms:.4f}", allreduce_host_enqueue_ms=f"{t_ar.host_ms:.4f}",
+            allreduce_floats=obj.bcsc.m + 2, launches=n_launch, card=card)
+        check(same, f"dist (a): the world-1 mesh log differs from the one-device log by "
+                    f"{rel_dev(log, refs['csc']).max()}")
+        del obj, one, res, r, captured["obj"], buf
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # two ranks on one card over NCCL: what it says
+    try:
+        nccl = run_ranks(_nccl_probe, 2, device=str(dev), backend="nccl", timeout_s=60, join_timeout_s=120)[0]
+    except (RuntimeError, TimeoutError) as e:
+        lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+        said = [ln for ln in lines if any(w in ln for w in ("Duplicate GPU", "ncclInvalidUsage", "NCCL error"))]
+        nccl = " | ".join(dict.fromkeys(said)) or lines[-1]
+    say("dist", nccl_two_ranks_one_card=repr(nccl[:600]))
+
+    # (b) two ranks sharing the card over gloo
+    shape = (args.sources, args.destinations, args.sparsity)
+    with tempfile.TemporaryDirectory(prefix="dualip-dist-") as tmp:
+        path = synthetic._cache_path(tmp, *shape, np.float32, (args.seed, "numpy"))
+        synthetic._save_cached((inp.A.indptr, inp.A.row_indices, inp.A.data, -inp.c.data, inp.b_vec), path,
+                               path.with_suffix(".mm"), False, np.float32)
+        t0 = time.perf_counter()
+        ranks = run_ranks(_dist_rank, 2, args=(tmp, shape, args.seed, args.iters, DIST_BUTTERFLY_ITERS),
+                          device=str(dev), backend="gloo", timeout_s=300, join_timeout_s=600)
+        wall_s = time.perf_counter() - t0
+    digest = _data_digest(inp)
+    for path_, n_iter in (("csc", args.iters), ("butterfly", DIST_BUTTERFLY_ITERS)):
+        want = np.asarray(refs[path_][:n_iter])
+        for r, got in enumerate(ranks):
+            g = got[path_]
+            check(got["digest"] == digest, f"dist (b) rank {r}: the data read from the cache differ")
+            check(g["log"] == ranks[0][path_]["log"], f"dist (b) {path_}: rank {r}'s log differs from rank 0's")
+            check(g["repeat"] == g["log"], f"dist (b) {path_}: rank {r}'s second run differs from its first")
+            first = rel_dev(g["log"][:10], want[:10]).max()
+            last = rel_dev(g["log"][-1:], want[-1:]).max()
+            n = g["launches"]
+            say("dist", step="b", rank=r, path=path_, iterations=n_iter, ms_per_iteration=f"{g['ms_per_iteration']:.4f}",
+                time_to_first_iteration_s=f"{g['time_to_first_iteration_s']:.3f}",
+                objective_build_s=f"{g['objective_build_s']:.2f}", launches=n,
+                max_rel_dev_first_10_vs_one_device=float(first), rel_dev_last_vs_one_device=float(last),
+                final_dual_objective=g["log"][-1], one_device_final=float(want[-1]),
+                **{k: v for k, v in g.items() if k.endswith(("_err", "_vs_plain", "_slots", "blocks", "routing_s"))},
+                timing="two processes time-sharing one card, all_reduce through host memory (gloo); "
+                       "not a multi-GPU figure", card=card)
+            check(first <= 1e-5, f"dist (b) {path_} rank {r}: first 10 iterations {first} from the one-device log")
+            check(last <= 1e-2, f"dist (b) {path_} rank {r}: final dual {last} from the one-device dual")
+            if path_ == "csc":
+                check(n["K1g"] == g["tiles"] * n_iter and n["K1g"] > 0 and n["segsum"] == n_iter,
+                      f"dist (b) csc rank {r}: launches {n}")
+            else:
+                check(n["K3"] == n_iter and n["K5"] == 2 * n_iter and n["K6"] + n["K7"] == 4 * n_iter
+                      and n["K1g"] == n["segsum"] == 0, f"dist (b) butterfly rank {r}: launches {n}")
+    say("dist", step="b", ranks=2, backend="gloo", device=str(dev), wall_s=f"{wall_s:.1f}",
+        data_load_s=[f"{r['load_s']:.2f}" for r in ranks], allreduce_ms=[f"{r['allreduce_ms']:.4f}" for r in ranks],
+        allreduce_floats=inp.b_vec.shape[0] + 2, ranks_bit_identical=True, repeats_bit_identical=True, card=card)
+
+
 def phase_golden(dev_name):
     import dualip_tpu_torch as dt
     from dualip_tpu_torch.checkpoint import save_dual
@@ -1241,7 +1531,7 @@ def main(argv=None) -> int:
         seconds=f"{time.perf_counter() - t0:.2f}")
 
     # 8a. generate the slice's data once, for both layouts
-    need_data = bool({"slice", "butterfly", "lp", "obs"} & set(phases))
+    need_data = bool({"slice", "butterfly", "lp", "obs", "dist"} & set(phases))
     inp, gen_s, l_max = None, 0.0, 29
     if need_data:
         t0 = time.perf_counter()
@@ -1271,17 +1561,6 @@ def main(argv=None) -> int:
     n_chk = min(args.check_iters, args.iters)
     captured = {}
 
-    class Timed:
-        """Records a CUDA event around each evaluation (no host sync)."""
-
-        def calculate_traceable(self, params, dual_val, gamma):
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            res = super().calculate_traceable(params, dual_val, gamma)
-            e.record()
-            self.events.append((s, e))
-            return res
-
     class TimedMatching(Timed, MatchingSolverDualObjectiveFunction):
         pass
 
@@ -1299,24 +1578,6 @@ def main(argv=None) -> int:
     def _prebuilt(input_args, solver_args, compute_args, mesh, objective=None):
         objective.events = []
         return objective
-
-    def reset_counts():
-        fused_tile_eval_T.launches = fused_tile_eval_T.launches_x = 0
-        fused_tile_gather_eval_T.launches = fused_tile_gather_eval_T.launches_x = 0
-        fused_panel_project.launches = fused_panel_project.launches_x = 0
-        fused_panel_project_tiles.launches = fused_panel_project_tiles.launches_x = 0
-        bf.benes_fine.launches = bf.benes_coarse.launches = bf.benes_coarse2.launches = 0
-        bf.benes_fine_window.launches = bf.benes_coarse2_window.launches = 0
-        segment_sum_rows.launches = 0
-
-    def counts():
-        return {"K1g": fused_tile_gather_eval_T.launches, "K2g": fused_tile_gather_eval_T.launches_x,
-                "K1": fused_tile_eval_T.launches, "K2": fused_tile_eval_T.launches_x,
-                "K3": fused_panel_project_tiles.launches, "K4": fused_panel_project_tiles.launches_x,
-                "K3t": fused_panel_project.launches, "K4t": fused_panel_project.launches_x,
-                "K5": bf.benes_fine.launches, "K6": bf.benes_coarse.launches, "K7": bf.benes_coarse2.launches,
-                "K5w": bf.benes_fine_window.launches, "K7w": bf.benes_coarse2_window.launches,
-                "segsum": segment_sum_rows.launches}
 
     def solve(data, iters, save_primal, objective_type="matching_smoke", **objective_kwargs):
         """One solve through run_solver: (result, launches, seconds), counts set to 0 just before."""
@@ -1415,6 +1676,7 @@ def main(argv=None) -> int:
         return c
 
     csc_log = None
+    dist_refs = {}  # the one-device logs phase dist holds its meshes to
     # ------------------------------------------------------------------ 8. csc slice
     if "slice" in phases:
         res, n_launch, solve_s = solve(inp, args.iters, True, use_pallas=True)
@@ -1429,6 +1691,7 @@ def main(argv=None) -> int:
         first_iter_ms = ev[0][0].elapsed_time(ev[0][1])
         ms_per_iter = ms_per_iteration(ev)
         log = csc_log = res.dual_objective_log
+        dist_refs.update(csc=list(log), csc_ms=f"{ms_per_iter:.4f}")
         say("slice", nnz=nnz, tiles=n_tiles, tile_shapes=[(s.L, s.K) for s in specs],
             max_bucket_L=max(s.L for s in specs), slots=slots, pad_ratio=f"{slots / nnz:.4f}")
         say("slice", generate_s=f"{gen_s:.2f}", objective_build_s=f"{captured['build_s']:.2f}",
@@ -1713,6 +1976,7 @@ def main(argv=None) -> int:
 
         res, obj, bfly_launches, bfly_ms = butterfly_solve(inp, args.sources, "butterfly", "K7", 4)
         log = np.asarray(res.dual_objective_log)
+        dist_refs["butterfly"] = list(res.dual_objective_log)
         if csc_log is not None:
             vs_csc = rel_dev(log[:n_chk], csc_log[:n_chk])
             say("butterfly", max_rel_dev_vs_csc_first_iterations=float(vs_csc.max()), tolerance=1e-4,
@@ -1902,6 +2166,19 @@ def main(argv=None) -> int:
     # ------------------------------------------------------------------ 13. obs
     if "obs" in phases:
         phase_obs(dt, inp, card, captured, reset_counts, counts, n_chk, solver_kw)
+        say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
+
+    # ------------------------------------------------------------------ 14. dist
+    if "dist" in phases:
+        # the one-device logs, where phases slice and butterfly did not give them
+        if "csc" not in dist_refs:
+            dist_refs["csc"] = list(solve(inp, args.iters, False, use_pallas=True)[0].dual_objective_log)
+        if "butterfly" not in dist_refs:
+            dist_refs["butterfly"] = list(solve(inp, DIST_BUTTERFLY_ITERS, False, layout="butterfly")[0]
+                                          .dual_objective_log)
+        captured.pop("obj", None)
+        torch.cuda.empty_cache()
+        phase_dist(dt, args, inp, card, dev, dist_refs, solve, captured, ms_per_iteration)
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
     # ------------------------------------------------------------------ canonical (opt-in)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from dualip_tpu_torch.optimizers.agd_utils import StepSizeState
+from dualip_tpu_torch.parallel.mesh import is_rank_zero
 
 
 def _np(x) -> np.ndarray:
@@ -22,6 +23,10 @@ def _np(x) -> np.ndarray:
 
 
 def save_dual(path: str, dual_val, step_size_state: Optional[StepSizeState] = None) -> None:
+    """Write the checkpoint.  In a ``torch.distributed`` run only rank 0
+    writes: every rank of a sharded solve holds the same dual."""
+    if not is_rank_zero():
+        return
     arrays = {"dual_val": _np(dual_val)}
     if step_size_state is not None:
         arrays["grad_hist"] = _np(step_size_state.grad_hist)

@@ -16,10 +16,14 @@ the other.  Bfloat16 panels are written as the JAX package writes them (the
 bf16 bits under the ``.npy`` type ``<V2``) and read back through a 16-bit
 view.
 
-Scope: the single-device ``layout="butterfly"`` objective with
-``keep_col_tiles=False`` and ``keep_flat_idx=False``.  The stacked mesh entry
-(``n_shards > 1``) belongs to the distributed slice.  Not pickle: arrays are
-raw ``.npy`` and the metadata JSON, so a cache entry cannot run code.
+Scope: the ``layout="butterfly"`` objective with ``keep_col_tiles=False``
+and ``keep_flat_idx=False``, on one device or sharded over a mesh.  A sharded
+solve's entry is stacked: every leaf carries a leading shard axis, and
+``meta.json`` names one plan file per shard, as in the JAX package.  The
+ranks write it together (``save_sharded_butterfly_state``), and a rank that
+loads it reads only its own slice (``load_butterfly_state(..., shard=)``).
+Not pickle: arrays are raw ``.npy`` and the metadata JSON, so a cache entry
+cannot run code.
 """
 
 from __future__ import annotations
@@ -38,10 +42,6 @@ import torch
 from dualip_tpu_torch.sparse.bcsc import BlockCSC, TileSpec, is_bfloat16
 
 CACHE_VERSION = 1
-
-
-def _distributed(what: str):
-    raise NotImplementedError(f"{what} belongs to the distributed slice of the port, not yet ported")
 
 
 def _dtype_name(dtype) -> str:
@@ -101,18 +101,32 @@ def _save(path: Path, arr: np.ndarray, bf16: bool) -> None:
         f.write(arr.tobytes())
 
 
-def save_butterfly_state(cache_dir, key: str, bcsc, rl, plan_cache_file, n_shards: int = 1) -> dict:
-    """Write the device-ready butterfly state of ``bcsc`` (its specs and sizes)
-    and ``rl`` under ``cache_dir/butterfly_<key>``, published by one atomic
-    rename (a process that lost the race keeps the winner's entry).  The
-    leaves are copied back from ``rl``'s device first, as the JAX package
-    does.  Returns the seconds of the copy and of the write,
-    ``{"copy_s": ..., "write_s": ...}``."""
-    if n_shards > 1:
-        _distributed("the stacked mesh tile cache (n_shards > 1)")
+def _create_stacked(path: Path, shape: tuple, dtype, bf16: bool) -> None:
+    """An ``.npy`` of ``shape`` filled with zeros, its header as ``np.save``
+    (or ``open_memmap``) writes it for an array of ``dtype``; ``bf16``: the
+    JAX package's ``<V2`` header."""
+    descr = "<V2" if bf16 else np.lib.format.dtype_to_descr(np.dtype(dtype))
+    itemsize = 2 if bf16 else np.dtype(dtype).itemsize
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, {"descr": descr, "fortran_order": False, "shape": tuple(shape)})
+        f.truncate(f.tell() + int(np.prod(shape)) * itemsize)
+
+
+def _write_slice(path: Path, index: int, arr: np.ndarray) -> None:
+    """``arr`` into slice ``[index]`` of the stacked ``.npy`` at ``path``, in
+    place (a ``V2`` file takes bfloat16 bits as int16)."""
+    mm = np.load(path, mmap_mode="r+")
+    if mm.dtype.kind == "V":
+        mm = mm.view(np.int16)
+    mm[index] = arr
+    mm.flush()
+    del mm
+
+
+def _leaves(bcsc, rl) -> dict:
+    """file name -> (host array, written as bfloat16) of a placed layout."""
     bf16 = bcsc.value_dtype == torch.bfloat16
-    t0 = time.perf_counter()
-    leaves = {}  # file name -> (host array, written as bfloat16)
+    leaves = {}
     for i, pt in enumerate(rl.col_tiles_T):
         leaves[f"panel{i}_a"] = (_host(pt.a, bf16), bf16)
         leaves[f"panel{i}_c"] = (_host(pt.c, bf16), bf16)
@@ -121,19 +135,18 @@ def save_butterfly_state(cache_dir, key: str, bcsc, rl, plan_cache_file, n_shard
         leaves[f"rowtile{i}_ids"] = (_host(rt.row_ids), False)
         leaves[f"rowtile{i}_len"] = (_host(rt.length), False)
     leaves["row_pos"] = (_host(rl.row_pos), False)
-    t1 = time.perf_counter()
-    d = Path(cache_dir) / f"butterfly_{key}"
-    tmp = d.with_name(d.name + ".tmp")
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir(parents=True)
-    meta = {
+    return leaves
+
+
+def _meta(bcsc, rl, n_shards: int, plan_cache_file) -> dict:
+    """``meta.json`` with the JAX package's keys in its order."""
+    return {
         "version": CACHE_VERSION,
         "m": bcsc.m,
         "n": bcsc.n,
         "nnz": bcsc.nnz,
         "n_shards": n_shards,
-        "plan_cache_file": str(plan_cache_file),
+        "plan_cache_file": str(plan_cache_file) if n_shards == 1 else [str(p) for p in plan_cache_file],
         "col_offsets": list(rl.col_offsets),
         "row_shapes": [list(s) for s in rl.row_shapes],
         "col_pack": [list(p) for p in rl.col_pack] if rl.col_pack is not None else None,
@@ -143,26 +156,89 @@ def save_butterfly_state(cache_dir, key: str, bcsc, rl, plan_cache_file, n_shard
             for s in bcsc.specs
         ],
     }
-    for name, (arr, as_bf16) in leaves.items():
-        _save(tmp / f"{name}.npy", arr, as_bf16)
+
+
+def _fresh_tmp(d: Path) -> Path:
+    tmp = d.with_name(d.name + ".tmp")
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    return tmp
+
+
+def _publish(tmp: Path, d: Path, meta: dict) -> None:
+    """``meta.json`` last, then one atomic rename; a process that lost the
+    race keeps the winner's entry."""
     (tmp / "meta.json").write_text(json.dumps(meta))
     if d.exists():
         shutil.rmtree(tmp)
-    else:
-        try:
-            tmp.replace(d)
-        except OSError:  # another process published between the check and the rename
-            shutil.rmtree(tmp, ignore_errors=True)
+        return
+    try:
+        tmp.replace(d)
+    except OSError:  # another process published between the check and the rename
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def save_butterfly_state(cache_dir, key: str, bcsc, rl, plan_cache_file, n_shards: int = 1) -> dict:
+    """Write the device-ready butterfly state of ``bcsc`` (its specs and sizes)
+    and ``rl`` under ``cache_dir/butterfly_<key>``, published by one atomic
+    rename.  The leaves are copied back from ``rl``'s device first, as the JAX
+    package does.  Returns the seconds of the copy and of the write,
+    ``{"copy_s": ..., "write_s": ...}``.  One device only: a sharded solve's
+    ranks write the stacked entry together (``save_sharded_butterfly_state``)."""
+    if n_shards > 1:
+        raise ValueError("a stacked entry (n_shards > 1) is written by all ranks together: "
+                         "save_sharded_butterfly_state(cache_dir, key, bcsc, rl, mesh)")
+    t0 = time.perf_counter()
+    leaves = _leaves(bcsc, rl)
+    t1 = time.perf_counter()
+    d = Path(cache_dir) / f"butterfly_{key}"
+    tmp = _fresh_tmp(d)
+    for name, (arr, as_bf16) in leaves.items():
+        _save(tmp / f"{name}.npy", arr, as_bf16)
+    _publish(tmp, d, _meta(bcsc, rl, 1, plan_cache_file))
     return {"copy_s": t1 - t0, "write_s": time.perf_counter() - t1}
 
 
-def _load_leaf(path: Path, device: torch.device) -> torch.Tensor:
-    """One ``.npy`` leaf, read memory-mapped and copied to ``device`` once
-    (no tensor stays aliased to the file); ``<V2`` leaves are bfloat16."""
+def save_sharded_butterfly_state(cache_dir, key: str, bcsc, rl, mesh) -> dict:
+    """The stacked entry of a sharded solve, written by every rank of
+    ``mesh`` together (a collective): rank 0 preallocates each stacked
+    ``.npy``, each rank writes its layout ``rl`` into its slice ``[rank]``
+    after a barrier, and rank 0 publishes ``meta.json`` (one plan file per
+    shard) by one atomic rename.  Returns this rank's seconds of the copy
+    back and of the write."""
+    plan_files = mesh.all_gather_object(rl.plan_cache_path)
+    if any(p is None for p in plan_files):
+        raise ValueError(f"a stacked entry needs one plan-cache file per shard (got {plan_files!r})")
+    t0 = time.perf_counter()
+    leaves = _leaves(bcsc, rl)
+    t1 = time.perf_counter()
+    d = Path(cache_dir) / f"butterfly_{key}"
+    tmp = d.with_name(d.name + ".tmp")
+    if mesh.rank == 0:
+        tmp = _fresh_tmp(d)
+        for name, (arr, as_bf16) in leaves.items():
+            _create_stacked(tmp / f"{name}.npy", (mesh.world_size,) + arr.shape, arr.dtype, as_bf16)
+    mesh.barrier()
+    for name, (arr, _) in leaves.items():
+        _write_slice(tmp / f"{name}.npy", mesh.rank, arr)
+    mesh.barrier()
+    if mesh.rank == 0:
+        _publish(tmp, d, _meta(bcsc, rl, mesh.world_size, plan_files))
+    mesh.barrier()
+    return {"copy_s": t1 - t0, "write_s": time.perf_counter() - t1}
+
+
+def _load_leaf(path: Path, device: torch.device, index: Optional[int] = None) -> torch.Tensor:
+    """One ``.npy`` leaf (its slice ``[index]`` when given), read
+    memory-mapped and copied to ``device`` once (no tensor stays aliased to
+    the file); ``<V2`` leaves are bfloat16."""
     arr = np.load(path, mmap_mode="r")
     bf16 = arr.dtype.kind == "V" or arr.dtype.name == "bfloat16"
     if bf16:
         arr = arr.view(np.int16)
+    if index is not None:
+        arr = arr[index]
     with warnings.catch_warnings():  # a read-only mapping: copied right below
         warnings.simplefilter("ignore", UserWarning)
         t = torch.from_numpy(arr)
@@ -170,12 +246,15 @@ def _load_leaf(path: Path, device: torch.device) -> torch.Tensor:
     return t.view(torch.bfloat16) if bf16 else t
 
 
-def load_butterfly_state(cache_dir, key: str, device):
+def load_butterfly_state(cache_dir, key: str, device, shard: Optional[tuple] = None):
     """``(bcsc, row_layout)`` from the entry ``key``, or ``None`` on a miss (no
-    entry, another version, or its plan file gone).  ``bcsc`` has no tiles,
+    entry, another version, or a plan file gone).  ``bcsc`` has no tiles,
     only specs and sizes, as the butterfly objective keeps it with
     ``keep_col_tiles=False``.  On a CUDA device the plan is packed for the
-    kernels, source index included; on the CPU it is the plain plan."""
+    kernels, source index included; on the CPU it is the plain plan.
+
+    ``shard=(index, count)``: the slice ``[index]`` of a stacked entry of
+    ``count`` shards and shard ``index``'s plan; only that slice is read."""
     from dualip_tpu_torch.ops.butterfly import benes_plan_from_numpy, pack_plan_from_planes
     from dualip_tpu_torch.sparse.rowmajor import PanelTile, RowLayout, RowTile
 
@@ -188,9 +267,11 @@ def load_butterfly_state(cache_dir, key: str, device):
     meta = json.loads(meta_path.read_text())
     if meta.get("version") != CACHE_VERSION:
         return None
-    if int(meta.get("n_shards", 1)) > 1 or isinstance(meta["plan_cache_file"], list):
-        _distributed("the stacked mesh tile cache (n_shards > 1)")
-    plan_file = Path(meta["plan_cache_file"])
+    n_shards = int(meta.get("n_shards", 1))
+    if (shard[1] if shard is not None else 1) != n_shards:
+        raise ValueError(f"the entry {key} holds {n_shards} shard(s); loaded as shard={shard!r}")
+    index = shard[0] if shard is not None and n_shards > 1 else None
+    plan_file = Path(meta["plan_cache_file"][index] if index is not None else meta["plan_cache_file"])
     if not plan_file.exists():
         return None
 
@@ -210,22 +291,23 @@ def load_butterfly_state(cache_dir, key: str, device):
                  proj_params=tuple((k, v) for k, v in s["proj_params"]), K=s["K"], L=s["L"])
         for s in meta["specs"]
     ]
+    def leaf(name):
+        return _load_leaf(d / f"{name}.npy", device, index)
+
     col_tiles_T = [
-        PanelTile(a=_load_leaf(d / f"panel{i}_a.npy", device), c=_load_leaf(d / f"panel{i}_c.npy", device),
-                  length=_load_leaf(d / f"panel{i}_len.npy", device))
+        PanelTile(a=leaf(f"panel{i}_a"), c=leaf(f"panel{i}_c"), length=leaf(f"panel{i}_len"))
         for i in range(len(specs))
     ]
     row_shapes = tuple(tuple(s) for s in meta["row_shapes"])
     row_tiles = [
-        RowTile(a=None, c=None, row_ids=_load_leaf(d / f"rowtile{i}_ids.npy", device), axidx=None,
-                length=_load_leaf(d / f"rowtile{i}_len.npy", device))
+        RowTile(a=None, c=None, row_ids=leaf(f"rowtile{i}_ids"), axidx=None, length=leaf(f"rowtile{i}_len"))
         for i in range(len(row_shapes))
     ]
     col_pack = meta.get("col_pack")
     rl = RowLayout(
         row_tiles=row_tiles,
         zidx=None,
-        row_pos=_load_leaf(d / "row_pos.npy", device),
+        row_pos=leaf("row_pos"),
         plan=plan,
         col_tiles_T=col_tiles_T,
         use_cuda_kernel=device.type == "cuda",

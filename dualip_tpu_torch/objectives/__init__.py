@@ -5,6 +5,7 @@ from dualip_tpu_torch.objectives.base import BaseInputArgs, BaseObjective  # noq
 from dualip_tpu_torch.objectives.matching import (  # noqa: F401
     MatchingInputArgs,
     MatchingSolverDualObjectiveFunction,
+    MatchingSolverDualObjectiveFunctionDistributed,
 )
 from dualip_tpu_torch.objectives.miplib import (  # noqa: F401
     MIPLIB2017ObjectiveFunction,

@@ -26,6 +26,14 @@ objective.  Three layouts compute it:
   gradient is a dense row sum.
 * ``layout="row"``: the same companion layout connected by per-nnz index
   gathers instead of the plan (no kernel).
+
+With ``mesh`` (``parallel/mesh.py::EntityMesh``, one process per rank) each
+rank holds the entity shard the JAX package places on its device d: the
+columns ``[d*K/D, (d+1)*K/D)`` of every tile (csc), or its own butterfly
+layout built under shapes common to all shards (``build_row_layout_sharded``),
+and runs the single-device pipeline on it; one ``all_reduce`` of the flat
+buffer ``(grad, obj, reg)`` per evaluation sums the ranks' parts, and
+``calc_grad`` and the AGD step then run on every rank on the same bits.
 """
 
 from __future__ import annotations
@@ -417,14 +425,19 @@ def matching_local_parts_rowmajor(
     return grad, dual_obj, reg, xs
 
 
-def _panel_x_to_kl(x_np: np.ndarray, K: int, pk) -> np.ndarray:
+def _panel_x_to_kl(x_np: np.ndarray, K: int, pk, n_shards: int = 1) -> np.ndarray:
     """Re-layout a want_x panel output to the (K, L) column-tile form.  Plain
-    panels arrive as (K//128, L, 128); compact panels as (BP, q*L, 128) with
-    shortfall padding rows, unstacked to the real (K//128, L, 128) panels."""
+    panels arrive as (K//128, L, 128) (the shards' panels, concatenated, are
+    the global panel order); compact panels as (BP, q*L, 128) per shard with
+    each shard's shortfall padding rows, so each shard's block is unstacked
+    to its real panels first."""
     if pk is None:
         return x_np.transpose(0, 2, 1).reshape(-1, x_np.shape[1])
     L, _L2, _q = pk
-    return x_np.reshape(-1, L, 128)[: K // 128].transpose(0, 2, 1).reshape(K, L)
+    prd = K // n_shards // 128
+    BPd = x_np.shape[0] // n_shards
+    parts = [x_np[s * BPd : (s + 1) * BPd].reshape(-1, L, 128)[:prd] for s in range(n_shards)]
+    return np.concatenate(parts).transpose(0, 2, 1).reshape(K, L)
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -483,12 +496,30 @@ def matching_tile_cache_key(
                                         extra=_layout_extra(compact, batching, max(1, n_shards)))
 
 
-def _later_slice(what: str, slice_name: str):
-    raise NotImplementedError(f"{what} belongs to the {slice_name} slice of the port, not yet ported")
+def _mesh_device(mesh, device) -> torch.device:
+    """The device of a mesh objective: the mesh's; a ``device`` given beside
+    it must name the same one."""
+    from dualip_tpu_torch.parallel.mesh import EntityMesh
+
+    if not isinstance(mesh, EntityMesh):
+        raise TypeError(f"mesh must be a dualip_tpu_torch.parallel.EntityMesh (default_mesh(...)), got {mesh!r}")
+    if device is not None:
+        d = torch.device(device)
+        if d.type != mesh.device.type or (d.index is not None and d != mesh.device):
+            raise ValueError(f"device={d} differs from the mesh's device {mesh.device}")
+    return mesh.device
+
+
+def reduce_parts(mesh, grad, dual_obj, reg):
+    """The ranks' (grad, obj, reg) summed by one ``all_reduce`` of one flat
+    buffer of m + 2 values; every rank gets the same bits."""
+    buf = mesh.all_reduce_(torch.cat([grad, dual_obj.reshape(1).to(grad.dtype), reg.reshape(1).to(grad.dtype)]))
+    m = grad.shape[0]
+    return buf[:m], buf[m], buf[m + 1]
 
 
 class MatchingSolverDualObjectiveFunction(BaseObjective):
-    """Single-device matching objective.
+    """Matching objective on one device, or sharded over a mesh.
 
     The constructor keeps the JAX package's keywords so one ``objective_kwargs``
     builds either package's objective.  ``layout`` selects the gradient
@@ -504,8 +535,16 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
     forward carry replaced by one table gather), ``plan_cache_dir`` (the routed
     plan cached on disk), ``keep_col_tiles=False`` (drop the (K, L) tiles the
     hot path never reads).  ``device`` (default ``cuda``) is where the tiles
-    and the solve live.  ``mesh`` (distributed) belongs to a later slice and
-    raises ``NotImplementedError``.
+    and the solve live.
+
+    ``mesh`` (an ``EntityMesh``; every rank passes the same whole problem):
+    the rank keeps its entity shard on ``mesh.device`` (module docstring) and
+    each evaluation sums the ranks' parts with one ``all_reduce``; csc (plain
+    or ``use_pallas``) and butterfly (plain or ``compact``) layouts.  K is
+    padded to ``n_ranks`` (csc), ``n_ranks * pallas_block_k``
+    (``use_pallas``) or ``n_ranks * max(pallas_block_k, 128)`` (butterfly),
+    as the JAX package pads it.  ``save_primal`` gathers the ranks' x, so
+    every rank returns the whole primal.
 
     ``tile_cache_dir`` (butterfly with ``keep_col_tiles=False`` and
     ``keep_flat_idx=False``; other layouts ignore it): the device-ready layout
@@ -563,11 +602,10 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
                 "use_pallas=True takes float32 tiles: the fused tile kernel (K1/K2) has no bfloat16 form, as the "
                 "JAX package's Pallas kernel has none; bfloat16 tiles run on layout='csc' with use_pallas=False "
                 "or on layout='butterfly'")
-        if mesh is not None:
-            _later_slice("mesh (entity-sharded solve)", "distributed")
-
         args = matching_input_args
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else _mesh_device(mesh, device)
+        n_shards = mesh.world_size if mesh is not None else 1
         self.gamma = gamma
         self.is_distributed = args.b_vec is None
         self.use_pallas = use_pallas
@@ -581,10 +619,12 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
             if args.equality_mask is not None
             else None
         )
-        pad = pallas_block_k if use_pallas else 1
+        pad = n_shards  # K divides over the ranks
+        if use_pallas:
+            pad *= pallas_block_k
         if layout == "butterfly":
             # the panel kernel reads the carry buffer in 128-column panels
-            pad = max(pad, max(pallas_block_k, 128))
+            pad = max(pad, n_shards * max(pallas_block_k, 128))
 
         cached = self.tile_cache_key = None
         use_cache = tile_cache_dir is not None and layout == "butterfly" and not keep_col_tiles and not keep_flat_idx
@@ -593,8 +633,10 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
 
             self.tile_cache_key = tile_cache.compute_cache_key(
                 args.A, args.c, args.projection_map, pad, dtype, tile_cache_key,
-                extra=_layout_extra(compact, batching, 1))
-            cached = tile_cache.load_butterfly_state(tile_cache_dir, self.tile_cache_key, self.device)
+                extra=_layout_extra(compact, batching, n_shards))
+            cached = tile_cache.load_butterfly_state(
+                tile_cache_dir, self.tile_cache_key, self.device,
+                shard=(mesh.rank, n_shards) if mesh is not None else None)
 
         if cached is not None:
             bcsc, self.row_layout = cached
@@ -611,7 +653,14 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
                 bucketing="exact" if compact else "pow2",
             )
             self.row_layout = None
-            if layout in ("row", "butterfly"):
+            if layout == "butterfly" and mesh is not None:
+                from dualip_tpu_torch.sparse.rowmajor import build_row_layout_sharded
+
+                # the shape pass covers every shard; this rank routes its own
+                (self.row_layout,) = build_row_layout_sharded(
+                    bcsc, n_shards, plan_cache_dir=plan_cache_dir, local_range=(mesh.rank, mesh.rank + 1),
+                    compact=compact, device=self.device)
+            elif layout in ("row", "butterfly"):
                 from dualip_tpu_torch.sparse.rowmajor import build_row_layout
 
                 self.row_layout = build_row_layout(  # host tiles
@@ -623,8 +672,12 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
                 )
             rl = self.row_layout
             if use_cache and rl.plan_cache_path is not None:  # a miss: save beside the routing's plan file
-                save_s = tile_cache.save_butterfly_state(tile_cache_dir, self.tile_cache_key, bcsc, rl,
-                                                         rl.plan_cache_path)
+                if mesh is not None:  # every rank writes its slice of the stacked entry
+                    save_s = tile_cache.save_sharded_butterfly_state(tile_cache_dir, self.tile_cache_key, bcsc,
+                                                                     rl, mesh)
+                else:
+                    save_s = tile_cache.save_butterfly_state(tile_cache_dir, self.tile_cache_key, bcsc, rl,
+                                                             rl.plan_cache_path)
                 rl.build_seconds.update({"tile_cache_" + k: v for k, v in save_s.items()})
         if layout == "butterfly" and not keep_col_tiles:
             # the butterfly hot path never reads the (K, L) column tiles (the
@@ -634,6 +687,10 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
         else:
             if use_pallas:
                 bcsc = transpose_tiles(bcsc)
+            if mesh is not None:  # this rank's columns of every tile; the specs stay global
+                from dualip_tpu_torch.sparse.rowmajor import _slice_bcsc_cols
+
+                bcsc = _slice_bcsc_cols(bcsc, mesh.rank, n_shards)
             # the segment-sum's plan serves the csc layout only
             self.bcsc = device_put_blockcsc(bcsc, self.device, row_sum=layout == "csc")
         if srow_gather:
@@ -666,6 +723,8 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
         bcsc, b_vec, row_layout = params
         g = self.gamma if gamma is None else gamma
         grad, dual_obj, reg, _ = self._local(bcsc, dual_val, g, row_layout=row_layout)
+        if self.mesh is not None:
+            grad, dual_obj, reg = reduce_parts(self.mesh, grad, dual_obj, reg)
         if b_vec is not None:
             return _finalize(grad, dual_obj, reg, dual_val, b_vec)
         return ObjectiveResult(dual_gradient=grad, dual_objective=dual_obj, reg_penalty=reg)
@@ -690,6 +749,13 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
         grad, dual_obj, reg, xs = self._local(
             self.bcsc, dual_val, g, want_primal=True, row_layout=self.row_layout
         )
+        n_shards = 1
+        if self.mesh is not None:
+            grad, dual_obj, reg = reduce_parts(self.mesh, grad, dual_obj, reg)
+            # the ranks' x in rank order: K is the last axis of (L, K) tiles, the first otherwise
+            axis = 1 if (self.use_pallas and self.layout == "csc") else 0
+            xs = [torch.cat(self.mesh.all_gather(x), dim=axis) for x in xs]
+            n_shards = self.mesh.world_size
         primal_obj = dual_obj  # c.x before finalization
         if self.b_vec is not None:
             res = _finalize(grad, dual_obj, reg, dual_val, self.b_vec)
@@ -706,7 +772,7 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
         for x, spec, pk in zip(xs, self.bcsc.specs, packs):
             x = x.cpu().numpy()
             if self.layout == "butterfly":
-                x = _panel_x_to_kl(x, spec.K, pk)
+                x = _panel_x_to_kl(x, spec.K, pk, n_shards)
             elif self.use_pallas:
                 x = x.T  # (L, K) transposed-tile form
             xs_kl.append(x)
@@ -731,6 +797,8 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
         repair)."""
         if self.b_vec is None:
             raise ValueError("exact_certificate needs the finalized objective (b_vec)")
+        if self.mesh is not None:
+            raise NotImplementedError("exact_certificate runs on a single mesh device")
         if self.equality_mask is not None:
             raise NotImplementedError(
                 "exact_certificate covers inequality rows only (the scaling repair cannot restore equality rows)")
@@ -765,3 +833,35 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
             "gap_rel": gap / (1.0 + abs(p) + abs(d)),
             "max_row_violation": float(torch.amax(ax - b)),
         }
+
+
+class MatchingSolverDualObjectiveFunctionDistributed(MatchingSolverDualObjectiveFunction):
+    """The reference's distributed constructor: ``(local_matching_input_args,
+    b_vec, gamma, host_device)``.  As in the JAX package, the problem handed
+    in is the whole one (every rank passes the same; ``b_vec`` is set beside
+    it) and the objective keeps the rank's shard over ``mesh``, by default
+    ``default_mesh(device=host_device)`` over the initialised process group."""
+
+    def __init__(
+        self,
+        local_matching_input_args: MatchingInputArgs,
+        b_vec: np.ndarray,
+        gamma: float,
+        host_device=None,
+        batching: bool = True,
+        mesh=None,
+        use_pallas: bool = False,
+        pallas_block_k: int = 1024,
+        layout: str = "csc",
+        plan_cache_dir=None,
+    ):
+        if mesh is None:
+            from dualip_tpu_torch.parallel.mesh import default_mesh
+
+            mesh = default_mesh(device=host_device)
+        args = local_matching_input_args
+        full_args = MatchingInputArgs(A=args.A, c=args.c, projection_map=args.projection_map,
+                                      b_vec=np.asarray(b_vec), equality_mask=args.equality_mask)
+        super().__init__(full_args, gamma=gamma, batching=batching, mesh=mesh, use_pallas=use_pallas,
+                         pallas_block_k=pallas_block_k, layout=layout, plan_cache_dir=plan_cache_dir,
+                         device=host_device)

@@ -24,8 +24,13 @@ Sparse A runs on one of two layouts:
 
 Optional Jacobi row scaling works on either, and ``invert_jacobi_precondition``
 maps the solved dual back.  Bounds read either spelling (``l``/``u`` or
-``lower``/``upper``).  The column-sharded layout (``mesh``) belongs to the
-distributed slice of the port.
+``lower``/``upper``).
+
+With ``mesh`` (``parallel/mesh.py::EntityMesh``) A is split by variable
+columns (``_ColShardedOps``, dense or sparse): each rank keeps its columns'
+``A^T lambda``, z, projections and x to itself, and one ``all_reduce`` of
+``(A x, c.x, |x|^2)`` per evaluation is all the ranks exchange, O(m) whatever
+n is.
 """
 
 from __future__ import annotations
@@ -198,6 +203,143 @@ class _ButterflySparseOps:
         return row_norms_csc(self._host)
 
 
+class _ColShardedOps:
+    """A split by variable columns over a mesh (``dualip_tpu/objectives/
+    miplib.py::_ColShardedSparseOps``, here for dense A too): rank s holds
+    columns ``[bounds[s], bounds[s+1])`` of A (COO through the fixed-order
+    segment-sum, or a dense block), of c, and of every projection entry.
+
+    An elementwise projection (box, cone, identity) may span shards; a joint
+    one (the simplex family couples its coordinates through a sum) must lie
+    in one shard, so the even cuts snap to the joint entries' hulls
+    (``_snap_bounds``) and shards go slightly uneven.  A joint entry too
+    wide for any snapped shard raises, naming the entry."""
+
+    _ELEMENTWISE = ("box", "cone", "identity")
+
+    @staticmethod
+    def _snap_bounds(n: int, S: int, atoms) -> np.ndarray:
+        """Shard cuts ``[0, b_1, ..., b_{S-1}, n]``, each even cut moved out of
+        any joint-entry hull (atoms: merged, sorted half-open ``(lo, hi)``) to
+        the hull's nearer edge (ties to the lower)."""
+        bounds = [0]
+        for s in range(1, S):
+            t = max(round(s * n / S), bounds[-1])
+            for lo, hi in atoms:
+                if lo < t < hi:
+                    t = lo if (t - lo) <= (hi - t) else hi
+                    break
+            bounds.append(max(t, bounds[-1]))
+        bounds.append(n)
+        return np.asarray(bounds, dtype=np.int64)
+
+    @classmethod
+    def shard_bounds(cls, projection_map, n: int, S: int) -> np.ndarray:
+        """The snapped cuts of ``n`` variables over ``S`` shards."""
+        hulls = sorted(
+            (int(np.min(e.indices)), int(np.max(e.indices)) + 1)
+            for e in projection_map.values() if len(e.indices) and e.proj_type not in cls._ELEMENTWISE)
+        atoms = []
+        for lo, hi in hulls:
+            if atoms and lo < atoms[-1][1]:
+                atoms[-1] = (atoms[-1][0], max(atoms[-1][1], hi))
+            else:
+                atoms.append((lo, hi))
+        return cls._snap_bounds(n, S, atoms)
+
+    def __init__(self, A, c: np.ndarray, projection_map, dtype, mesh):
+        from dualip_tpu_torch.objectives.matching import _mesh_device
+
+        dev = _mesh_device(mesh, None)
+        self.mesh = mesh
+        self.shape = m, n = A.shape
+        S = mesh.world_size
+        self._bounds = bounds = self.shard_bounds(projection_map, n, S)
+        self.n_local, self.n_shards = max(int(np.diff(bounds).max()), 1), S
+        self.c0, self.c1 = c0, c1 = int(bounds[mesh.rank]), int(bounds[mesh.rank + 1])
+        self._sparse = isinstance(A, CSCMatrix)
+        self._host = A
+        if self._sparse:
+            lo, hi = int(A.indptr[c0]), int(A.indptr[c1])
+            rows = np.asarray(A.row_indices[lo:hi])
+            cols = csc_col_ids(A)[lo:hi] - c0
+            self.nnz_local = hi - lo
+            self.rows, self.cols = host_tensor(rows, dev, torch.int32), host_tensor(cols, dev, torch.int32)
+            self.vals = torch.as_tensor(_host_values(A.data[lo:hi], dtype), device=dev)
+            if self.nnz_local:
+                self.by_row, self.by_col = _key_plan(rows, m, dev), _key_plan(cols, c1 - c0, dev)
+        else:
+            self.A = torch.as_tensor(_host_values(np.asarray(A)[:, c0:c1], dtype), device=dev)
+        self.c_local = torch.as_tensor(_host_values(np.asarray(c)[c0:c1], dtype), device=dev)
+
+        self._proj = []  # (shard-local indices, operator) of the entries that touch this shard
+        for key, entry in projection_map.items():
+            idx = np.asarray(entry.indices, dtype=np.int64)
+            if idx.size == 0:
+                continue
+            touched = sum(1 for s in range(S) if ((idx >= bounds[s]) & (idx < bounds[s + 1])).any())
+            if entry.proj_type not in self._ELEMENTWISE and touched > 1:
+                raise ValueError(
+                    f"projection entry {key!r} ({entry.proj_type}) couples its coordinates over an index hull "
+                    f"too wide to fit any snapped column shard (n={n}, {S} shards); use fewer ranks or the "
+                    f"matching objective's entity-block sharding for per-entity polytopes")
+            mine = idx[(idx >= c0) & (idx < c1)] - c0
+            if mine.size:
+                self._proj.append((host_tensor(mine, dev), project(entry.proj_type, **entry.proj_params)))
+
+    def _local_rmatvec(self, y: torch.Tensor) -> torch.Tensor:  # (A^T y) on this shard's columns
+        from dualip_tpu_torch.ops.segment_sum import segment_sum_rows
+
+        if not self._sparse:
+            return self.A.T @ y
+        out = torch.zeros(self.c1 - self.c0, dtype=y.dtype, device=y.device)
+        if self.nnz_local:
+            out = segment_sum_rows(out, self.vals * y.index_select(0, self.rows), self.by_col)
+        return out
+
+    def _local_matvec(self, x_local: torch.Tensor) -> torch.Tensor:  # this shard's part of A x
+        from dualip_tpu_torch.ops.segment_sum import segment_sum_rows
+
+        if not self._sparse:
+            return self.A @ x_local
+        out = torch.zeros(self.shape[0], dtype=x_local.dtype, device=x_local.device)
+        if self.nnz_local:
+            out = segment_sum_rows(out, self.vals * x_local.index_select(0, self.cols), self.by_row)
+        return out
+
+    def fused_iteration(self, dual_val: torch.Tensor, g: torch.Tensor):
+        """``(A x, c.x, |x|^2, x_local)`` at ``dual_val``: z, the projections
+        and x on this shard's columns, then one ``all_reduce`` of the flat
+        buffer ``(A x, c.x, |x|^2)``."""
+        x = (-1.0 / g) * (self._local_rmatvec(dual_val) + self.c_local)
+        for idx, fn in self._proj:
+            x[idx] = fn(x.index_select(0, idx))
+        m = self.shape[0]
+        buf = torch.cat([self._local_matvec(x), torch.dot(self.c_local, x).reshape(1), torch.dot(x, x).reshape(1)])
+        self.mesh.all_reduce_(buf)
+        return buf[:m], buf[m], buf[m + 1], x
+
+    def gather_primal(self, x_local: torch.Tensor) -> torch.Tensor:
+        """The ranks' x as one global (n,) vector (an all-gather; on demand
+        only, never per iteration)."""
+        pad = torch.zeros(self.n_local, dtype=x_local.dtype, device=x_local.device)
+        pad[: x_local.shape[0]] = x_local
+        parts = self.mesh.all_gather(pad)
+        widths = np.diff(self._bounds)
+        return torch.cat([p[:w] for p, w in zip(parts, widths)])
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:  # A @ x of a global x (rare path)
+        return self.mesh.all_reduce_(self._local_matvec(x[self.c0 : self.c1].contiguous()))
+
+    def rmatvec(self, y: torch.Tensor) -> torch.Tensor:  # A.T @ y as a global (n,) vector (rare path)
+        return self.gather_primal(self._local_rmatvec(y))
+
+    def row_norms(self) -> np.ndarray:
+        if self._sparse:
+            return row_norms_csc(self._host)
+        return np.linalg.norm(np.asarray(self._host), axis=1)
+
+
 def _param_bound(params: dict, short: str, long: str):
     if short in params:
         return params[short]
@@ -215,7 +357,10 @@ class MIPLIB2017ObjectiveFunction(BaseObjective):
     a bfloat16 dtype rounds A, c and b as the JAX package does, float64
     computes in float32 as it does); ``plan_cache_dir`` caches the butterfly
     plan; ``device`` (default ``cuda``) is where the data and the solve live.
-    ``mesh`` belongs to the distributed slice and raises."""
+    ``mesh`` (an ``EntityMesh``; every rank passes the same whole problem)
+    splits A, dense or sparse, by variable columns over the ranks
+    (``_ColShardedOps``, COO layout only) and keeps c, b and the dual whole
+    on every rank."""
 
     def __init__(
         self,
@@ -233,13 +378,17 @@ class MIPLIB2017ObjectiveFunction(BaseObjective):
             raise ValueError(f"Unknown layout {layout!r} (expected 'coo' or 'butterfly')")
         if layout == "butterfly" and (not self._sparse or mesh is not None):
             raise ValueError("layout='butterfly' needs sparse A and mesh=None")
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh (the column-sharded general LP) belongs to the distributed slice of the port, not yet ported")
-        self.mesh = None
-        self.device = dev = resolve_device(device)
+            from dualip_tpu_torch.objectives.matching import _mesh_device
+
+            self.device = dev = _mesh_device(mesh, device)
+        else:
+            self.device = dev = resolve_device(device)
         self.layout = layout
-        if layout == "butterfly":
+        if mesh is not None:
+            self.ops = _ColShardedOps(args.A, args.c, args.projection_map, dtype, mesh)
+        elif layout == "butterfly":
             self.ops = _ButterflySparseOps(args.A, dtype, dev, plan_cache_dir=plan_cache_dir)
         elif self._sparse:
             self.ops = _SparseOps(args.A, dtype, dev)
@@ -295,6 +444,15 @@ class MIPLIB2017ObjectiveFunction(BaseObjective):
         from dualip_tpu_torch.objectives.matching import _scalar
 
         g = _scalar(gamma, dual_val.dtype, dual_val.device)
+        if isinstance(self.ops, _ColShardedOps):
+            # the shard's z, projections and x, one all_reduce of (A x, c.x, |x|^2)
+            ax, cx, xx, x_local = self.ops.fused_iteration(dual_val, g)
+            Ax_minus_b = ax - self.b_vec
+            dual_gradient = (1.0 / self.row_norms) * Ax_minus_b if self.row_norms is not None else Ax_minus_b
+            reg_penalty = (g / 2.0) * xx
+            dual_obj = cx + reg_penalty + dual_val @ Ax_minus_b
+            return ObjectiveResult(dual_gradient=dual_gradient, dual_objective=dual_obj,
+                                   reg_penalty=reg_penalty), x_local
         z = (-1.0 / g) * (self.ops.rmatvec(dual_val) + self.c)
         projected = self._project(z)
 
@@ -322,6 +480,8 @@ class MIPLIB2017ObjectiveFunction(BaseObjective):
             dual_val = dual_val.to(torch.float32)
         res, projected = self._calculate_full(dual_val, gamma)
         if save_primal:
+            if isinstance(self.ops, _ColShardedOps):
+                projected = self.ops.gather_primal(projected)
             res.primal_var = projected
             res.primal_objective = self.c @ projected
         return res

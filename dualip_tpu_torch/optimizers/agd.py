@@ -29,6 +29,7 @@ from dualip_tpu_torch.optimizers.agd_utils import (
     calculate_step_size,
     init_step_size_state,
 )
+from dualip_tpu_torch.parallel.mesh import is_rank_zero
 from dualip_tpu_torch.types import ObjectiveResult, SolverResult, resolve_device
 from dualip_tpu_torch.utils.mlflow_utils import _mlflow_state, log_metrics, log_objective_result
 
@@ -107,6 +108,9 @@ class AcceleratedGradientDescent:
     ``callback_chunk`` iterations and calls the callback (and logs) once per
     iteration.  ``launch_chunk`` is accepted for parity and has no effect: the
     eager loop has no single launch to cut.
+
+    On a mesh (a sharded objective) every rank runs this loop on the same
+    bits and only rank 0 logs to MLflow.
 
     ``collect_stats = True`` records the next ``maximize``'s wall clock in
     ``last_run_stats``: ``total_s`` (the whole call up to the metrics fetch),
@@ -228,7 +232,7 @@ class AcceleratedGradientDescent:
 
         x = y = last_x = x0
         last_grad = torch.zeros(m, dtype=dtype, device=dev)
-        logging = _mlflow_state.is_enabled()
+        logging = _mlflow_state.is_enabled() and is_rank_zero()
         observing = self.iteration_callback is not None or logging
         fetched = 0
         done = 0

@@ -17,7 +17,9 @@ The layout exists in the JAX package because a TPU has neither gather nor
 scatter hardware.  An NVIDIA GPU has both; the port keeps the layout because
 it is a supported layout of the solver, not because the card needs it.
 
-Single device only; the sharded layout belongs to the distributed slice.
+A sharded solve builds one layout per entity shard under shapes common to all
+shards (``build_row_layout_sharded``); each rank builds and routes only its
+own shard.
 """
 
 from __future__ import annotations
@@ -151,6 +153,8 @@ def build_row_layout(
     plan_cache_dir=None,
     compact: bool = False,
     device="cpu",
+    _forced=None,
+    materialize_plan: bool = True,
 ) -> RowLayout:
     """Build the row-major companion of a host-side BlockCSC (numpy tiles, in
     (K, L) form) and place it on ``device``.
@@ -161,7 +165,14 @@ def build_row_layout(
     (1.05x); build the BlockCSC with ``bucketing="exact"``.  On a CUDA device
     the plan is packed for the kernels (``ops/butterfly.py::DEFAULT_BLOCK_LOG2``).
     a and c take ``bcsc.value_dtype`` on the device where it is set (bfloat16
-    tiles)."""
+    tiles).
+
+    ``_forced`` (sharded builds): the row thresholds, the per-bucket (R, Lr)
+    and the carry length N every shard takes, so all shards' layouts have the
+    same shapes; short buckets pad with rows of length 0.
+    ``materialize_plan=False`` (butterfly with ``plan_cache_dir``): route and
+    write the plan file only, leaving ``plan`` ``None`` (a cache builder that
+    never applies it, ``io/streaming_build.py``)."""
     if method not in ("gather", "butterfly"):
         raise ValueError(f"Unknown row-layout method {method!r}")
     if compact and method != "butterfly":
@@ -241,8 +252,15 @@ def build_row_layout(
     nz_rows = np.nonzero(counts)[0]
     row_starts = np.concatenate([[0], np.cumsum(counts[nz_rows])]).astype(pdt, copy=False)
 
-    max_count = int(counts.max()) if counts.size else 1
-    thresholds = _geom_thresholds(max_count, 1.05) if compact else _pow2_thresholds(max_count)
+    if _forced is not None:
+        thresholds = _forced["thresholds"]
+        bucket_shapes = _forced["bucket_shapes"]
+        bucket_ids = sorted(bucket_shapes)
+    else:
+        max_count = int(counts.max()) if counts.size else 1
+        thresholds = _geom_thresholds(max_count, 1.05) if compact else _pow2_thresholds(max_count)
+        bucket_shapes = None
+        bucket_ids = range(1, len(thresholds))
     bucket_of = np.searchsorted(thresholds, counts[nz_rows], side="left")
 
     row_tiles: List[RowTile] = []
@@ -251,12 +269,15 @@ def build_row_layout(
     sumpos = np.full(m, -1, dtype=np.int64)  # position of each present row's sum
     zoff = 0
     sumoff = 0
-    for b in range(1, len(thresholds)):
+    for b in bucket_ids:
         sel = np.nonzero(bucket_of == b)[0]  # indices into nz_rows
-        if sel.size == 0:
+        if bucket_shapes is not None:  # rows past sel.size pad: row id 0, length 0
+            R, Lr = bucket_shapes[b]
+        elif sel.size == 0:
             continue
-        R = sel.size
-        Lr = int(counts[nz_rows[sel]].max())
+        else:
+            R = sel.size
+            Lr = int(counts[nz_rows[sel]].max())
         lens = counts[nz_rows[sel]].astype(np.int64)
         row_ids_t = np.zeros(R, dtype=np.int32)
         row_ids_t[: sel.size] = nz_rows[sel]
@@ -296,7 +317,7 @@ def build_row_layout(
 
     if method == "butterfly":
         row_total = zoff  # = sum of R*Lr over row tiles
-        N = 1 << int(np.ceil(np.log2(max(col_total, row_total, 2))))
+        N = _forced["N"] if _forced is not None else 1 << int(np.ceil(np.log2(max(col_total, row_total, 2))))
         # sigma: row space -> column space; column padding slots pull zeros from
         # unused row-space / pad slots (bijection completion, identity-preferring)
         perm = np.full(col_total, -1, dtype=pdt)
@@ -343,7 +364,11 @@ def build_row_layout(
                 )
                 tmp.replace(cache_path)  # atomic: no corrupt cache on interrupt
         route_s = time.perf_counter() - t_route
-        if use_cuda_kernel:
+        if not materialize_plan:
+            if cache_path is None:
+                raise ValueError("materialize_plan=False needs plan_cache_dir")
+            plan = None
+        elif use_cuda_kernel:
             plan = pack_plan_from_planes(*packed, device=device)
         else:
             planes, dists, p_n_in, p_n_out = packed
@@ -415,6 +440,81 @@ def build_row_layout(
         row_tiles=row_tiles, zidx=zidx, row_pos=put(row_pos), row_shapes=tuple(row_shapes),
         build_seconds={"route": 0.0, "total": time.perf_counter() - t_start},
     )
+
+
+def _slice_bcsc_cols(bcsc, d: int, n_shards: int):
+    """Host view of shard ``d``: columns ``[d*K/D, (d+1)*K/D)`` of every tile
+    (axis 1 of transposed (L, K) tiles), the specs and sizes unchanged.  Every
+    tile's K must divide by ``n_shards`` (the objective pads it so)."""
+    from dualip_tpu_torch.sparse.bcsc import BlockCSC, Tile
+
+    tiles = []
+    for t in bcsc.tiles:
+        K = np.asarray(t.length).shape[0]
+        if K % n_shards:
+            raise ValueError(f"tile K={K} not divisible by {n_shards} shards")
+        sl = slice(d * (K // n_shards), (d + 1) * (K // n_shards))
+        two_d = (slice(None), sl) if bcsc.transposed else sl
+        tiles.append(Tile(rows=t.rows[two_d], a=t.a[two_d], c=t.c[two_d], length=t.length[sl],
+                          col_ids=t.col_ids[sl]))
+    return BlockCSC(tiles=tiles, specs=bcsc.specs, m=bcsc.m, n=bcsc.n, nnz=bcsc.nnz,
+                    transposed=bcsc.transposed, value_dtype=bcsc.value_dtype)
+
+
+def _forced_shapes(per_shard_counts, col_total: int, compact: bool) -> dict:
+    """``_forced`` for ``build_row_layout``: row thresholds from the largest
+    row count of any shard, each bucket's (R, Lr) maxed over the shards, and
+    the carry length N over the column and the row sides."""
+    max_count = max((int(c.max()) for c in per_shard_counts if c.size), default=1)
+    thresholds = _geom_thresholds(max(max_count, 1), 1.05) if compact else _pow2_thresholds(max(max_count, 1))
+    bucket_shapes = {}
+    for c in per_shard_counts:
+        nz = np.nonzero(c)[0]
+        if nz.size == 0:
+            continue
+        bucket_of = np.searchsorted(thresholds, c[nz], side="left")
+        for b in np.unique(bucket_of):
+            sel = bucket_of == b
+            R0, Lr0 = bucket_shapes.get(int(b), (0, 0))
+            bucket_shapes[int(b)] = (max(R0, int(sel.sum())), max(Lr0, int(c[nz][sel].max())))
+    row_total = sum(R * Lr for R, Lr in bucket_shapes.values())
+    N = 1 << int(np.ceil(np.log2(max(col_total, row_total, 2))))
+    return {"thresholds": thresholds, "bucket_shapes": bucket_shapes, "N": N}
+
+
+def build_row_layout_sharded(
+    bcsc, n_shards: int, plan_cache_dir=None, local_range=None, compact: bool = False, device="cpu"
+) -> List[RowLayout]:
+    """The butterfly layouts of an entity-sharded solve, one per shard
+    (``_slice_bcsc_cols``), under shapes common to all shards: row thresholds
+    (pow2, or geometric with ``compact``), per-bucket (R, Lr) and N maxed over
+    the shards, so shard d's leaves equal the JAX package's stacked leaves
+    ``[d]``.  The shape pass covers every shard; the layouts (and the Benes
+    routings) are built only for shards ``local_range = (lo, hi)`` (default
+    all), in order, each on ``device`` with its ``plan_cache_path``.  With
+    ``compact`` build the BlockCSC with ``bucketing="exact"``."""
+    m = bcsc.m
+    shards = [_slice_bcsc_cols(bcsc, d, n_shards) for d in range(n_shards)]
+    per_shard_counts = []
+    for sh in shards:
+        rows_valid = []
+        for t in sh.tiles:
+            rows = np.asarray(t.rows)
+            rows_valid.append(rows[np.arange(rows.shape[1])[None, :] < np.asarray(t.length)[:, None]])
+        rows_valid = np.concatenate(rows_valid) if rows_valid else np.zeros(0, np.int64)
+        per_shard_counts.append(np.bincount(rows_valid.astype(np.int64), minlength=m))
+    col_total = 0  # the panel regions' slots, the same in every shard
+    for t in shards[0].tiles:
+        K, L = np.asarray(t.a).shape
+        L2, _, BP = _col_geometry(K, L, compact)
+        col_total += BP * L2 * 128
+    forced = _forced_shapes(per_shard_counts, col_total, compact)
+    lo, hi = local_range if local_range is not None else (0, n_shards)
+    return [
+        build_row_layout(shards[d], method="butterfly", plan_cache_dir=plan_cache_dir, compact=compact,
+                         device=device, _forced=forced)
+        for d in range(lo, hi)
+    ]
 
 
 def row_layout_from_numpy(

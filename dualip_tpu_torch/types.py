@@ -54,8 +54,9 @@ class ComputeArgs:
     """Compute placement (``dualip_tpu/types.py:48``).
 
     ``host_device`` is the torch device the solve runs on (``"cuda"`` by
-    default, ``"cpu"`` on request).  ``compute_device_num > 1`` is the
-    distributed slice of the port, not yet ported.
+    default, ``"cpu"`` on request).  ``compute_device_num > 1``: the
+    entity-sharded solve over that many ranks of an initialised
+    ``torch.distributed`` group (``run_solver.py``).
     """
 
     host_device: str = "cuda"

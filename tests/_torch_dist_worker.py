@@ -1,0 +1,247 @@
+"""Rank bodies of ``tests/test_torch_distributed.py``.
+
+``dualip_tpu_torch.parallel.run_ranks`` runs them in spawned processes, one
+per rank, on the CPU with gloo; each process imports this module afresh, so
+it imports the port only (no JAX) and returns plain Python and numpy values.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from dualip_tpu_torch.objectives.matching import (
+    MatchingInputArgs,
+    MatchingSolverDualObjectiveFunction,
+    MatchingSolverDualObjectiveFunctionDistributed,
+    matching_tile_cache_key,
+)
+from dualip_tpu_torch.objectives.miplib import MIPLIB2017ObjectiveFunction, MIPLIBInputArgs
+from dualip_tpu_torch.optimizers.agd import AcceleratedGradientDescent
+from dualip_tpu_torch.parallel import EntityMesh, assemble_global_tiles, local_matching_shard, process_shard_bounds
+from dualip_tpu_torch.projections import create_projection_map
+from dualip_tpu_torch.projections.base import ProjectionEntry
+from dualip_tpu_torch.sparse import csc_from_dense
+from dualip_tpu_torch.sparse.bcsc import build_blockcsc
+from dualip_tpu_torch.synthetic import generate_synthetic_matching_input_args
+
+A_COMPACT = np.array(
+    [
+        [0.307766110869125, 0.483770735096186, 0.624996477039531, 0.669021712383255, 0.535811153938994],
+        [0.257672501029447, 0.812402617651969, 0.882165518123657, 0.204612161964178, 0.710803845431656],
+        [0.552322433330119, 0.370320537127554, 0.28035383997485, 0.357524853432551, 0.538348698290065],
+        [0.0563831503968686, 0.546558595029637, 0.398487901547924, 0.359475114848465, 0.74897222686559],
+        [0.468549283919856, 0.170262051047757, 0.76255108229816, 0.690290528349578, 0.420101450523362],
+    ],
+    dtype=np.float32,
+)
+
+# the golden trace's layouts: keywords and the mesh sizes each runs at
+GOLDEN_CASES = {
+    "csc": ({}, (2, 4, 8)),
+    "use_pallas": ({"use_pallas": True, "pallas_block_k": 8}, (2, 4, 8)),
+    "butterfly": ({"layout": "butterfly", "pallas_block_k": 128}, (2, 8)),
+    "compact": ({"layout": "butterfly", "pallas_block_k": 128, "compact": True}, (2, 8)),
+}
+# the random problem's layouts whose rank tiles the tests hold to the JAX package's shards
+TILE_CASES = {
+    "csc": {},
+    "use_pallas": {"use_pallas": True, "pallas_block_k": 128},
+    "butterfly": {"layout": "butterfly", "pallas_block_k": 128},
+    "compact": {"layout": "butterfly", "pallas_block_k": 128, "compact": True},
+}
+RANDOM_MATCHING = (700, 24, 0.08, 3)  # sources, destinations, sparsity, seed
+CACHE_MATCHING = (500, 20, 0.08, 5)
+
+
+def golden_args(b: bool = True) -> MatchingInputArgs:
+    return MatchingInputArgs(A=csc_from_dense(A_COMPACT.T), c=csc_from_dense(-A_COMPACT.T),
+                             projection_map=create_projection_map("simplex", {"z": 1}, 5),
+                             b_vec=np.full(5, 0.7, np.float32) if b else None)
+
+
+def random_matching(spec=RANDOM_MATCHING) -> MatchingInputArgs:
+    ns, nd, sp, seed = spec
+    return generate_synthetic_matching_input_args(ns, nd, sp, rng=np.random.default_rng(seed))
+
+
+def random_lp(seed=0, m=12, n=40, sparse=False) -> MIPLIBInputArgs:
+    """``tests/distributed/test_miplib_sharded.py::_random_lp``'s problem."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(m, n)).astype(np.float32)
+    if sparse:
+        A[rng.random(size=(m, n)) < 0.6] = 0.0
+        A[:, 0] = np.where(A[:, 0] == 0, 0.5, A[:, 0])
+    c = rng.normal(size=n).astype(np.float32)
+    b = np.abs(rng.normal(size=m)).astype(np.float32) + 0.5
+    pm = create_projection_map("box", {"l": 0.0, "u": 1.0}, n)
+    eq = np.zeros(m, dtype=bool)
+    eq[0] = True
+    return MIPLIBInputArgs(A=csc_from_dense(A) if sparse else A, c=c, projection_map=pm, b_vec=b, equality_mask=eq)
+
+
+def joint_lp():
+    """``test_joint_entry_spanning_even_split_snaps_and_solves``'s problem."""
+    m, n = 12, 40
+    rng = np.random.default_rng(13)
+    A = rng.normal(size=(m, n)).astype(np.float32)
+    A[rng.random(size=(m, n)) < 0.5] = 0.0
+    A[:, 0] = np.where(A[:, 0] == 0, 0.5, A[:, 0])
+    c = rng.normal(size=n).astype(np.float32)
+    b = np.abs(rng.normal(size=m)).astype(np.float32) + 0.5
+    pm = {
+        "blk": ProjectionEntry("simplex", {"z": 1.0}, np.arange(3, 8)),
+        "blk2": ProjectionEntry("simplex", {"z": 1.0}, np.arange(33, 39)),
+        "rest": ProjectionEntry("box", {"l": 0.0, "u": 1.0},
+                                np.concatenate([np.arange(0, 3), np.arange(8, 33), np.arange(39, 40)])),
+    }
+    return A, MIPLIBInputArgs(A=csc_from_dense(A), c=c, projection_map=pm, b_vec=b)
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _solve(obj, iters=30, gamma=1e-3, lam0=None, **kw):
+    """(dual log, primal or None, final dual) of an AGD solve."""
+    m = obj.b_vec.shape[0]
+    lam0 = torch.full((m,), 0.1) if lam0 is None else lam0
+    res = AcceleratedGradientDescent(max_iter=iters, gamma=gamma, **kw).maximize(obj, lam0)
+    x = res.objective_result.primal_var
+    return list(res.dual_objective_log), (None if x is None else np.asarray(x)), _np(res.dual_val)
+
+
+def _sub_meshes(mesh: EntityMesh, sizes) -> dict:
+    """One mesh over ranks [0, ws) for each size; every rank takes part in
+    each group's creation, in the same order."""
+    out = {}
+    for ws in sizes:
+        group = dist.new_group(list(range(ws)))
+        if mesh.rank < ws:
+            out[ws] = EntityMesh(group=group, rank=mesh.rank, world_size=ws, device=mesh.device)
+    return out
+
+
+def _rank_leaves(obj) -> dict:
+    """The leaves of a rank's shard as numpy: tiles (csc) or the layout."""
+    rl = obj.row_layout
+    if rl is None:
+        return {f"tile{i}_{f}": _np(getattr(t, f)) for i, t in enumerate(obj.bcsc.tiles)
+                for f in ("rows", "a", "c", "length", "col_ids")}
+    out = {"row_pos": _np(rl.row_pos), "col_offsets": rl.col_offsets, "row_shapes": rl.row_shapes,
+           "col_pack": rl.col_pack, "plan_masks": _np(rl.plan.masks)}
+    for i, pt in enumerate(rl.col_tiles_T):
+        out.update({f"panel{i}_a": _np(pt.a), f"panel{i}_c": _np(pt.c), f"panel{i}_len": _np(pt.length)})
+    for i, rt in enumerate(rl.row_tiles):
+        out.update({f"rowtile{i}_ids": _np(rt.row_ids), f"rowtile{i}_len": _np(rt.length)})
+    return out
+
+
+def world8(mesh: EntityMesh) -> dict:
+    """Eight ranks carry the 8-, 4- and 2-rank cases through sub-groups, the
+    widest first: every rank of a group does the same work, and a rank leaves
+    when no narrower group holds it, so none waits long in a collective."""
+    meshes = _sub_meshes(mesh, (2, 4, 8))
+    out = {"golden": {}, "tiles": {}, "lp": {}}
+    inp = random_matching()
+    lam = np.random.default_rng(2).normal(size=12).astype(np.float32)
+    for ws in (8, 4, 2):
+        if ws not in meshes:
+            break
+        sub = meshes[ws]
+        for name, (kw, sizes) in GOLDEN_CASES.items():
+            if ws in sizes:
+                obj = MatchingSolverDualObjectiveFunction(golden_args(), gamma=1e-3, mesh=sub, **kw)
+                out["golden"][(name, ws)] = _solve(obj, save_primal=True)
+        if ws in (2, 8):
+            for name, kw in TILE_CASES.items():
+                out["tiles"][(name, ws)] = _rank_leaves(
+                    MatchingSolverDualObjectiveFunction(inp, gamma=1e-3, mesh=sub, **kw))
+            for sparse in (False, True):
+                r = MIPLIB2017ObjectiveFunction(random_lp(seed=1, sparse=sparse), mesh=sub).calculate(
+                    torch.as_tensor(lam), gamma=1e-2)
+                out["lp"][("calculate", sparse, ws)] = (_np(r.dual_gradient), float(r.dual_objective),
+                                                        float(r.reg_penalty))
+        if ws == 8:
+            A, args = joint_lp()
+            lam_j = torch.as_tensor(np.abs(np.random.default_rng(14).normal(size=12)).astype(np.float32))
+            obj = MIPLIB2017ObjectiveFunction(args, mesh=sub)
+            r = obj.calculate(lam_j, gamma=1e-2, save_primal=True)
+            x = torch.as_tensor(np.random.default_rng(13).normal(size=40).astype(np.float32))
+            out["lp"]["joint"] = (list(obj.ops._bounds), _np(r.dual_gradient), _np(r.primal_var),
+                                  float(r.dual_objective), _np(obj.ops.matvec(x)), _np(obj.ops.rmatvec(lam_j)),
+                                  _np(x))
+        if ws == 4:
+            obj = MIPLIB2017ObjectiveFunction(random_lp(seed=3, sparse=True), mesh=sub)
+            out["lp"]["solve"] = _solve(obj, iters=40, gamma=1e-2, lam0=torch.zeros(12), initial_step_size=1e-3,
+                                        max_step_size=1e-1)
+        if ws == 2:
+            obj = MatchingSolverDualObjectiveFunctionDistributed(
+                golden_args(b=False), b_vec=np.full(5, 0.7, np.float32), gamma=1e-3, host_device="cpu", mesh=sub)
+            out["golden"][("distributed wrapper", 2)] = _solve(obj)
+            # a rank's own shard (contiguous columns), assembled, in place of the objective's tiles
+            obj = MatchingSolverDualObjectiveFunction(golden_args(), gamma=1e-3, mesh=sub)
+            local = local_matching_shard(golden_args(), sub.rank, 2)
+            obj.bcsc = assemble_global_tiles(build_blockcsc(local.A, local.c, local.projection_map), sub,
+                                             global_n=5, global_nnz=25)
+            out["golden"][("assembled tiles", 2)] = _solve(obj)
+            out["assembled_col_ids"] = [_np(t.col_ids) for t in obj.bcsc.tiles]
+            out["shard_bounds"] = process_shard_bounds(5, sub.rank, 2)
+            lam_pos = torch.as_tensor(np.abs(np.random.default_rng(6).normal(size=12)).astype(np.float32))
+            obj = MIPLIB2017ObjectiveFunction(random_lp(seed=5, sparse=True), use_jacobi_precondition=True, mesh=sub)
+            r = obj.calculate(lam_pos, gamma=1e-2)
+            out["lp"]["jacobi"] = (_np(r.dual_gradient), obj.calculate_convergence_bound(lam_pos, tol=1e-4))
+    return out
+
+
+def world2(mesh: EntityMesh, tmp: str, stream: dict) -> dict:
+    """Two ranks: ``run_solver``, the stacked tile cache cold and warm, and a
+    solve that warm-starts from the streamed entry."""
+    import dualip_tpu_torch as dt
+
+    out = {}
+    solver = dt.SolverArgs(max_iter=30, gamma=1e-3, initial_step_size=1e-5)
+    res = dt.run_solver(golden_args(), solver, dt.ComputeArgs(host_device="cpu", compute_device_num=2),
+                        dt.ObjectiveArgs(objective_kwargs={"use_pallas": True, "pallas_block_k": 8}))
+    out["run_solver matching"] = (list(res.dual_objective_log), _np(res.dual_val))
+    lp = dict(solver_args=dt.SolverArgs(max_iter=20, initial_step_size=1e-3, gamma=1e-2, max_step_size=1e-1),
+              objective_args=dt.ObjectiveArgs(objective_type="miplib2017"))
+    res = dt.run_solver(random_lp(seed=7, sparse=True), compute_args=dt.ComputeArgs(host_device="cpu",
+                        compute_device_num=2), **lp)
+    out["run_solver miplib2017"] = (list(res.dual_objective_log), _np(res.dual_val))
+
+    inp = random_matching(CACHE_MATCHING)
+    for compact in (False, True):
+        kw = dict(gamma=1e-3, mesh=mesh, layout="butterfly", pallas_block_k=128, compact=compact,
+                  keep_flat_idx=False, keep_col_tiles=False, plan_cache_dir=f"{tmp}/plans",
+                  tile_cache_dir=f"{tmp}/tiles")
+        cold = MatchingSolverDualObjectiveFunction(inp, **kw)
+        warm = MatchingSolverDualObjectiveFunction(inp, **kw)
+        out[("tile cache", compact)] = {
+            "key": cold.tile_cache_key, "cold_saved": "tile_cache_write_s" in cold.row_layout.build_seconds,
+            "warm_loaded": warm.row_layout.build_seconds["route"] == 0.0 and "tile_cache_write_s" not in
+            warm.row_layout.build_seconds,
+            "cold": _solve(cold, iters=10)[0], "warm": _solve(warm, iters=10)[0], "leaves": _rank_leaves(warm)}
+
+    inp = random_matching(stream["spec"])
+    kw = dict(gamma=1e-3, mesh=mesh, layout="butterfly", pallas_block_k=128, compact=True, keep_flat_idx=False,
+              keep_col_tiles=False, plan_cache_dir=stream["plans"])
+    streamed = MatchingSolverDualObjectiveFunction(inp, tile_cache_dir=stream["tiles"], **kw)
+    direct = MatchingSolverDualObjectiveFunction(inp, **kw)
+    key = matching_tile_cache_key(inp, n_shards=2, pallas_block_k=128, compact=True)
+    zero = torch.zeros(inp.b_vec.shape[0])
+    out["streamed"] = {
+        "key": streamed.tile_cache_key, "expected_key": key,
+        "loaded": streamed.row_layout.build_seconds["route"] == 0.0,
+        "streamed": _solve(streamed, iters=15, lam0=zero, initial_step_size=1e-3, max_step_size=1e-1)[0],
+        "direct": _solve(direct, iters=15, lam0=zero, initial_step_size=1e-3, max_step_size=1e-1)[0]}
+    return out
+
+
+def failing(mesh: EntityMesh):
+    """Rank 1 raises; rank 0 waits in an all_reduce that rank 1 never joins."""
+    if mesh.rank == 1:
+        raise ValueError("rank 1 gives up")
+    mesh.all_reduce_(torch.ones(3))
+    return "unreachable"

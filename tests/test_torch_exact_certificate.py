@@ -23,6 +23,7 @@ import jax.numpy as jnp
 from dualip_tpu.objectives.matching import MatchingSolverDualObjectiveFunction as JaxObjective
 from dualip_tpu_torch.objectives.matching import MatchingSolverDualObjectiveFunction
 from dualip_tpu_torch.optimizers.agd import AcceleratedGradientDescent
+from dualip_tpu_torch.parallel import EntityMesh
 from dualip_tpu_torch.projections import create_projection_map
 from dualip_tpu_torch.synthetic import generate_synthetic_matching_input_args
 
@@ -133,5 +134,7 @@ def test_certificate_refusals(problem):
     box = replace(args, projection_map=create_projection_map("box", {"lower": 0.0, "upper": 1.0}, args.A.shape[1]))
     with pytest.raises(NotImplementedError, match="simplex-inequality"):
         MatchingSolverDualObjectiveFunction(box, gamma=1e-3, device="cpu").exact_certificate(torch.zeros(30))
-    with pytest.raises(NotImplementedError, match="distributed"):
-        MatchingSolverDualObjectiveFunction(args, gamma=1e-3, device="cpu", mesh=object())
+    # on a mesh, as in the JAX package (its 8-device CPU mesh raises the same)
+    mesh = EntityMesh(group=None, rank=0, world_size=1, device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="single mesh device"):
+        MatchingSolverDualObjectiveFunction(args, gamma=1e-3, mesh=mesh).exact_certificate(torch.zeros(30))

@@ -38,3 +38,11 @@ def test_port_package_imports_without_cuda():
 
     assert dualip_tpu_torch.run_solver is not None
     assert fm.fused_tile_eval_T.launches >= 0
+
+
+def test_the_scan_covers_the_parallel_layer():
+    """The distributed layer's modules are among the scanned files."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for name in ("__init__", "mesh", "dist_utils", "multihost", "launch"):
+        assert f"dualip_tpu_torch/parallel/{name}.py" in scanned
+    assert "dualip_tpu_torch/io/streaming_build.py" in scanned

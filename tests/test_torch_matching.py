@@ -172,10 +172,11 @@ def test_beta_seq_step_size_and_cone_match_jax():
 
 
 def test_later_slice_options_raise():
-    """What still waits for a later slice: the mesh.  The tile cache is in
-    (I/O slice); layouts it does not serve ignore it and write nothing."""
+    """The mesh is in (distributed slice) and takes an ``EntityMesh`` only.
+    The tile cache is in (I/O slice); layouts it does not serve ignore it and
+    write nothing."""
     for kwargs in ({"mesh": object()}, {"layout": "butterfly", "mesh": object()}):
-        with pytest.raises(NotImplementedError, match="slice"):
+        with pytest.raises(TypeError, match="EntityMesh"):
             _scala_objective(**kwargs)
     for kwargs in ({"tile_cache_dir": "/nonexistent/x"}, {"layout": "butterfly", "tile_cache_dir": "/nonexistent/x"}):
         assert _scala_objective(**kwargs).tile_cache_key is None

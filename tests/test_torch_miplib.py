@@ -245,7 +245,7 @@ def test_refusals():
         MIPLIB2017ObjectiveFunction(args, layout="butterfly", device="cpu")
     with pytest.raises(ValueError, match="Unknown layout"):
         MIPLIB2017ObjectiveFunction(args, layout="csr", device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed slice"):
+    with pytest.raises(TypeError, match="EntityMesh"):
         MIPLIB2017ObjectiveFunction(args, mesh=object(), device="cpu")
     obj = MIPLIB2017ObjectiveFunction(MIPLIBInputArgs(A=A, c=c, projection_map={"f": ProjectionEntry("box", {},
                                       [0])}, b_vec=b), device="cpu")

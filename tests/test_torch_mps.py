@@ -23,7 +23,7 @@ from dualip_tpu.io.mps import read_mps_file as jax_read
 from dualip_tpu.objectives.miplib import MIPLIB2017ObjectiveFunction as JaxMIPLIB
 from dualip_tpu_torch.io.mps import MPSLinearProgram, read_mps_file, write_mps_file
 from dualip_tpu_torch.objectives.miplib import MIPLIB2017ObjectiveFunction, MIPLIBInputArgs
-from dualip_tpu_torch.projections import ProjectionEntry
+from dualip_tpu_torch.parallel import global_to_local_projection_map
 from dualip_tpu_torch.sparse import csc_to_dense, split_csc_by_cols
 from tests.test_mps_reader import MPS_TEXT, RANGES_MPS
 
@@ -200,12 +200,7 @@ def test_v150d30_parses_and_slice_layouts_agree():
     args = lp.to_miplib_input_args()
     K = 24  # real columns, about 670 nnz each
     A_sl = split_csc_by_cols(args.A, [K, args.A.shape[1] - K])[0]
-    keep = list(range(K))
-    pm = {}
-    for key, e in args.projection_map.items():  # the map remapped to the slice's columns
-        local = [i for i in e.indices if i in keep]
-        if local:
-            pm[key] = ProjectionEntry(e.proj_type, e.proj_params, local)
+    pm = global_to_local_projection_map(args.projection_map, list(range(K)))  # the slice's columns
     sl = MIPLIBInputArgs(A=A_sl, c=args.c[:K], projection_map=pm, b_vec=args.b_vec, equality_mask=args.equality_mask)
     coo = MIPLIB2017ObjectiveFunction(sl, device="cpu")
     bf = MIPLIB2017ObjectiveFunction(sl, layout="butterfly", device="cpu")

@@ -74,7 +74,9 @@ def test_entry_points_default_to_cuda():
 
 def test_later_slices_raise():
     args = (_port_args(), dualip_tpu_torch.SolverArgs(max_iter=2))
-    with pytest.raises(NotImplementedError, match="distributed"):
+    # the sharded solve is in (distributed slice); without a process group it
+    # says how to launch one instead of solving on one device
+    with pytest.raises(RuntimeError, match="torchrun"):
         dualip_tpu_torch.run_solver(
             *args, dualip_tpu_torch.ComputeArgs(host_device="cpu", compute_device_num=2),
             dualip_tpu_torch.ObjectiveArgs(),

@@ -216,10 +216,12 @@ def test_a_sharded_entry_names_the_distributed_slice(tmp_path):
     o = _build(port, tmp_path)
     d = _entry(tmp_path / "tiles", o.tile_cache_key)
     meta = json.loads((d / "meta.json").read_text())
-    with pytest.raises(NotImplementedError, match="distributed"):
+    # a stacked entry is the distributed solve's: its ranks write it together
+    # and each loads its own shard
+    with pytest.raises(ValueError, match="all ranks together"):
         tile_cache.save_butterfly_state(tmp_path / "x", "k", o.bcsc, o.row_layout, ["p0", "p1"], n_shards=2)
     (d / "meta.json").write_text(json.dumps({**meta, "n_shards": 2}))
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(ValueError, match="holds 2 shard"):
         tile_cache.load_butterfly_state(tmp_path / "tiles", o.tile_cache_key, "cpu")
     (d / "meta.json").write_text(json.dumps({**meta, "version": 0}))
     assert tile_cache.load_butterfly_state(tmp_path / "tiles", o.tile_cache_key, "cpu") is None
