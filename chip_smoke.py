@@ -65,7 +65,20 @@ result lines at the end are printed only by a run of every default phase):
    slice's matrix as an LP in the box [0, 1] with c ~ U(-1, 0) (lp-2.5M: COO
    200 iterations and butterfly 50, timed and profiled, COO repeated bit for
    bit, the layouts against each other per ``calculate``);
-12. io: the I/O tiers at the slice's shape on the native generator's data
+12. examples: the port's examples (``dualip_tpu_torch/examples``) as a user
+   runs them, at the MovieLens-shaped proxy's full shape (26,744 x 138,493,
+   1,923,742 nnz, the JAX run's exactly): ``proxy_validation.run_ours`` for
+   10,000 iterations on csc (``use_pallas=True``), on butterfly and with the
+   two fairness rows, each log held to the reference's committed log by the
+   example's own gates (final within 1e-6, fairness within 1.5 x the
+   reference's own sensitivity, the last 10% within 2e-4, a positive
+   fairness dual) and its first iteration within 1e-6 of the JAX package's;
+   the launches counted, the kernels against their plain versions over 20
+   iterations, K1 tile by tile on the wide tiles (L up to 394, one block a
+   column) and K3 through all its tiles, the fairness solve's first 200
+   iterations repeated bit for bit; then the MIPLIB script through its
+   command line (exit code 0);
+13. io: the I/O tiers at the slice's shape on the native generator's data
    (the native library must build), in a fresh temporary cache directory:
    generation timed beside the numpy generator, a warm load equal to the cold
    arrays, the native tile fill equal to the numpy fill (both timed), and the
@@ -73,11 +86,11 @@ result lines at the end are printed only by a run of every default phase):
    warm (from the tile cache): each one's time to first iteration, K3, K5, K7
    and the index-building window kernels launched on the warm objective, and
    the two 20-iteration dual logs bit-identical;
-13. obs: ``run_solver`` with MLflow enabled completes (a no-op without
+14. obs: ``run_solver`` with MLflow enabled completes (a no-op without
    mlflow) and gives the log of the solve without it, ``trace`` around three
    csc iterations writes a trace naming K1's and the segment-sum's kernels and
    the ``annotate`` span, and ``collect_stats`` fills ``last_run_stats``;
-14. dist: the entity-sharded solve (``dualip_tpu_torch/parallel``) on this
+15. dist: the entity-sharded solve (``dualip_tpu_torch/parallel``) on this
    one card.  (a) A world of one NCCL rank in this process: the csc
    ``use_pallas`` solve over a mesh, its 200-iteration log bit-identical to
    the one-device log, and the all_reduce of m + 2 floats timed.  Whether
@@ -137,8 +150,8 @@ NON_FMA_OPS_PER_S = 132 * 128 * 1.98e9
 BISECTION_ITERS = 30
 
 SMALL_SOURCES = 250_000  # the second butterfly solve: few enough blocks for one single-axis group a side
-ALL_PHASES = ("kernels", "segsum", "benes", "panel", "golden", "slice", "butterfly", "cert", "lp", "io", "obs",
-              "dist")
+ALL_PHASES = ("kernels", "segsum", "benes", "panel", "golden", "slice", "butterfly", "cert", "lp", "examples", "io",
+              "obs", "dist")
 OPT_IN_PHASES = ("canonical",)  # host time beyond the default run's budget: run alone
 CANONICAL_SOURCES = 25_000_000
 # benchmark/results/canonical_250m.json: the native generator's nnz at the
@@ -928,6 +941,216 @@ def phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, ms_p
     torch.cuda.empty_cache()
 
 
+# The MovieLens-shaped proxy (dualip_tpu_torch/examples/movielens_matching/proxy_validation.py):
+# its LP's shape and nnz, as the JAX package's run logged them
+# (examples/movielens_matching/logs/proxy_movies_log.txt, last line)
+PROXY_SHAPE = (26_744, 138_493)
+PROXY_NNZ = 1_923_742
+FAIR_REPEAT_ITERS = 200
+
+
+def plain_csc_class():
+    """The matching objective on the same csc tiles with K1's plain version in
+    place of the kernel (the segment-sum kernel on both sides), on the card."""
+    import dualip_tpu_torch.objectives.matching as matching_mod
+    import dualip_tpu_torch.ops.fused_matching as fm
+
+    class PlainTiles(matching_mod.MatchingSolverDualObjectiveFunction):
+        def _local(self, bcsc, dual_val, gamma, want_primal=False, row_layout=None):
+            plain_eval = lambda *a, block_k, want_x, out: fm.fused_tile_gather_eval_T_reference(  # noqa: E731
+                *a, want_x=want_x, out=out)
+            with rebound(fm, fused_tile_gather_eval_T=plain_eval):
+                return super()._local(bcsc, dual_val, gamma, want_primal, row_layout)
+
+    return PlainTiles
+
+
+def plain_butterfly_class():
+    """The matching objective on the same butterfly layout with every
+    kernel's plain version (the carries' stages, the panel kernel), on the card."""
+    import dualip_tpu_torch.objectives.matching as matching_mod
+    import dualip_tpu_torch.ops.butterfly as bf
+    import dualip_tpu_torch.ops.fused_matching as fm
+
+    class PlainButterfly(matching_mod.MatchingSolverDualObjectiveFunction):
+        def _local(self, bcsc, dual_val, gamma, want_primal=False, row_layout=None):
+            def plain_carry(rl, vec, reverse, truncate=True):
+                p = rl.plan
+                v = plain_blocked(bf, p, vec, reverse)
+                return v if not truncate else v[: (p.n_in if reverse else p.n_out)]
+
+            with rebound(matching_mod, _carry=plain_carry), \
+                    rebound(fm, fused_panel_project_tiles=fm.fused_panel_project_tiles_reference):
+                return super()._local(bcsc, dual_val, gamma, want_primal, row_layout)
+
+    return PlainButterfly
+
+
+def phase_examples(dev, card, counts, reset_counts, variant, Timed, n_chk):
+    """``examples_in`` in a temporary directory, removed whatever the outcome."""
+    with tempfile.TemporaryDirectory(prefix="proxy_") as tmp:
+        examples_in(Path(tmp), dev, card, counts, reset_counts, variant, Timed, n_chk)
+
+
+def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk):
+    """The port's examples as a user runs them, at the proxy's full shape:
+    the proxy generated and its LP built (shape and nnz the JAX run's), then
+    ``proxy_validation.run_ours`` for 10,000 iterations on csc
+    (``use_pallas=True``), on butterfly and with the fairness rows, each log
+    held by ``summarize`` to the reference's committed log; the launches, the
+    kernels against their plain versions over the first iterations (K1 on the
+    wide tiles also tile by tile, K3 through ``time_panel``), the fairness
+    solve's first 200 iterations repeated bit for bit; then the MIPLIB
+    script through its command line."""
+    import dualip_tpu_torch.examples.movielens_matching.movies_lens_matching as mlm
+    import dualip_tpu_torch.ops.fused_matching as fm
+    from dualip_tpu_torch.examples.movielens_matching import proxy_validation as pv
+    from dualip_tpu_torch.objectives.matching import _plan_size
+    from dualip_tpu_torch.optimizers.agd import AcceleratedGradientDescent
+    from dualip_tpu_torch.ops.segment_sum import segment_sum_rows_reference
+
+    t_phase = time.perf_counter()
+
+    def first_iterations(objective, iters):
+        agd = AcceleratedGradientDescent(max_iter=iters, gamma=pv.GAMMA, initial_step_size=pv.INITIAL_STEP,
+                                         max_step_size=pv.MAX_STEP)
+        m = objective.b_ext.numel() if hasattr(objective, "b_ext") else objective.b_vec.numel()
+        return np.asarray(agd.maximize(objective, torch.zeros(m, device=dev)).dual_objective_log)
+
+    t0 = time.perf_counter()
+    ratings = pv.generate_proxy_ratings(tmp / "proxy_ratings.npz")
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lps = {False: pv.build_lp(False, ratings), True: pv.build_lp(True, ratings)}
+    lp_s = time.perf_counter() - t0
+    shape, nnz = lps[False].A.shape, lps[False].A.nnz
+    say("examples", proxy_shape=shape, nnz=nnz, generate_s=f"{gen_s:.2f}", build_lps_s=f"{lp_s:.2f}",
+        fairness_rows=(len(lps[True].group_a_rows), len(lps[True].group_b_rows)))
+    check(shape == PROXY_SHAPE and nnz == PROXY_NNZ, f"examples: proxy LP {shape} nnz {nnz}, the JAX run's "
+                                                     f"{PROXY_SHAPE} nnz {PROXY_NNZ}")
+    sensitivity = pv.reference_self_sensitivity()
+    refs = {f: pv.parse_log(pv.LOGS / f"{pv._tag(f)}_reference_log.txt") for f in (False, True)}
+    # the JAX package's first dual on the proxy (its committed logs): the
+    # first iteration, before any step, is where two faithful solves agree
+    jax_first = {f: pv.parse_log(pv.LOGS / f"{pv._tag(f)}_log.txt")["trace"][0] for f in (False, True)}
+
+    def run(what, fairness, layout):
+        """run_ours on a timed copy of the objective: its log held to the
+        reference's, its launches counted from just before to just after."""
+        t0 = time.perf_counter()
+        obj = pv.make_objective(lps[fairness], fairness, layout, "cuda", plan_cache_dir=tmp / "plan_cache")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        timed = variant(obj, type("Timed" + type(obj).__name__, (Timed, type(obj)), {}))
+        reset_counts()
+        out = pv.run_ours(fairness, pv.MAX_ITER, "cuda", layout, tmp, input_args=lps[fairness], objective=timed)
+        torch.cuda.synchronize()
+        n = counts()
+        ev = timed.events[:pv.MAX_ITER]  # the solve's evaluations (run_ours adds one at the final dual)
+        ms_it = ev[1][0].elapsed_time(ev[-1][1]) / (len(ev) - 1)
+        first_ms = ev[0][0].elapsed_time(ev[0][1])
+        s = pv.summarize(refs[fairness], pv.parse_log(out["log_path"]), fairness,
+                         sensitivity if fairness else None)
+        it1, want1 = out["trace"][0], jax_first[fairness]
+        say("examples", run=what, iterations=len(out["trace"]), iteration_1=it1,
+            jax_iteration_1=want1, iteration_1_rel_dev_vs_jax=abs(it1 - want1) / abs(want1),
+            final_dual=out["final"], reference_final=s["ref_final"], final_rel_err=s["final_rel_err"],
+            threshold=s["headline_gate"]["threshold"], tail_max_rel_err=s["tail_max_rel_err"],
+            max_rel_err=s["max_rel_err"], fairness_duals=out["fair_duals"], gates_pass=s["pass"],
+            ms_per_iteration=f"{ms_it:.4f}", wall_ms_per_iteration=f"{out['solve_s'] * 1e3 / pv.MAX_ITER:.4f}",
+            objective_build_s=f"{build_s:.2f}", time_to_first_iteration_s=f"{build_s + first_ms / 1e3:.3f}",
+            first_iteration_ms=f"{first_ms:.3f}", launches=n, card=card)
+        check(np.isfinite(out["trace"]).all() and len(out["trace"]) == pv.MAX_ITER, f"examples {what}: log malformed")
+        check(abs(it1 - want1) <= 1e-6 * abs(want1),
+              f"examples {what}: iteration 1 {it1} not within 1e-6 of the JAX package's {want1}")
+        check(s["headline_gate"]["pass"], f"examples {what}: final {out['final']} is {s['final_rel_err']} from the "
+                                          f"reference's {s['ref_final']} (gate {s['headline_gate']['threshold']})")
+        check(s["pass_tail_2e-4"], f"examples {what}: the last 10% part by {s['tail_max_rel_err']} (gate 2e-4)")
+        check(not fairness or s["fairness_dual_nonzero"], f"examples {what}: fairness duals {out['fair_duals']}")
+        return obj, out, n
+
+    # ---- csc, use_pallas=True: K1 in its gather form and the segment-sum
+    obj, out, n = run("csc", False, "csc")
+    tiles, specs = obj.bcsc.tiles, obj.bcsc.specs
+    evals = pv.MAX_ITER + 1
+    want = {"K1g": len(tiles) * evals, "K2g": 0, "K1": 0, "segsum": evals}
+    check(all(n[k] == v for k, v in want.items()), f"examples csc: launches {n}, expected {want}")
+
+    plain_dev = rel_dev(first_iterations(variant(obj, plain_csc_class()), n_chk), out["trace"][:n_chk])
+    say("examples", run="csc", plain_check_iterations=n_chk, max_rel_dev_vs_plain=float(plain_dev.max()),
+        tolerance=1e-4)
+    check(plain_dev.max() <= 1e-4, f"examples csc: kernels vs plain versions differ by {plain_dev.max()}")
+    # K1 tile by tile at the solve's final dual, the wide tiles (one block a column) among them
+    nig = torch.full((), -1.0 / pv.GAMMA, dtype=torch.float32, device=dev)
+    scaled = nig * out["result"].dual_val
+    rows = []
+    for t, s in zip(tiles, specs):
+        def k1(fn=fm.fused_tile_gather_eval_T, t=t, s=s):
+            kw = {"block_k": 1024} if fn is fm.fused_tile_gather_eval_T else {}
+            return fn(scaled, t.rows, t.a, t.c, t.length, nig, s.proj_type, s.proj_params, **kw)
+
+        got, ref = k1(), k1(fm.fused_tile_gather_eval_T_reference)
+        e = float((got[0] - ref[0]).abs().max())
+        check(e <= tol_x(ref[0]), f"examples K1 on the L={s.L} tile: err {e}")
+        for i in (1, 2):
+            check(abs(float(got[i]) - float(ref[i])) <= 1e-3 + 1e-4 * abs(float(ref[i])),
+                  f"examples K1 sums on the L={s.L} tile")
+        ms = cuda_ms(k1, reps=20, graph=True).ms
+        nbytes = s.L * s.K * 16 + s.K * 4 + obj.bcsc.m * 4
+        bound = max(nbytes / PEAK_BYTES_PER_S, s.L * s.K * ops_per_slot(s.proj_type) / PEAK_FP32_FLOP_PER_S) * 1e3
+        rows.append((s.L, s.K, "block a column" if s.L > 64 else "thread a column", e, round(ms, 4),
+                     round(bound, 4)))
+    say("timing", path="examples csc", kernel="'K1 fused_tile_gather_eval_T, each tile'",
+        L_K_path_err_ms_bound=rows, sum_ms=f"{sum(r[4] for r in rows):.4f}",
+        scaled_bytes=obj.bcsc.m * 4, scaled_in_shared_memory=obj.bcsc.m * 4 <= 48 * 1024, card=card)
+    del obj, out, scaled
+    torch.cuda.empty_cache()
+
+    # ---- butterfly: K3 and the Benes kernels
+    obj, out, n = run("butterfly", False, "butterfly")
+    plan = obj.row_layout.plan
+    N = _plan_size(plan)
+    regime = "K6" if n["K6"] else "K7"
+    say("examples", run="butterfly", carry_slots=N, blocks=N >> getattr(plan, "block_log2", 15), coarse_regime=regime,
+        panel_tiles=[(t.L, t.L2, t.q) for t in obj.panel_table.tiles], routing_s=f"{obj.row_layout.build_seconds['route']:.2f}")
+    want = {"K3": evals, "K4": 0, "K5": 2 * evals, regime: 4 * evals, "K1g": 0, "segsum": 0}
+    check(all(n[k] == v for k, v in want.items()), f"examples butterfly: launches {n}, expected {want}")
+    plain_dev = rel_dev(first_iterations(variant(obj, plain_butterfly_class()), n_chk), out["trace"][:n_chk])
+    say("examples", run="butterfly", plain_check_iterations=n_chk, max_rel_dev_vs_plain=float(plain_dev.max()),
+        tolerance=1e-5)
+    check(plain_dev.max() <= 1e-5, f"examples butterfly: kernels vs plain versions differ by {plain_dev.max()}")
+    time_panel("examples butterfly", obj, dev, [], {})  # K3/K4 on the proxy's tiles, L up to 394
+    say("examples", run="butterfly", note="K3 reads tiles above its ring's cap (L > 47 with fp32 carry and tiles) "
+                                          "from device memory; 'stream' in the per-tile list marks every L > 32")
+    del obj, out, plan
+    torch.cuda.empty_cache()
+
+    # ---- fairness: the segment-sum kernel, the fixed order
+    obj, out, n = run("fairness", True, "csc")
+    want = {"segsum": evals, "K1g": 0, "K3": 0}
+    check(all(n[k] == v for k, v in want.items()), f"examples fairness: launches {n}, expected {want}")
+    again = first_iterations(obj, FAIR_REPEAT_ITERS)
+    rep = rel_dev(again, out["trace"][:FAIR_REPEAT_ITERS])
+    with rebound(mlm, segment_sum_rows=segment_sum_rows_reference):
+        plain = rel_dev(first_iterations(obj, n_chk), out["trace"][:n_chk])
+    say("examples", run="fairness", repeat_iterations=FAIR_REPEAT_ITERS,
+        repeat="bit-identical" if rep.max() == 0 else "DIFFERS", max_rel_dev_repeat=float(rep.max()),
+        plain_check_iterations=n_chk, max_rel_dev_vs_plain=float(plain.max()))
+    check(rep.max() == 0.0, f"examples fairness: the first {FAIR_REPEAT_ITERS} iterations repeat at {rep.max()}")
+    check(plain.max() == 0.0, f"examples fairness: the segment-sum kernel vs its plain version: {plain.max()}")
+    del obj, out
+    torch.cuda.empty_cache()
+
+    # ---- the MIPLIB script, as a user runs it
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "dualip_tpu_torch.examples.miplib_2017.solve_miplib_dataset"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    tail = p.stdout.strip().splitlines()[-3:]
+    say("examples", run="miplib", exit_code=p.returncode, output=tail, seconds=f"{time.perf_counter() - t0:.2f}")
+    check(p.returncode == 0, f"examples miplib: exit code {p.returncode}: {p.stderr[-2000:]}")
+    say("examples", phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=card)
+
+
 def phase_io(dt, args, card, numpy_gen_s, numpy_inp, captured, counts, solve, ms_per_iteration, n_chk):
     """The I/O tiers at the slice's shape on the native generator's data, in
     a fresh temporary cache directory: generation cold and warm (the warm load
@@ -1493,7 +1716,6 @@ def main(argv=None) -> int:
     from dualip_tpu_torch.ops.fused_matching import (
         fused_panel_project,
         fused_panel_project_tiles,
-        fused_panel_project_tiles_reference,
         fused_tile_eval_T,
         fused_tile_eval_T_reference,
         fused_tile_gather_eval_T,
@@ -1719,15 +1941,7 @@ def main(argv=None) -> int:
 
         # The first iterations again, with K1's plain version on the card (same
         # tiles, the same segment-sum kernel on both sides).
-        class PlainTiles(MatchingSolverDualObjectiveFunction):
-            def _local(self, bcsc, dual_val, gamma, want_primal=False, row_layout=None):
-                plain_eval = lambda *a, block_k, want_x, out: fused_tile_gather_eval_T_reference(  # noqa: E731
-                    *a, want_x=want_x, out=out)
-                with rebound(fm, fused_tile_gather_eval_T=plain_eval):
-                    return super()._local(bcsc, dual_val, gamma, want_primal, row_layout)
-
-        plain = PlainTiles.__new__(PlainTiles)
-        plain.__dict__.update({k: v for k, v in obj.__dict__.items() if k != "events"})
+        plain = variant(obj, plain_csc_class())
         g_t = torch.full((), 1e-3, dtype=torch.float32, device=dev)
         plain_dev = rel_dev(first_iterations(plain, obj.bcsc.m), log[:n_chk])
         r_f = obj.calculate_traceable(obj.params, res.dual_val, g_t)
@@ -1920,18 +2134,7 @@ def main(argv=None) -> int:
 
     # ------------------------------------------------------------------ 9. butterfly slice
     if "butterfly" in phases:
-        class PlainButterfly(MatchingSolverDualObjectiveFunction):
-            """The same layout with every kernel's plain version, on the card."""
-
-            def _local(self, bcsc, dual_val, gamma, want_primal=False, row_layout=None):
-                def plain_carry(rl, vec, reverse, truncate=True):
-                    p = rl.plan
-                    v = plain_blocked(bf, p, vec, reverse)
-                    return v if not truncate else v[: (p.n_in if reverse else p.n_out)]
-
-                with rebound(matching_mod, _carry=plain_carry), \
-                        rebound(fm, fused_panel_project_tiles=fused_panel_project_tiles_reference):
-                    return super()._local(bcsc, dual_val, gamma, want_primal, row_layout)
+        PlainButterfly = plain_butterfly_class()
 
         def butterfly_solve(data, sources, what, expect_coarse, index_launches):
             """The solve, its counts, the plain-version and repeat checks."""
@@ -2011,13 +2214,15 @@ def main(argv=None) -> int:
         buf = torch.from_numpy(np.random.default_rng(5).normal(size=N).astype(np.float32)).to(dev)
         ids = torch.arange(N, dtype=torch.int32, device=dev)
 
-        def time_benes(name, replaces, fn, ref_fn, side_bytes, n_launches, window_fn=None, variants=()):
+        def time_benes(name, replaces, fn, ref_fn, side_bytes, n_launches, window_fn=None, window_masks=None,
+                       variants=()):
             """ms of one launch group, the plain version's, the bound (8 B of
             payload and ``side_bytes`` of index or mask planes per slot), the
             payload-only floor, the library call (index_select by the group's
             own permutation) and, for a gather, its window form (the stage
-            windows that build the index) in the same call; ``variants`` are
-            (label, module attributes) timed beside it."""
+            windows that build the index, reading ``window_masks``) and that
+            form's bound in the same call; ``variants`` are (label, module
+            attributes) timed beside it."""
             src = fn(ids.clone())  # the kernel moves 4-byte payloads of any type
             check(torch.equal(src, ref_fn(ids)), f"{name}: kernel differs from its plain version at the slice's shape")
             t_k = cuda_ms(lambda: fn(buf), reps=10, graph=True)
@@ -2030,6 +2235,10 @@ def main(argv=None) -> int:
             if window_fn is not None:
                 check(torch.equal(window_fn(ids.clone()), src), f"{name}: the window form differs from the gather")
                 extra["window_ms"] = cuda_ms(lambda: window_fn(buf), reps=10, graph=True).ms
+                mask_bytes = window_masks.numel() * window_masks.element_size()
+                say("timing", kernel=repr(name + " window form"), ms=f"{extra['window_ms']:.4f}",
+                    bound_ms=f"{(N * 8 + mask_bytes) / PEAK_BYTES_PER_S * 1e3:.4f}", bound_by="bytes",
+                    mask_bytes_per_slot=f"{mask_bytes / N:.3f}", slots=N)
             for label, attrs in variants:
                 with rebound(bf, **attrs):
                     check(torch.equal(fn(ids.clone()), src), f"{name} {label}: differs from the plain version")
@@ -2050,7 +2259,7 @@ def main(argv=None) -> int:
             lambda v: bf.benes_fine(v, plan.fine_masks, plan.fine_dists, src=plan.fine_src_fwd),
             lambda v: bf.benes_fine_reference(v, plan.fine_masks, plan.fine_dists),
             2, bfly_launches["K5"],
-            window_fn=lambda v: bf.benes_fine_window(v, plan.fine_masks, plan.fine_dists))
+            window_fn=lambda v: bf.benes_fine_window(v, plan.fine_masks, plan.fine_dists), window_masks=plan.fine_masks)
         (steps7, E7, R7), m7 = plan.pre_groups[0], plan.pre_masks[0]
         check(isinstance(E7, tuple), "the slice's coarse side is not a two-axis group")
         src7 = bf._direction(plan.pre_src[0], False)
@@ -2060,7 +2269,7 @@ def main(argv=None) -> int:
             lambda v: bf.benes_coarse2(v, m7, steps7, *E7, R7, src7),
             lambda v: bf.benes_coarse2_reference(v, m7, steps7, *E7, R7),
             2, bfly_launches["K7"],
-            window_fn=lambda v: bf.benes_coarse2_window(v, m7, steps7, *E7, R7),
+            window_fn=lambda v: bf.benes_coarse2_window(v, m7, steps7, *E7, R7), window_masks=m7,
             variants=(("rows_32B", {"GATHER_ROW_BYTES": 32}),))  # 8 fp32 lanes, a 96 KB strip
         carry_src = bf.apply_butterfly_cuda(plan, ids.clone(), truncate=False)
         carry_ms = cuda_ms(lambda: bf.apply_butterfly_cuda(plan, buf, truncate=False), reps=10, graph=True).ms
@@ -2158,17 +2367,24 @@ def main(argv=None) -> int:
         phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, ms_per_iteration, Timed)
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
-    # ------------------------------------------------------------------ 12. io
+    # ------------------------------------------------------------------ 12. examples
+    if "examples" in phases:
+        captured.pop("obj", None)
+        torch.cuda.empty_cache()
+        phase_examples(dev, card, counts, reset_counts, variant, Timed, n_chk)
+        say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
+
+    # ------------------------------------------------------------------ 13. io
     if "io" in phases:
         phase_io(dt, args, card, gen_s, inp, captured, counts, solve, ms_per_iteration, n_chk)
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
-    # ------------------------------------------------------------------ 13. obs
+    # ------------------------------------------------------------------ 14. obs
     if "obs" in phases:
         phase_obs(dt, inp, card, captured, reset_counts, counts, n_chk, solver_kw)
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
-    # ------------------------------------------------------------------ 14. dist
+    # ------------------------------------------------------------------ 15. dist
     if "dist" in phases:
         # the one-device logs, where phases slice and butterfly did not give them
         if "csc" not in dist_refs:
