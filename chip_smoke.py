@@ -78,7 +78,30 @@ result lines at the end are printed only by a run of every default phase):
    column) and K3 through all its tiles, the fairness solve's first 200
    iterations repeated bit for bit; then the MIPLIB script through its
    command line (exit code 0);
-13. io: the I/O tiers at the slice's shape on the native generator's data
+13. graph: every single-device path's CUDA graph (``maximize`` on a CUDA
+   dual: iteration 1 eager, then replays of one captured iteration) held to
+   the eager loop (``_maximize_eager``) on the same objective and start for
+   20 iterations, each on a solver of its own run three times (the first
+   run, a second timed by one CUDA event pair, a third under the profiler):
+   logs and final duals bit for bit both ways and across the repeats, one
+   capture, the graph's first run calling each wrapper for iteration 1 and
+   the capture only, and the port's kernels that the profiler sees in the
+   graph's replays equal to the eager loop's launches; each one's ms an
+   iteration, busy share and activities, peak device bytes and the graph's
+   nodes by kind (the profiler's records of a replay): csc ``use_pallas``,
+   plain csc and bf16 tiles (in phase slice), butterfly, compact,
+   ``srow_gather``, bf16 carry and bf16 tiles (butterfly), the LP's COO and
+   butterfly layouts (lp) and the fairness objective on the proxy
+   (examples); ``launch_chunk=50`` over the
+   slice's csc iterations (four ``chunk_walls``, the same log), and one graph
+   captured by each golden solve.  Every other solve of the script runs on
+   the graph too (the plain versions' in the eager loop): its ms an
+   iteration is one CUDA event pair around a second ``maximize`` that only
+   replays (``replay_ms``); a ``run_solver`` solve's launches are the
+   profiler's records of the kernels on the card, and its wrappers are
+   called for iteration 1, the capture and any evaluation after the loop
+   (``graph_calls``);
+14. io: the I/O tiers at the slice's shape on the native generator's data
    (the native library must build), in a fresh temporary cache directory:
    generation timed beside the numpy generator, a warm load equal to the cold
    arrays, the native tile fill equal to the numpy fill (both timed), and the
@@ -86,11 +109,11 @@ result lines at the end are printed only by a run of every default phase):
    warm (from the tile cache): each one's time to first iteration, K3, K5, K7
    and the index-building window kernels launched on the warm objective, and
    the two 20-iteration dual logs bit-identical;
-14. obs: ``run_solver`` with MLflow enabled completes (a no-op without
+15. obs: ``run_solver`` with MLflow enabled completes (a no-op without
    mlflow) and gives the log of the solve without it, ``trace`` around three
    csc iterations writes a trace naming K1's and the segment-sum's kernels and
    the ``annotate`` span, and ``collect_stats`` fills ``last_run_stats``;
-15. dist: the entity-sharded solve (``dualip_tpu_torch/parallel``) on this
+16. dist: the entity-sharded solve (``dualip_tpu_torch/parallel``) on this
    one card.  (a) A world of one NCCL rank in this process: the csc
    ``use_pallas`` solve over a mesh, its 200-iteration log bit-identical to
    the one-device log, and the all_reduce of m + 2 floats timed.  Whether
@@ -150,8 +173,13 @@ NON_FMA_OPS_PER_S = 132 * 128 * 1.98e9
 BISECTION_ITERS = 30
 
 SMALL_SOURCES = 250_000  # the second butterfly solve: few enough blocks for one single-axis group a side
-ALL_PHASES = ("kernels", "segsum", "benes", "panel", "golden", "slice", "butterfly", "cert", "lp", "examples", "io",
-              "obs", "dist")
+ALL_PHASES = ("kernels", "segsum", "benes", "panel", "golden", "slice", "butterfly", "cert", "lp", "examples",
+              "graph", "io", "obs", "dist")
+# the single-device paths phase graph holds to the eager loop (each checked in the phase that builds it)
+GRAPH_PATHS = ("csc use_pallas", "csc plain", "csc bf16 tiles", "butterfly", "butterfly compact",
+               "butterfly srow_gather", "butterfly carry_dtype=bfloat16", "lp-2.5M coo", "lp-2.5M butterfly",
+               "fairness proxy")
+GRAPH_TIMING_ITERS = 50  # replays in a solve's ms/iteration on the graph (replay_ms)
 OPT_IN_PHASES = ("canonical",)  # host time beyond the default run's budget: run alone
 CANONICAL_SOURCES = 25_000_000
 # benchmark/results/canonical_250m.json: the native generator's nnz at the
@@ -193,10 +221,22 @@ class SmokeFailure(Exception):
     pass
 
 
+def graph_calls(per_eval: int, extra_evals: int = 0) -> int:
+    """A wrapper's calls in a solve on the CUDA graph: iteration 1 and the
+    capture call it ``per_eval`` times each, an evaluation after the loop
+    (``save_primal``, an example's final evaluation) ``per_eval`` times
+    more; the replays call it never."""
+    return per_eval * (2 + extra_evals)
+
+
 class Timed:
-    """Records a CUDA event around each evaluation (no host sync)."""
+    """Records a CUDA event pair around each evaluation the host launches (no
+    host sync).  A graph's capture records none: the graph's replays are
+    timed as a whole (``replay_ms`` in ``main``)."""
 
     def calculate_traceable(self, params, dual_val, gamma):
+        if torch.cuda.is_current_stream_capturing():
+            return super().calculate_traceable(params, dual_val, gamma)
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         res = super().calculate_traceable(params, dual_val, gamma)
@@ -207,7 +247,10 @@ class Timed:
 
 def _counted():
     """The kernels' wrappers that count their launches, by the short name of
-    each count."""
+    each count.  A wrapper counts its calls on a CUDA tensor: one launch each
+    when the host runs it, one recorded launch when a CUDA graph captures it
+    (the graph's replays then launch the kernel without calling the wrapper;
+    ``device_launches`` counts those on the card)."""
     import dualip_tpu_torch.ops.butterfly as bf
     import dualip_tpu_torch.ops.fused_matching as fm
     from dualip_tpu_torch.ops.segment_sum import segment_sum_rows
@@ -219,6 +262,62 @@ def _counted():
             "K5": (bf.benes_fine, "launches"), "K6": (bf.benes_coarse, "launches"),
             "K7": (bf.benes_coarse2, "launches"), "K5w": (bf.benes_fine_window, "launches"),
             "K7w": (bf.benes_coarse2_window, "launches"), "segsum": (segment_sum_rows, "launches")}
+
+
+def port_kernel(name: str):
+    """The short name of the count a CUDA kernel's profiler record belongs
+    to, or None for a kernel that is not the port's.  K1's forms are told
+    apart by the template flags (WANT_X, GATHER) of ``clamp_kernel``,
+    ``column_kernel`` and ``wide_kernel``, K3's by ``panel_tiles_kernel``'s
+    WANT_X; the segment-sum's two kernels are ``segsum_window`` and
+    ``segsum``.  ``panel_tiles_kernel`` is also K3t/K4t's and
+    ``coarse_kernel`` also K7w's: the records count them under K3, K4 and K6
+    (``device_launches`` sorts them out)."""
+    m = re.search(r"\b(?:clamp|column|wide)_kernel<([^>]*)>", name)
+    if m:
+        want_x, gather = (f.strip() == "true" for f in m.group(1).split(",")[-2:])
+        return ("K2" if want_x else "K1") + ("g" if gather else "")
+    m = re.search(r"\bpanel_tiles_kernel<([^>]*)>", name)
+    if m:
+        return "K4" if m.group(1).split(",")[-1].strip() == "true" else "K3"
+    for sym, short in (("fine_gather_kernel", "K5"), ("rows_gather_kernel", "K7"), ("coarse_kernel", "K6"),
+                       ("fine_kernel", "K5w"), ("window_sums", "segsum_window"), ("add_rows", "segsum")):
+        if re.search(rf"\b{sym}\b", name):
+            return short
+    return None
+
+
+# The forms that only the host launches, never a graph: K3t/K4t check tiles one at a time, K5w/K7w build
+# the Benes source index; each call is one launch.
+HOST_FORMS = ("K3t", "K4t", "K5w", "K7w")
+
+
+def device_launches(prof, calls: dict) -> dict:
+    """The port's kernels that ``prof`` (a ``torch.profiler`` run with CUDA
+    activity) saw run on the card, by the short names of ``_counted``, with
+    ``segsum_window`` beside ``segsum``.  K3t/K4t and K7w launch K3/K4's and
+    K6's CUDA kernel; they run only from the host (``HOST_FORMS``), so
+    ``calls`` (the wrappers' counts over the profiled window) are their
+    launches and the rest of the shared records are K3's, K4's and K6's."""
+    n = dict.fromkeys(tuple(_counted()) + ("segsum_window",), 0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = port_kernel(e.name)
+            if k is not None:
+                n[k] += 1
+    for shared, own in (("K3", "K3t"), ("K4", "K4t"), ("K6", "K7w")):
+        n[own] = calls[own]
+        n[shared] -= calls[own]
+        check(n[shared] >= 0, f"{own} counted {calls[own]} calls, more than its CUDA kernel's records")
+    return n
+
+
+def capture_spy():
+    """Counts the optimizer's graph captures in ``call_count``; each runs the
+    package's ``_Graph._capture`` as it is."""
+    from dualip_tpu_torch.optimizers import agd
+
+    return mock.patch.object(agd._Graph, "_capture", autospec=True, side_effect=agd._Graph._capture)
 
 
 def reset_counts() -> None:
@@ -250,6 +349,17 @@ class Timing(NamedTuple):
         """The eager loop's device time is the host's: while the host
         enqueues, the card waits, so the two come out about equal."""
         return self.host_ms >= 0.9 * self.eager_ms
+
+
+def event_ms(fn) -> float:
+    """Device time of one call of ``fn``, between a CUDA event pair."""
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    s.record()
+    fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2, window_ms: float = 10.0, graph: bool = False) -> Timing:
@@ -705,13 +815,14 @@ def phase_panel_tiles(dev, err):
     return err
 
 
-def time_panel(what, obj, dev, kernels, panel_err, launches=None):
+def time_panel(what, obj, dev, kernels, panel_err, launches=None, calls=None):
     """K3/K4 on a butterfly objective's tiles (its panel table): all tiles
     in one launch against the plain version, against one launch per tile
     bit for bit and against itself (obj, reg too) bit for bit; timed beside
     the per-tile form, the plain version and, for K3, each tile alone and a
-    bf16 carry.  With ``launches`` (the solve's counts), K3 and K4 join
-    ``kernels``, named for bf16 tiles where the table's a and c are bf16."""
+    bf16 carry.  With ``launches`` and ``calls`` (the solve's launches on the
+    card and its wrapper calls), K3 and K4 join ``kernels``, named for bf16
+    tiles where the table's a and c are bf16."""
     from dualip_tpu_torch.ops.fused_matching import (
         fused_panel_project,
         fused_panel_project_tiles,
@@ -794,7 +905,7 @@ def time_panel(what, obj, dev, kernels, panel_err, launches=None):
             kernels.append({
                 "name": name, "route": "cuda", "source": "dualip_tpu_torch/csrc/panel_matching.cu",
                 "replaces": "dualip_tpu/ops/pallas_matching.py:" + ("287" if want_x else "305"),
-                "launches": launches["K4" if want_x else "K3"],
+                "launches": launches["K4" if want_x else "K3"], "wrapper_calls": calls["K4" if want_x else "K3"],
                 "max_abs_err": max(e, panel_err.get((want_x, torch.float32, table.tile_dtype), 0.0)),
                 "ms": t_k.ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None,  # no single PyTorch call computes the projection
@@ -808,12 +919,13 @@ V150D30_JAX_DUAL = 27.62  # the JAX package's dual at 10,000 iterations (PARITY.
 LP_SOLVER = dict(gamma=1e-3, initial_step_size=1e-5)  # the reference's MIPLIB solve
 
 
-def phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, ms_per_iteration, Timed):
+def phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, replay_ms, Timed, graph_check):
     """The general LP through ``run_solver(objective_type="miplib2017")``:
     the bundled MIPLIB instance (10,000 iterations on the COO layout, a
     bit-identical repeat, the butterfly layout on the whole instance held to
     COO per ``calculate``, the PDLP bound) and the slice's matrix read as a
-    general LP (COO and butterfly, timed and profiled)."""
+    general LP (COO and butterfly, timed and profiled).  The solves run on
+    the CUDA graph, so their wrapper counts are ``graph_calls``."""
     import dualip_tpu_torch.objectives.miplib as miplib_mod
     from dualip_tpu_torch.io.mps import read_mps_file
     from dualip_tpu_torch.objectives.matching import _plan_size
@@ -880,10 +992,11 @@ def phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, ms_p
     say("lp", instance="v150d30-2hopcds", rows=lp.shape[0], variables=lp.shape[1], nnz=args.A.nnz, layout="coo",
         iterations=10000, final_dual_objective=final, reference_assertion="27 +- 1",
         deviation_from_jax_package_27_62=final - V150D30_JAX_DUAL, run_solver_s=f"{solve_s:.2f}",
-        objective_build_s=f"{captured['build_s']:.3f}", ms_per_iteration=f"{ms_per_iteration(obj.events):.4f}",
-        launches=n_launch, card=card)
+        objective_build_s=f"{captured['build_s']:.3f}",
+        ms_per_iteration=f"{replay_ms(obj, torch.zeros(lp.shape[0], device=obj.device), kw=LP_SOLVER):.4f}",
+        wrapper_calls=n_launch, card=card)
     check(abs(final - 27.0) < 1.0, f"lp v150d30: dual {final}, the reference asserts 27 +- 1")
-    check(n_launch["segsum"] == 2 * 10000 and n_launch["K5"] == 0, f"lp v150d30: launches {n_launch}")
+    check(n_launch["segsum"] == graph_calls(2) and n_launch["K5"] == 0, f"lp v150d30: wrapper calls {n_launch}")
     again = repeat(obj, 10000)
     check(np.array_equal(again, np.asarray(res.dual_objective_log)), "lp v150d30: two COO solves differ")
     x = obj.calculate(res.dual_val, gamma=1e-3, save_primal=True).primal_var
@@ -909,26 +1022,30 @@ def phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, ms_p
     results = {}
     for layout, iters in (("coo", 200), ("butterfly", 50)):
         res, n_launch, solve_s = lp_solve(lp_args, iters, layout=layout)
+        peak = torch.cuda.max_memory_allocated()
         obj = captured["obj"]
         ev = obj.events
         first_ms = ev[0][0].elapsed_time(ev[0][1])
         say("lp", instance="lp-2.5M", rows=m, variables=n, nnz=inp.A.nnz, layout=layout, iterations=iters,
-            ms_per_iteration=f"{ms_per_iteration(ev):.4f}", objective_build_s=f"{captured['build_s']:.2f}",
+            ms_per_iteration=f"{replay_ms(obj, torch.zeros(m, device=obj.device), kw=LP_SOLVER):.4f}",
+            objective_build_s=f"{captured['build_s']:.2f}",
             time_to_first_iteration_s=f"{captured['build_s'] + first_ms / 1e3:.3f}", first_iteration_ms=f"{first_ms:.3f}",
             run_solver_s=f"{solve_s:.2f}", final_dual_objective=res.dual_objective,
-            peak_device_bytes=torch.cuda.max_memory_allocated(), launches=n_launch, card=card)
+            peak_device_bytes=peak, wrapper_calls=n_launch, card=card)
         check(res.dual_objective_log[-1] > res.dual_objective_log[0], f"lp-2.5M {layout}: the dual objective did not rise")
         if layout == "coo":
-            check(n_launch["segsum"] == 2 * iters, f"lp-2.5M coo: launches {n_launch}")
+            check(n_launch["segsum"] == graph_calls(2), f"lp-2.5M coo: wrapper calls {n_launch}")
             again = repeat(obj, iters)
             check(np.array_equal(again, np.asarray(res.dual_objective_log)), "lp-2.5M: two COO solves differ")
             say("lp", instance="lp-2.5M", layout=layout, repeat_of_the_solve="bit-identical")
         else:
-            check(n_launch["K5"] == 2 * iters and n_launch["segsum"] == 0, f"lp-2.5M butterfly: launches {n_launch}")
+            check(n_launch["K5"] == graph_calls(2) and n_launch["segsum"] == 0,
+                  f"lp-2.5M butterfly: wrapper calls {n_launch}")
             say("lp", instance="lp-2.5M", layout=layout, carry_slots=_plan_size(obj.ops.rl.plan),
                 layout_build_s=f"{obj.ops.rl.build_seconds['total']:.2f}",
                 routing_s=f"{obj.ops.rl.build_seconds['route']:.2f}")
         profile_window(f"lp-2.5M {layout}", obj, res.dual_val, kw=LP_SOLVER)
+        graph_check(f"lp-2.5M {layout}", obj, torch.zeros(m, device=obj.device), kw=LP_SOLVER)
         results[layout] = (obj, res.dual_val)
         del res, captured["obj"]
         if layout == "coo":
@@ -986,13 +1103,13 @@ def plain_butterfly_class():
     return PlainButterfly
 
 
-def phase_examples(dev, card, counts, reset_counts, variant, Timed, n_chk):
+def phase_examples(dev, card, counts, reset_counts, variant, Timed, n_chk, graph_check, replay_ms):
     """``examples_in`` in a temporary directory, removed whatever the outcome."""
     with tempfile.TemporaryDirectory(prefix="proxy_") as tmp:
-        examples_in(Path(tmp), dev, card, counts, reset_counts, variant, Timed, n_chk)
+        examples_in(Path(tmp), dev, card, counts, reset_counts, variant, Timed, n_chk, graph_check, replay_ms)
 
 
-def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk):
+def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk, graph_check, replay_ms):
     """The port's examples as a user runs them, at the proxy's full shape:
     the proxy generated and its LP built (shape and nnz the JAX run's), then
     ``proxy_validation.run_ours`` for 10,000 iterations on csc
@@ -1001,7 +1118,9 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk):
     kernels against their plain versions over the first iterations (K1 on the
     wide tiles also tile by tile, K3 through ``time_panel``), the fairness
     solve's first 200 iterations repeated bit for bit; then the MIPLIB
-    script through its command line."""
+    script through its command line.  The solves run on the CUDA graph, so
+    their wrapper counts are ``graph_calls`` (the final evaluation of
+    ``run_ours`` is the one after the loop)."""
     import dualip_tpu_torch.examples.movielens_matching.movies_lens_matching as mlm
     import dualip_tpu_torch.ops.fused_matching as fm
     from dualip_tpu_torch.examples.movielens_matching import proxy_validation as pv
@@ -1010,12 +1129,18 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk):
     from dualip_tpu_torch.ops.segment_sum import segment_sum_rows_reference
 
     t_phase = time.perf_counter()
+    pv_kw = dict(gamma=pv.GAMMA, initial_step_size=pv.INITIAL_STEP, max_step_size=pv.MAX_STEP)
 
-    def first_iterations(objective, iters):
-        agd = AcceleratedGradientDescent(max_iter=iters, gamma=pv.GAMMA, initial_step_size=pv.INITIAL_STEP,
-                                         max_step_size=pv.MAX_STEP)
-        m = objective.b_ext.numel() if hasattr(objective, "b_ext") else objective.b_vec.numel()
-        return np.asarray(agd.maximize(objective, torch.zeros(m, device=dev)).dual_objective_log)
+    def zeros(objective):
+        return torch.zeros(objective.b_ext.numel() if hasattr(objective, "b_ext") else objective.b_vec.numel(),
+                           device=dev)
+
+    def first_iterations(objective, iters, eager=True):
+        """The first iterations; in the eager loop by default (the plain
+        versions are references, not built for a graph)."""
+        agd = AcceleratedGradientDescent(max_iter=iters, **pv_kw)
+        run = agd._maximize_eager if eager else agd.maximize
+        return np.asarray(run(objective, zeros(objective)).dual_objective_log)
 
     t0 = time.perf_counter()
     ratings = pv.generate_proxy_ratings(tmp / "proxy_ratings.npz")
@@ -1036,7 +1161,8 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk):
 
     def run(what, fairness, layout):
         """run_ours on a timed copy of the objective: its log held to the
-        reference's, its launches counted from just before to just after."""
+        reference's, its wrapper calls counted from just before to just
+        after; ms/iteration from the graph's replays (``replay_ms``)."""
         t0 = time.perf_counter()
         obj = pv.make_objective(lps[fairness], fairness, layout, "cuda", plan_cache_dir=tmp / "plan_cache")
         torch.cuda.synchronize()
@@ -1046,9 +1172,8 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk):
         out = pv.run_ours(fairness, pv.MAX_ITER, "cuda", layout, tmp, input_args=lps[fairness], objective=timed)
         torch.cuda.synchronize()
         n = counts()
-        ev = timed.events[:pv.MAX_ITER]  # the solve's evaluations (run_ours adds one at the final dual)
-        ms_it = ev[1][0].elapsed_time(ev[-1][1]) / (len(ev) - 1)
-        first_ms = ev[0][0].elapsed_time(ev[0][1])
+        first_ms = timed.events[0][0].elapsed_time(timed.events[0][1])  # iteration 1, eager
+        ms_it = replay_ms(timed, zeros(timed), kw=pv_kw)
         s = pv.summarize(refs[fairness], pv.parse_log(out["log_path"]), fairness,
                          sensitivity if fairness else None)
         it1, want1 = out["trace"][0], jax_first[fairness]
@@ -1059,7 +1184,7 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk):
             max_rel_err=s["max_rel_err"], fairness_duals=out["fair_duals"], gates_pass=s["pass"],
             ms_per_iteration=f"{ms_it:.4f}", wall_ms_per_iteration=f"{out['solve_s'] * 1e3 / pv.MAX_ITER:.4f}",
             objective_build_s=f"{build_s:.2f}", time_to_first_iteration_s=f"{build_s + first_ms / 1e3:.3f}",
-            first_iteration_ms=f"{first_ms:.3f}", launches=n, card=card)
+            first_iteration_ms=f"{first_ms:.3f}", wrapper_calls=n, card=card)
         check(np.isfinite(out["trace"]).all() and len(out["trace"]) == pv.MAX_ITER, f"examples {what}: log malformed")
         check(abs(it1 - want1) <= 1e-6 * abs(want1),
               f"examples {what}: iteration 1 {it1} not within 1e-6 of the JAX package's {want1}")
@@ -1072,9 +1197,8 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk):
     # ---- csc, use_pallas=True: K1 in its gather form and the segment-sum
     obj, out, n = run("csc", False, "csc")
     tiles, specs = obj.bcsc.tiles, obj.bcsc.specs
-    evals = pv.MAX_ITER + 1
-    want = {"K1g": len(tiles) * evals, "K2g": 0, "K1": 0, "segsum": evals}
-    check(all(n[k] == v for k, v in want.items()), f"examples csc: launches {n}, expected {want}")
+    want = {"K1g": graph_calls(len(tiles), 1), "K2g": 0, "K1": 0, "segsum": graph_calls(1, 1)}
+    check(all(n[k] == v for k, v in want.items()), f"examples csc: wrapper calls {n}, expected {want}")
 
     plain_dev = rel_dev(first_iterations(variant(obj, plain_csc_class()), n_chk), out["trace"][:n_chk])
     say("examples", run="csc", plain_check_iterations=n_chk, max_rel_dev_vs_plain=float(plain_dev.max()),
@@ -1113,8 +1237,9 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk):
     regime = "K6" if n["K6"] else "K7"
     say("examples", run="butterfly", carry_slots=N, blocks=N >> getattr(plan, "block_log2", 15), coarse_regime=regime,
         panel_tiles=[(t.L, t.L2, t.q) for t in obj.panel_table.tiles], routing_s=f"{obj.row_layout.build_seconds['route']:.2f}")
-    want = {"K3": evals, "K4": 0, "K5": 2 * evals, regime: 4 * evals, "K1g": 0, "segsum": 0}
-    check(all(n[k] == v for k, v in want.items()), f"examples butterfly: launches {n}, expected {want}")
+    want = {"K3": graph_calls(1, 1), "K4": 0, "K5": graph_calls(2, 1), regime: graph_calls(4, 1), "K1g": 0,
+            "segsum": 0}
+    check(all(n[k] == v for k, v in want.items()), f"examples butterfly: wrapper calls {n}, expected {want}")
     plain_dev = rel_dev(first_iterations(variant(obj, plain_butterfly_class()), n_chk), out["trace"][:n_chk])
     say("examples", run="butterfly", plain_check_iterations=n_chk, max_rel_dev_vs_plain=float(plain_dev.max()),
         tolerance=1e-5)
@@ -1127,9 +1252,9 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk):
 
     # ---- fairness: the segment-sum kernel, the fixed order
     obj, out, n = run("fairness", True, "csc")
-    want = {"segsum": evals, "K1g": 0, "K3": 0}
-    check(all(n[k] == v for k, v in want.items()), f"examples fairness: launches {n}, expected {want}")
-    again = first_iterations(obj, FAIR_REPEAT_ITERS)
+    want = {"segsum": graph_calls(1, 1), "K1g": 0, "K3": 0}
+    check(all(n[k] == v for k, v in want.items()), f"examples fairness: wrapper calls {n}, expected {want}")
+    again = first_iterations(obj, FAIR_REPEAT_ITERS, eager=False)
     rep = rel_dev(again, out["trace"][:FAIR_REPEAT_ITERS])
     with rebound(mlm, segment_sum_rows=segment_sum_rows_reference):
         plain = rel_dev(first_iterations(obj, n_chk), out["trace"][:n_chk])
@@ -1138,6 +1263,7 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk):
         plain_check_iterations=n_chk, max_rel_dev_vs_plain=float(plain.max()))
     check(rep.max() == 0.0, f"examples fairness: the first {FAIR_REPEAT_ITERS} iterations repeat at {rep.max()}")
     check(plain.max() == 0.0, f"examples fairness: the segment-sum kernel vs its plain version: {plain.max()}")
+    graph_check("fairness proxy", obj, zeros(obj), kw=pv_kw)
     del obj, out
     torch.cuda.empty_cache()
 
@@ -1151,7 +1277,7 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk):
     say("examples", phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=card)
 
 
-def phase_io(dt, args, card, numpy_gen_s, numpy_inp, captured, counts, solve, ms_per_iteration, n_chk):
+def phase_io(dt, args, card, numpy_gen_s, numpy_inp, captured, counts, solve, replay_ms, n_chk):
     """The I/O tiers at the slice's shape on the native generator's data, in
     a fresh temporary cache directory: generation cold and warm (the warm load
     equal to the cold arrays), the native tile fill against the numpy fill
@@ -1221,7 +1347,8 @@ def phase_io(dt, args, card, numpy_gen_s, numpy_inp, captured, counts, solve, ms
                 time_to_first_iteration_s=f"{captured['build_s'] + first_ms / 1e3:.3f}",
                 layout_build_s=f"{rl.build_seconds['total']:.2f}", routing_s=f"{rl.build_seconds['route']:.2f}",
                 index_build_s=f"{rl.plan.index_build_s:.3f}", iterations=n_chk,
-                ms_per_iteration=f"{ms_per_iteration(obj.events):.4f}", launches=n_launch, card=card,
+                ms_per_iteration=f"{replay_ms(obj, torch.zeros(obj.bcsc.m, device=obj.device)):.4f}",
+                launches=n_launch, card=card,
                 # a miss's save: the leaves copied back from the card, then written
                 **{k: f"{v:.3f}" for k, v in rl.build_seconds.items() if k.startswith("tile_cache_")})
             del res, obj, rl, captured["obj"]
@@ -1267,9 +1394,10 @@ def phase_obs(dt, inp, card, captured, reset_counts, counts, n_chk, solver_kw):
     check(res_m.dual_val.device.type == "cuda" and all(np.isfinite(res_m.dual_objective_log)),
           "obs: the solve with MLflow enabled did not complete on the card")
     check(res_m.dual_objective_log == res_p.dual_objective_log, "obs: MLflow logging changed the solve")
-    check(n_m["K1g"] == len(obj.bcsc.tiles) * n_chk and n_m["segsum"] == n_chk, f"obs: launches {n_m}")
+    check(n_m["K1g"] == graph_calls(len(obj.bcsc.tiles)) and n_m["segsum"] == graph_calls(1),
+          f"obs: wrapper calls {n_m} (a solve on the CUDA graph)")
     say("obs", mlflow_enabled=True, mlflow_available=is_mlflow_available(), iterations=n_chk,
-        same_log_as_without_mlflow=True, launches=n_m)
+        same_log_as_without_mlflow=True, wrapper_calls=n_m)
 
     span = "dualip.csc_three_iterations"
     agd = AcceleratedGradientDescent(max_iter=3, **solver_kw)
@@ -1303,7 +1431,7 @@ def phase_obs(dt, inp, card, captured, reset_counts, counts, n_chk, solver_kw):
     torch.cuda.empty_cache()
 
 
-def phase_canonical(args, card, captured, solve, ms_per_iteration, solver_kw):
+def phase_canonical(args, card, captured, solve, replay_ms, solver_kw):
     """The canonical shape (25,000,000 sources x 10,000 destinations,
     sparsity 1e-3, seed 42) on the native generator: its nnz must be the JAX
     package's canonical run's exactly, and the csc solve with the fused kernel
@@ -1334,6 +1462,7 @@ def phase_canonical(args, card, captured, solve, ms_per_iteration, solver_kw):
         check(can.A.nnz == CANONICAL_NNZ, f"canonical: nnz {can.A.nnz} != the JAX package's {CANONICAL_NNZ}")
         res, n_launch, solve_s = solve(can, args.iters, False, use_pallas=True)
         obj = captured["obj"]
+        peak = torch.cuda.max_memory_allocated()
         first_ms = obj.events[0][0].elapsed_time(obj.events[0][1])
         dual = res.dual_objective
         rel = abs(dual - CANONICAL_DUAL) / abs(CANONICAL_DUAL)
@@ -1341,8 +1470,8 @@ def phase_canonical(args, card, captured, solve, ms_per_iteration, solver_kw):
         say("canonical", iterations=len(res.dual_objective_log), tiles=len(obj.bcsc.specs), slots=slots,
             objective_build_s=f"{captured['build_s']:.2f}",
             time_to_first_iteration_s=f"{captured['build_s'] + first_ms / 1e3:.3f}",
-            ms_per_iteration=f"{ms_per_iteration(obj.events):.4f}", run_solver_s=f"{solve_s:.2f}",
-            peak_device_bytes=torch.cuda.max_memory_allocated(), launches=n_launch, card=card)
+            ms_per_iteration=f"{replay_ms(obj, torch.zeros(obj.bcsc.m, device=obj.device)):.4f}",
+            run_solver_s=f"{solve_s:.2f}", peak_device_bytes=peak, launches=n_launch, card=card)
         say("canonical", final_dual_objective=dual, jax_fp32_dual=CANONICAL_DUAL, rel_diff=f"{rel:.3e}",
             tolerance=1e-2, note="the limit would pass a bf16 computation too (JAX bf16 carry: 1.16e-3)")
         check(all(np.isfinite(res.dual_objective_log)) and n_launch["K1g"] == len(obj.bcsc.specs) * args.iters,
@@ -1359,7 +1488,8 @@ def phase_canonical(args, card, captured, solve, ms_per_iteration, solver_kw):
             obj64 = matching_mod.MatchingSolverDualObjectiveFunction(can, gamma=solver_kw["gamma"], device=dev)
             build_s = time.perf_counter() - t0
             dual0 = torch.zeros(obj64.bcsc.m, dtype=torch.float64, device=dev)
-            res64 = AcceleratedGradientDescent(max_iter=args.iters, **solver_kw).maximize(obj64, dual0)
+            # the eager loop: the segment-sum's plain version reads its plan's sizes on the host
+            res64 = AcceleratedGradientDescent(max_iter=args.iters, **solver_kw)._maximize_eager(obj64, dual0)
             torch.cuda.synchronize()
         log64 = np.array(res64.dual_objective_log, dtype=np.float64)
         dev32 = np.abs(log32 - log64) / np.abs(log64)
@@ -1519,7 +1649,7 @@ def _nccl_probe(mesh):
     return "all_reduce completed"
 
 
-def phase_dist(dt, args, inp, card, dev, refs, solve, captured, ms_per_iteration):
+def phase_dist(dt, args, inp, card, dev, refs, solve, captured, eager_ms):
     """The entity-sharded solve on the one card.  (a) NCCL, world 1, in this
     process: the csc ``use_pallas`` solve over a mesh, its log bit-identical
     to the one-device log, and the all_reduce's time.  Then whether NCCL
@@ -1547,20 +1677,24 @@ def phase_dist(dt, args, inp, card, dev, refs, solve, captured, ms_per_iteration
         check(n_launch["K1g"] == len(obj.bcsc.tiles) * args.iters and n_launch["segsum"] == args.iters,
               f"dist (a): launches {n_launch}")
         # the same objective without its mesh, in turns with it (mesh, one device, one device, mesh):
-        # what the reduction adds to an iteration, within this call
+        # what the reduction adds to an iteration, within this call.  A mesh runs the eager loop, so every
+        # turn is timed in the eager loop, outside the profiler (the one-device solves, for the log, ran on
+        # the graph).
         one = copy.copy(obj)
         one.mesh = None
-        turns = [ms_per_iteration(obj.events)]
-        for o in (one, one, obj):
-            r, _, _ = solve(inp, args.iters, False, objective_type="matching_smoke_prebuilt", objective=o)
-            same = same and list(r.dual_objective_log) == list(log)
-            turns.append(ms_per_iteration(o.events))
+        turns = []
+        for k, o in enumerate((obj, one, one, obj)):
+            if k:
+                r, _, _ = solve(inp, args.iters, False, objective_type="matching_smoke_prebuilt", profiled=False,
+                                objective=o)
+                same = same and list(r.dual_objective_log) == list(log)
+            turns.append(eager_ms(o, torch.zeros(obj.bcsc.m, device=dev), args.iters))
         buf = torch.zeros(obj.bcsc.m + 2, device=dev)
         t_ar = cuda_ms(lambda: mesh.all_reduce_(buf), reps=200)
         say("dist", step="a", backend=dist.get_backend(), world=1, iterations=len(log),
             log_vs_one_device="bit-identical" if same else "DIFFERS",
-            ms_per_iteration_mesh_one_one_mesh=[f"{t:.4f}" for t in turns],
-            one_device_ms_per_iteration_phase_slice=refs.get("csc_ms", "not run"),
+            ms_per_iteration_mesh_one_one_mesh=[f"{t:.4f}" for t in turns], loop="eager, each",
+            one_device_graph_ms_per_iteration_phase_slice=refs.get("csc_ms", "not run"),
             allreduce_ms=f"{t_ar.eager_ms:.4f}", allreduce_host_enqueue_ms=f"{t_ar.host_ms:.4f}",
             allreduce_floats=obj.bcsc.m + 2, launches=n_launch, card=card)
         check(same, f"dist (a): the world-1 mesh log differs from the one-device log by "
@@ -1662,6 +1796,7 @@ def phase_golden(dev_name):
         worst = max(abs(log[i - 1] - want) for i, want in GOLDEN)
         check(worst < tol, f"golden trace through {name}: deviation {worst} >= {tol}")
         say("golden", path=repr(name), iterations=len(log), max_abs_dev=worst, tolerance=tol, card=dev_name)
+    return len(variants)
 
 
 def ptxas_summary(logs, log_dir: Path) -> None:
@@ -1774,8 +1909,11 @@ def main(argv=None) -> int:
         phase_benes(dev)
     if "panel" in phases:
         panel_err = phase_panel(dev)
+    golden = None  # (solves, graphs captured)
     if "golden" in phases:
-        phase_golden(dev_name)
+        with capture_spy() as cap:
+            n_golden = phase_golden(dev_name)
+        golden = (n_golden, cap.call_count)  # one graph per run_solver call on the card
     say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
     kernels = []
@@ -1789,46 +1927,92 @@ def main(argv=None) -> int:
     @dt.register_objective("matching_smoke")
     def _factory(input_args, solver_args, compute_args, mesh, **kw):
         t = time.perf_counter()
-        obj = TimedMatching(input_args, gamma=solver_args.gamma, device=compute_args.host_device, **kw)
+        obj = TimedMatching(input_args, gamma=solver_args.gamma, device=compute_args.host_device, mesh=mesh, **kw)
         torch.cuda.synchronize()
         obj.events = []
         captured["obj"], captured["build_s"] = obj, time.perf_counter() - t
         torch.cuda.reset_peak_memory_stats()
+        if captured.get("on_built"):
+            captured["on_built"]()
         return obj
 
     @dt.register_objective("matching_smoke_prebuilt")
     def _prebuilt(input_args, solver_args, compute_args, mesh, objective=None):
         objective.events = []
+        if captured.get("on_built"):
+            captured["on_built"]()
         return objective
 
-    def solve(data, iters, save_primal, objective_type="matching_smoke", **objective_kwargs):
-        """One solve through run_solver: (result, launches, seconds), counts set to 0 just before."""
-        reset_counts()
-        t = time.perf_counter()
-        res = dt.run_solver(
-            data, dt.SolverArgs(max_iter=iters, save_primal=save_primal, **solver_kw), dt.ComputeArgs(),
-            dt.ObjectiveArgs(objective_type=objective_type, objective_kwargs=objective_kwargs),
-        )
-        torch.cuda.synchronize()
-        return res, counts(), time.perf_counter() - t
-
-    def first_iterations(objective, m):
-        return np.array(AcceleratedGradientDescent(max_iter=n_chk, **solver_kw).maximize(
-            objective, torch.zeros(m, device=dev)).dual_objective_log)
-
-    def profile_window(path, objective, dual, iters=10, kw=None):
-        """A torch.profiler window over ``iters`` iterations of ``path``: the
-        device's busy share of the window and the kernels' time by name;
-        returns the kernels' launches per name (None if nothing was
-        recorded)."""
+    def solve(data, iters, save_primal, objective_type="matching_smoke", profiled=True, **objective_kwargs):
+        """One solve through run_solver: (result, launches, seconds), the
+        wrappers' counts set to 0 just before and left in
+        ``captured["calls"]``.  With ``profiled`` the solve runs under a
+        profiler of the card's activity from the moment the factory returns
+        the built objective to the end, and the launches are the port's
+        kernels that ran on the card (``device_launches``), to which the forms
+        only the host launches (``HOST_FORMS``) add their calls in the build;
+        each kernel that ran was called through its wrapper.  A solve whose
+        launches are not read (a repeat, a reference log) runs with
+        ``profiled=False`` and gives None for them."""
         from torch.profiler import ProfilerActivity, profile
 
-        agd = AcceleratedGradientDescent(max_iter=iters, **(kw or solver_kw))
-        agd.maximize(objective, dual)
+        reset_counts()
+        prof, window = profile(activities=[ProfilerActivity.CUDA]), {}
+
+        def start():  # the factory built the objective: the solve starts
+            torch.cuda.synchronize()
+            window["calls"] = counts()
+            prof.start()
+
+        captured["on_built"] = start if profiled else None
+        t = time.perf_counter()
+        try:
+            res = dt.run_solver(
+                data, dt.SolverArgs(max_iter=iters, save_primal=save_primal, **solver_kw), dt.ComputeArgs(),
+                dt.ObjectiveArgs(objective_type=objective_type, objective_kwargs=objective_kwargs),
+            )
+            torch.cuda.synchronize()
+        finally:
+            captured["on_built"] = None
+            if "calls" in window:
+                prof.stop()
+        seconds = time.perf_counter() - t
+        captured["calls"] = calls = counts()
+        if not profiled:
+            return res, None, seconds
+        check("calls" in window, "solve: the objective's factory did not start the profiler")
+        built = window["calls"]
+        n = device_launches(prof, {k: calls[k] - built[k] for k in calls})
+        for k in HOST_FORMS:
+            n[k] += built[k]
+        check(n["segsum_window"] == n["segsum"], f"the segment-sum's two kernels ran {n['segsum_window']} and "
+                                                 f"{n['segsum']} times")
+        unseen = [k for k in calls if n[k] and not calls[k]]
+        check(not unseen, f"kernels ran on the card with no call of their wrapper: {unseen} ({n}; calls {calls})")
+        return res, n, seconds
+
+    def first_iterations(objective, m):
+        """The first iterations of a plain-version objective, in the eager
+        loop: the plain versions are references, not built for a graph (the
+        segment-sum's reads its plan's sizes on the host)."""
+        return np.array(AcceleratedGradientDescent(max_iter=n_chk, **solver_kw)._maximize_eager(
+            objective, torch.zeros(m, device=dev)).dual_objective_log)
+
+    profiled = {}  # path -> profile_run's numbers
+
+    def profile_run(path, fn, iters):
+        """``fn`` (``iters`` iterations) under torch.profiler, with the counts
+        set to 0 just before: prints the device's busy share of the wall and
+        the kernels' time by name, and returns its numbers (``launches``: the
+        port's kernels that ran on the card, ``by_name``: every kernel's
+        records); None if the profiler recorded no device time."""
+        from torch.profiler import ProfilerActivity, profile
+
         torch.cuda.synchronize()
+        reset_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            agd.maximize(objective, dual)
+            fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -1849,6 +2033,12 @@ def main(argv=None) -> int:
             c, t = by_name.get(nm, (0, 0.0))
             by_name[nm] = (c + 1, t + e0 - s0)
         n_select = sum(c for nm, (c, _) in by_name.items() if "ndexSelect" in nm or "index_select" in nm)
+        kinds = {k: sum(c for nm, (c, _) in by_name.items() if nm.startswith(k.capitalize())) / iters
+                 for k in ("memcpy", "memset")}
+        kinds["kernel"] = len(spans) / iters - sum(kinds.values())
+        r = profiled[path] = {"busy_share": busy / wall_us, "activities": len(spans) / iters, "kinds": kinds,
+                              "launches": device_launches(prof, counts()),
+                              "by_name": {nm: c for nm, (c, _) in by_name.items()}}
         say("profile", path=path, iterations=iters, window_wall_ms=f"{wall_us / 1e3:.4f}",
             device_span_ms=f"{span / 1e3:.4f}", device_busy_ms=f"{busy / 1e3:.4f}",
             busy_share_of_wall=f"{busy / wall_us:.4f}", busy_share_of_span=f"{busy / span:.4f}",
@@ -1856,10 +2046,40 @@ def main(argv=None) -> int:
         for nm, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:14]:
             say("profile", path=path, kernel=repr(nm[:80]), per_iteration=c / iters,
                 ms_per_iteration=f"{t / iters / 1e3:.4f}")
-        return {nm: c for nm, (c, _) in by_name.items()}
+        return r
+
+    def profile_window(path, objective, dual, iters=10, kw=None):
+        """A torch.profiler window over ``iters`` iterations of ``path``: the
+        solve's second ``maximize`` on one solver, all replays of the graph
+        its first captured.  Returns the kernels' records per name (None if
+        nothing was recorded)."""
+        agd = AcceleratedGradientDescent(max_iter=iters, **(kw or solver_kw))
+        agd.maximize(objective, dual)
+        r = profile_run(path, lambda: agd.maximize(objective, dual), iters)
+        return None if r is None else r["by_name"]
+
+    def replay_ms(objective, x0, kw=None, iters=GRAPH_TIMING_ITERS, agd=None):
+        """ms an iteration on the graph: a CUDA event pair around a second
+        ``maximize`` on one solver (``agd``, or a new one whose first
+        ``maximize`` captures), which only replays the graph cached in its
+        ``_jit_cache``, over its iterations.  The window also holds loading
+        the start into the graph's buffers and fetching the metrics."""
+        if agd is None:
+            agd = AcceleratedGradientDescent(max_iter=iters, **(kw or solver_kw))
+            agd.maximize(objective, x0)
+        return event_ms(lambda: agd.maximize(objective, x0)) / agd.max_iter
 
     def ms_per_iteration(ev):
+        """ms an iteration of the eager loop, from its evaluations' events:
+        the start of iteration 2 to the end of the last evaluation."""
         return ev[1][0].elapsed_time(ev[-1][1]) / (len(ev) - 1)
+
+    def eager_ms(objective, x0, iters):
+        """``ms_per_iteration`` of ``iters`` iterations of ``objective`` (a
+        ``Timed`` one) in the eager loop."""
+        objective.events = []
+        AcceleratedGradientDescent(max_iter=iters, **solver_kw)._maximize_eager(objective, x0)
+        return ms_per_iteration(objective.events)
 
     def check_solution(res, obj, data, iters, what):
         log = res.dual_objective_log
@@ -1883,6 +2103,89 @@ def main(argv=None) -> int:
             setattr(new, k, v)
         return new
 
+    graph_rows = {}  # phase graph: path -> its numbers
+
+    def graph_check(path, obj, x0, kw=None, iters=None):
+        """Phase graph on one path: the same objective and start through the
+        eager loop (``_maximize_eager``) and through ``maximize`` (iteration 1
+        eager, then replays of a CUDA graph of one iteration), each on a
+        solver of its own, three times: the first run (counts set to 0 just
+        before, peak device bytes), the second timed by one CUDA event pair
+        (on the graph all replays, from ``_jit_cache``), the third under the
+        profiler.  Held: the logs and final duals bit for bit, both ways and
+        across the repeats; one capture; the graph's first run calls each
+        wrapper twice as often as one eager iteration (iteration 1 and the
+        capture); and the port's kernels that the profiler saw run in the
+        graph's replays equal the eager loop's wrapper counts and its own
+        profiled launches.  The graph's nodes by kind are the profiler's
+        records of one replay (kernels, copies, memsets)."""
+        if "graph" not in phases:
+            return
+        kw, iters = kw or solver_kw, iters or n_chk
+        cls = type(obj) if isinstance(obj, Timed) else type("Timed" + type(obj).__name__, (Timed, type(obj)), {})
+        tobj = variant(obj, cls)
+        out = {}
+        for mode in ("eager", "graph"):
+            agd = AcceleratedGradientDescent(max_iter=iters, **kw)
+            run = agd._maximize_eager if mode == "eager" else agd.maximize
+            with capture_spy() as cap:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                reset_counts()
+                res = run(tobj, x0)
+                torch.cuda.synchronize()
+                o = out[mode] = {"res": res, "calls": counts(), "peak": torch.cuda.max_memory_allocated() - base}
+                again = []
+                o["ms"] = event_ms(lambda: again.append(run(tobj, x0))) / iters
+                prof = profile_run(f"{path} {mode}", lambda: again.append(run(tobj, x0)), iters)
+                o["captures"] = cap.call_count
+            o["repeats_equal"] = all(list(r.dual_objective_log) == list(res.dual_objective_log)
+                                     and torch.equal(r.dual_val, res.dual_val) for r in again)
+            check(prof is not None, f"graph {path} {mode}: the profiler recorded no device time")
+            o.update(busy=prof["busy_share"], activities=prof["activities"], launches=prof["launches"],
+                     kinds=prof["kinds"])
+            del agd, run, again
+        e, g = out["eager"], out["graph"]
+        same_log = list(e["res"].dual_objective_log) == list(g["res"].dual_objective_log)
+        same_dual = torch.equal(e["res"].dual_val, g["res"].dual_val)
+        # the kernels of an iteration (K5w/K7w build an index once, which a first run may do)
+        names = [k for k in _counted() if k not in ("K5w", "K7w")]
+        replayed_as_eager = all(g["launches"][k] == e["calls"][k] for k in names)
+        eager_as_counted = all(e["launches"][k] == e["calls"][k] for k in names)
+        segsum_whole = e["launches"]["segsum_window"] == e["launches"]["segsum"] and \
+            g["launches"]["segsum_window"] == g["launches"]["segsum"]
+        calls_graph_run = all(g["calls"][k] * iters == 2 * e["calls"][k] for k in names)
+        nonzero = lambda d: {k: v for k, v in d.items() if v}  # noqa: E731
+        row = {"iterations": iters, "eager_ms_per_iteration": f"{e['ms']:.4f}",
+               "graph_ms_per_iteration": f"{g['ms']:.4f}",
+               "eager_over_graph": f"{e['ms'] / g['ms']:.3f}", "eager_busy_share": e["busy"],
+               "graph_busy_share": g["busy"], "eager_activities_per_iteration": e["activities"],
+               "graph_activities_per_iteration": g["activities"], "graph_nodes_per_replay": g["kinds"],
+               "port_kernels_per_replay": {k: v / iters for k, v in nonzero(g["launches"]).items()},
+               "eager_wrapper_calls": nonzero(e["calls"]), "graph_run_wrapper_calls": nonzero(g["calls"]),
+               "eager_peak_bytes": e["peak"], "graph_peak_bytes": g["peak"]}
+        graph_rows[path] = row
+        say("graph", path=repr(path), logs="bit-identical" if same_log else "DIFFER",
+            final_dual="bit-identical" if same_dual else "DIFFERS",
+            repeats_equal=e["repeats_equal"] and g["repeats_equal"],
+            replays_launch_the_eager_kernels=replayed_as_eager, eager_profile_matches_counts=eager_as_counted,
+            captures=g["captures"], **row, card=card)
+        check(same_log, f"graph {path}: the graph's log differs from the eager loop's by "
+                        f"{rel_dev(g['res'].dual_objective_log, e['res'].dual_objective_log).max()}")
+        check(same_dual, f"graph {path}: the graph's final dual differs from the eager loop's")
+        check(e["repeats_equal"] and g["repeats_equal"], f"graph {path}: a repeated maximize differs from the first")
+        check(e["captures"] == 0 and g["captures"] == 1, f"graph {path}: {g['captures']} captures, expected 1")
+        check(calls_graph_run, f"graph {path}: wrapper calls {g['calls']} on the graph's run, eager {e['calls']} "
+                               f"over {iters} iterations (expected iteration 1 and the capture)")
+        check(eager_as_counted, f"graph {path}: the profiler saw {e['launches']} eager, the wrappers counted "
+                                f"{e['calls']}")
+        check(replayed_as_eager, f"graph {path}: the replays launched {g['launches']}, the eager loop "
+                                 f"{e['calls']}")
+        check(segsum_whole, f"graph {path}: the segment-sum's two kernels ran apart: {e['launches']}, {g['launches']}")
+        del out, e, g
+        torch.cuda.empty_cache()
+
     certs, cert_dual = {}, None
 
     def certify(what, objective, dual):
@@ -1902,16 +2205,18 @@ def main(argv=None) -> int:
     # ------------------------------------------------------------------ 8. csc slice
     if "slice" in phases:
         res, n_launch, solve_s = solve(inp, args.iters, True, use_pallas=True)
+        csc_calls = captured["calls"]
         peak = torch.cuda.max_memory_allocated()
         obj = captured["obj"]
         ev = obj.events
+        zeros_m = torch.zeros(obj.bcsc.m, device=dev)
         specs, tiles = obj.bcsc.specs, obj.bcsc.tiles
         n_tiles = len(tiles)
         slots = sum(s.L * s.K for s in specs)
         cols = sum(s.K for s in specs)
         nnz = obj.bcsc.nnz
         first_iter_ms = ev[0][0].elapsed_time(ev[0][1])
-        ms_per_iter = ms_per_iteration(ev)
+        ms_per_iter = replay_ms(obj, zeros_m, iters=args.iters)
         log = csc_log = res.dual_objective_log
         dist_refs.update(csc=list(log), csc_ms=f"{ms_per_iter:.4f}")
         say("slice", nnz=nnz, tiles=n_tiles, tile_shapes=[(s.L, s.K) for s in specs],
@@ -1920,24 +2225,47 @@ def main(argv=None) -> int:
             time_to_first_iteration_s=f"{captured['build_s'] + first_iter_ms / 1e3:.3f}",
             first_iteration_ms=f"{first_iter_ms:.3f}", run_solver_s=f"{solve_s:.2f}")
         say("slice", iterations=len(log), ms_per_iteration=f"{ms_per_iter:.4f}",
-            iterations_per_s=f"{1e3 / ms_per_iter:.2f}", window="start of iteration 2 to end of the last evaluation",
+            iterations_per_s=f"{1e3 / ms_per_iter:.2f}",
+            window="a second maximize of as many iterations on one solver: replays of its cached graph",
             final_dual_objective=res.dual_objective, peak_device_bytes=peak)
         want = {"K1g": n_tiles * args.iters, "K2g": n_tiles, "K1": 0, "K2": 0, "segsum": args.iters + 1}
-        say("slice", launches=n_launch, expected=want,
-            note="K1g/K2g: the gather form; K1/K2: the lam_g form, off the main path; segsum: one call "
-                 "(two CUDA launches) per evaluation, all tiles at once")
+        want_calls = {"K1g": graph_calls(n_tiles), "K2g": n_tiles, "K1": 0, "K2": 0, "segsum": graph_calls(1, 1)}
+        say("slice", launches=n_launch, expected=want, wrapper_calls=csc_calls, expected_calls=want_calls,
+            note="launches: the profiler's records on the card; K1g/K2g: the gather form; K1/K2: the lam_g form, "
+                 "off the main path; segsum: one call (two CUDA launches) per evaluation, all tiles at once; "
+                 "wrapper calls: iteration 1 and the graph's capture, then save_primal's evaluation")
         check_solution(res, obj, inp, args.iters, "csc slice")
         for k, v in want.items():
             check(n_launch[k] == v, f"csc slice: {k} launches {n_launch[k]} != {v}")
+            check(csc_calls[k] == want_calls[k], f"csc slice: {k} wrapper calls {csc_calls[k]} != {want_calls[k]}")
         csc_launches = n_launch
 
         # The solve again, whole: the fixed-order segment-sum makes it repeat itself.
-        res2, _, _ = solve(inp, args.iters, False, objective_type="matching_smoke_prebuilt", objective=obj)
+        res2, _, _ = solve(inp, args.iters, False, objective_type="matching_smoke_prebuilt", profiled=False,
+                           objective=obj)
         repeat_dev = rel_dev(res2.dual_objective_log, log)
         say("slice", repeat_of_the_solve="bit-identical" if repeat_dev.max() == 0 else "DIFFERS",
             max_rel_dev_fused_repeat=float(repeat_dev.max()), final_dual_objective_again=res2.dual_objective)
         check(repeat_dev.max() == 0.0 and res2.dual_objective == res.dual_objective,
               f"two csc solves differ by {repeat_dev.max()} relative")
+        graph_check("csc use_pallas", obj, zeros_m)
+        if "graph" in phases:
+            # the JAX package's benchmark protocol: chunks of launch_chunk replays, each ended by a fetch
+            agd = AcceleratedGradientDescent(max_iter=args.iters, launch_chunk=50, **solver_kw)
+            agd.collect_chunk_walls = True
+            r_c = agd.maximize(obj, zeros_m)
+            sizes = [size for size, _ in agd.chunk_walls]
+            want_sizes = [min(50, args.iters - p) for p in range(0, args.iters, 50)]
+            later = agd.chunk_walls[1:]
+            later_ms = sum(w for _, w in later) * 1e3 / max(1, sum(n for n, _ in later))
+            same = list(r_c.dual_objective_log) == list(log)
+            say("graph", path="'csc use_pallas'", launch_chunk=50, iterations=args.iters, chunk_sizes=sizes,
+                chunk_walls_s=[f"{w:.4f}" for _, w in agd.chunk_walls],
+                ms_per_iteration_later_chunks=f"{later_ms:.4f}",
+                log_vs_run_solver="bit-identical" if same else "DIFFERS", card=card)
+            check(sizes == want_sizes, f"graph: chunk_walls sizes {sizes}, expected {want_sizes}")
+            check(same, "graph: the launch_chunk=50 solve's log differs")
+            del agd, r_c
 
         # The first iterations again, with K1's plain version on the card (same
         # tiles, the same segment-sum kernel on both sides).
@@ -2014,7 +2342,8 @@ def main(argv=None) -> int:
                 largest_tile=(biggest.L, biggest.K), **timing_kv(t_k))
             kernels.append({
                 "name": name, "route": "cuda", "source": "dualip_tpu_torch/csrc/fused_matching.cu",
-                "replaces": replaces, "launches": csc_launches["K2g" if want_x else "K1g"], "max_abs_err": err,
+                "replaces": replaces, "launches": csc_launches["K2g" if want_x else "K1g"],
+                "wrapper_calls": csc_calls["K2g" if want_x else "K1g"], "max_abs_err": err,
                 "ms": t_k.ms, "plain_ms": t_plain.ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None,  # no single PyTorch call computes the projection
             })
@@ -2032,7 +2361,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": "K1 fused_tile_eval_T (lam_g form)", "route": "cuda",
             "source": "dualip_tpu_torch/csrc/fused_matching.cu", "replaces": "dualip_tpu/ops/pallas_matching.py:141",
-            "launches": csc_launches["K1"], "max_abs_err": err, "ms": t_lam.ms, "plain_ms": t_plain.ms,
+            "launches": csc_launches["K1"], "wrapper_calls": csc_calls["K1"], "max_abs_err": err, "ms": t_lam.ms,
+            "plain_ms": t_plain.ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
 
@@ -2090,7 +2420,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": "segment_sum_rows", "route": "cuda", "source": "dualip_tpu_torch/csrc/segment_sum.cu",
             "replaces": "none: XLA's segment_sum at dualip_tpu/objectives/matching.py:182, outside any TPU kernel",
-            "launches": csc_launches["segsum"], "max_abs_err": seg_err, "ms": seg_t.ms, "plain_ms": seg_plain.ms,
+            "launches": csc_launches["segsum"], "wrapper_calls": csc_calls["segsum"], "max_abs_err": seg_err,
+            "ms": seg_t.ms, "plain_ms": seg_plain.ms,
             "bound_ms": seg_bound, "bound_by": "bytes", "library_ms": atomic_t.ms,
         })
         del lam_g, ax_all, views, rows_all, plain, r_f, r_p, res2
@@ -2122,14 +2453,26 @@ def main(argv=None) -> int:
         plain16 = rel_dev(first_iterations(variant(obj16, PlainSegsum), obj16.bcsc.m), log16)
         vs32 = rel_dev(log16, csc_log[:n_chk])
         say("slice", option="'dtype=bfloat16 (tiles), use_pallas=False'", iterations=n_chk,
-            ms_per_iteration=f"{ms_per_iteration(obj16.events):.4f}", fp32_tiles_use_pallas_ms_per_iteration=f"{ms_per_iter:.4f}",
+            ms_per_iteration=f"{replay_ms(obj16, torch.zeros(obj16.bcsc.m, device=dev)):.4f}",
+            fp32_tiles_use_pallas_ms_per_iteration=f"{ms_per_iter:.4f}",
             objective_build_s=f"{captured['build_s']:.2f}", max_rel_dev_vs_plain=float(plain16.max()),
             max_rel_dev_vs_fp32_tiles=float(vs32.max()), launches=n_launch, card=card)
         check(plain16.max() == 0.0, f"csc bf16 tiles: kernel vs plain versions differ by {plain16.max()} relative")
         check(vs32.max() <= 4e-2, f"csc bf16 tiles drift {vs32.max()} relative from the fp32 tiles")
         check(n_launch["segsum"] == n_chk and n_launch["K1g"] == 0, f"csc bf16 tiles: launches {n_launch}")
+        graph_check("csc bf16 tiles", obj16, torch.zeros(obj16.bcsc.m, device=dev))
         del obj16, r16, captured["obj"]
         torch.cuda.empty_cache()
+        if "graph" in phases:  # the plain csc path on fp32 tiles (registry projections, the segment-sum kernel)
+            r_p, n_launch, _ = solve(inp, n_chk, False)
+            obj_p = captured["obj"]
+            say("slice", option="'use_pallas=False (fp32 tiles)'", iterations=n_chk,
+                ms_per_iteration=f"{replay_ms(obj_p, torch.zeros(obj_p.bcsc.m, device=dev)):.4f}",
+                max_rel_dev_vs_fused=float(rel_dev(r_p.dual_objective_log, csc_log[:n_chk]).max()), launches=n_launch)
+            check(n_launch["segsum"] == n_chk and n_launch["K1g"] == 0, f"csc plain: launches {n_launch}")
+            graph_check("csc plain", obj_p, torch.zeros(obj_p.bcsc.m, device=dev))
+            del obj_p, r_p, captured["obj"]
+            torch.cuda.empty_cache()
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
     # ------------------------------------------------------------------ 9. butterfly slice
@@ -2139,6 +2482,7 @@ def main(argv=None) -> int:
         def butterfly_solve(data, sources, what, expect_coarse, index_launches):
             """The solve, its counts, the plain-version and repeat checks."""
             res, n_launch, solve_s = solve(data, args.iters, True, layout="butterfly")
+            calls = captured["calls"]
             peak = torch.cuda.max_memory_allocated()
             obj = captured["obj"]
             rl, plan = obj.row_layout, obj.row_layout.plan
@@ -2155,30 +2499,38 @@ def main(argv=None) -> int:
             say(what, objective_build_s=f"{captured['build_s']:.2f}", layout_build_s=f"{rl.build_seconds['total']:.2f}",
                 routing_s=f"{rl.build_seconds['route']:.2f}", router=bf.last_route.get("router"),
                 run_solver_s=f"{solve_s:.2f}", peak_device_bytes=peak)
-            ms_it = ms_per_iteration(obj.events)
+            ms_it = replay_ms(obj, torch.zeros(obj.bcsc.m, device=dev), iters=args.iters)
             say(what, iterations=len(res.dual_objective_log), ms_per_iteration=f"{ms_it:.4f}",
                 iterations_per_s=f"{1e3 / ms_it:.2f}", final_dual_objective=res.dual_objective)
             # K3/K4: one launch per evaluation, all tiles; K3t/K4t: the per-tile form, off the main path;
             # K5w/K7w: the window kernels building the index once, at pack time
             want = {"K3": args.iters, "K4": 1, "K3t": 0, "K4t": 0, "K5": 2 * evals, expect_coarse: 4 * evals,
                     "K5w": 2, "K7w": index_launches}
-            say(what, launches=n_launch, expected=want)
+            want_calls = {"K3": graph_calls(1), "K4": 1, "K3t": 0, "K4t": 0, "K5": graph_calls(2, 1),
+                          expect_coarse: graph_calls(4, 1), "K5w": 2, "K7w": index_launches}
+            say(what, launches=n_launch, expected=want, wrapper_calls=calls, expected_calls=want_calls,
+                note="launches: the profiler's records on the card; wrapper calls: iteration 1 and the graph's "
+                     "capture, then save_primal's evaluation")
             check_solution(res, obj, data, args.iters, what)
             for k, v in want.items():
                 check(n_launch[k] == v, f"{what}: {k} launches {n_launch[k]} != {v}")
+                check(calls[k] == want_calls[k], f"{what}: {k} wrapper calls {calls[k]} != {want_calls[k]}")
             check(n_launch["K1g"] == n_launch["K1"] == n_launch["segsum"] == 0, f"{what}: the csc kernels ran: {n_launch}")
             log = np.asarray(res.dual_objective_log)
             plain_dev = rel_dev(first_iterations(variant(obj, PlainButterfly), obj.bcsc.m), log[:n_chk])
             say(what, plain_check_iterations=n_chk, max_rel_dev_vs_plain=float(plain_dev.max()), tolerance=1e-5)
             check(plain_dev.max() <= 1e-5, f"{what}: kernels vs plain versions differ by {plain_dev.max()} relative")
-            res2, _, _ = solve(data, args.iters, False, objective_type="matching_smoke_prebuilt", objective=obj)
+            res2, _, _ = solve(data, args.iters, False, objective_type="matching_smoke_prebuilt", profiled=False,
+                               objective=obj)
             rep = rel_dev(res2.dual_objective_log, log)
             say(what, repeat_of_the_solve="bit-identical" if rep.max() == 0 else "DIFFERS", max_rel_dev=float(rep.max()))
             check(rep.max() == 0.0, f"{what}: two butterfly solves differ by {rep.max()} relative")
-            return res, obj, n_launch, ms_it
+            return res, obj, n_launch, ms_it, calls
 
-        res, obj, bfly_launches, bfly_ms = butterfly_solve(inp, args.sources, "butterfly", "K7", 4)
+        res, obj, bfly_launches, bfly_ms, bfly_calls = butterfly_solve(inp, args.sources, "butterfly", "K7", 4)
         log = np.asarray(res.dual_objective_log)
+        zeros_m = torch.zeros(obj.bcsc.m, device=dev)
+        graph_check("butterfly", obj, zeros_m)
         dist_refs["butterfly"] = list(res.dual_objective_log)
         if csc_log is not None:
             vs_csc = rel_dev(log[:n_chk], csc_log[:n_chk])
@@ -2189,7 +2541,7 @@ def main(argv=None) -> int:
         # Options on the same layout, 20 iterations each, timed.
         def timed_variant(name, objective):
             r, n_launch, _ = solve(inp, n_chk, False, objective_type="matching_smoke_prebuilt", objective=objective)
-            ms_it = ms_per_iteration(objective.events)
+            ms_it = replay_ms(objective, zeros_m)
             dev_log = rel_dev(r.dual_objective_log, log[:n_chk])
             say("butterfly", option=repr(name), iterations=n_chk, ms_per_iteration=f"{ms_it:.4f}",
                 max_rel_dev_vs_fp32_butterfly=float(dev_log.max()), launches=n_launch)
@@ -2197,6 +2549,7 @@ def main(argv=None) -> int:
 
         d, _ = timed_variant("carry_dtype=bfloat16", variant(obj, carry_dtype=torch.bfloat16))
         check(d <= 4e-2, f"bf16 carry drifts {d} relative from the fp32 carry")
+        graph_check("butterfly carry_dtype=bfloat16", variant(obj, carry_dtype=torch.bfloat16), zeros_m)
         rl_gather = copy.copy(obj.row_layout)
         t0 = time.perf_counter()
         rl_gather.srow_colidx = route_row_ids(obj.row_layout, obj.bcsc.m)
@@ -2205,6 +2558,7 @@ def main(argv=None) -> int:
         d, n_launch = timed_variant("srow_gather=True", variant(obj, row_layout=rl_gather, srow_gather=True))
         check(d == 0.0, f"srow_gather is not bit-identical to the routed srow: {d}")
         check(n_launch["K5"] == n_chk, f"srow_gather: K5 launches {n_launch['K5']} != {n_chk} (reverse carry only)")
+        graph_check("butterfly srow_gather", variant(obj, row_layout=rl_gather, srow_gather=True), zeros_m)
         del rl_gather
 
         # ---- each kernel timed at the slice's shapes
@@ -2214,8 +2568,8 @@ def main(argv=None) -> int:
         buf = torch.from_numpy(np.random.default_rng(5).normal(size=N).astype(np.float32)).to(dev)
         ids = torch.arange(N, dtype=torch.int32, device=dev)
 
-        def time_benes(name, replaces, fn, ref_fn, side_bytes, n_launches, window_fn=None, window_masks=None,
-                       variants=()):
+        def time_benes(name, replaces, fn, ref_fn, side_bytes, n_launches, n_calls, window_fn=None,
+                       window_masks=None, variants=()):
             """ms of one launch group, the plain version's, the bound (8 B of
             payload and ``side_bytes`` of index or mask planes per slot), the
             payload-only floor, the library call (index_select by the group's
@@ -2249,7 +2603,8 @@ def main(argv=None) -> int:
                 side_bytes_per_slot=side_bytes, slots=N, **timing_kv(t_k))
             kernels.append({
                 "name": name, "route": "cuda", "source": "dualip_tpu_torch/csrc/benes.cu", "replaces": replaces,
-                "launches": n_launches, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "launches": n_launches, "wrapper_calls": n_calls, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound,
                 "bound_by": "bytes", "library_ms": lib_ms, "payload_floor_ms": floor, **extra,
             })
             return ms
@@ -2258,7 +2613,7 @@ def main(argv=None) -> int:
             "K5 benes_fine", "dualip_tpu/ops/butterfly.py:520",
             lambda v: bf.benes_fine(v, plan.fine_masks, plan.fine_dists, src=plan.fine_src_fwd),
             lambda v: bf.benes_fine_reference(v, plan.fine_masks, plan.fine_dists),
-            2, bfly_launches["K5"],
+            2, bfly_launches["K5"], bfly_calls["K5"],
             window_fn=lambda v: bf.benes_fine_window(v, plan.fine_masks, plan.fine_dists), window_masks=plan.fine_masks)
         (steps7, E7, R7), m7 = plan.pre_groups[0], plan.pre_masks[0]
         check(isinstance(E7, tuple), "the slice's coarse side is not a two-axis group")
@@ -2268,7 +2623,7 @@ def main(argv=None) -> int:
             "K7 benes_coarse2", "dualip_tpu/ops/butterfly.py:606",
             lambda v: bf.benes_coarse2(v, m7, steps7, *E7, R7, src7),
             lambda v: bf.benes_coarse2_reference(v, m7, steps7, *E7, R7),
-            2, bfly_launches["K7"],
+            2, bfly_launches["K7"], bfly_calls["K7"],
             window_fn=lambda v: bf.benes_coarse2_window(v, m7, steps7, *E7, R7), window_masks=m7,
             variants=(("rows_32B", {"GATHER_ROW_BYTES": 32}),))  # 8 fp32 lanes, a 96 KB strip
         carry_src = bf.apply_butterfly_cuda(plan, ids.clone(), truncate=False)
@@ -2278,7 +2633,7 @@ def main(argv=None) -> int:
             library_one_index_select_ms=f"{carry_lib_ms:.4f}", slots=N)
         del carry_src, ids
 
-        time_panel("butterfly", obj, dev, kernels, panel_err, bfly_launches)
+        time_panel("butterfly", obj, dev, kernels, panel_err, bfly_launches, bfly_calls)
         k3_ms = kernels[-2]["ms"]
         say("timing", butterfly_iteration_ms=f"{bfly_ms:.4f}", two_carries_ms=f"{2 * carry_ms:.4f}", K3_ms=f"{k3_ms:.4f}",
             rest_ms=f"{bfly_ms - 2 * carry_ms - k3_ms:.4f}", rest="srow build, row sums, (m,) gather, calc_grad, AGD step")
@@ -2297,19 +2652,22 @@ def main(argv=None) -> int:
 
         # ---- tiles in bf16: the panel kernel's bf16-tile instances, 20 iterations
         r16, n16, _ = solve(inp, n_chk, True, layout="butterfly", dtype="bfloat16")
+        calls16 = captured["calls"]
         obj16 = captured["obj"]
         check(obj16.panel_table.tile_dtype == torch.bfloat16, "butterfly bf16 tiles: the panel table is not bf16")
         log16 = np.asarray(r16.dual_objective_log)
         plain16 = rel_dev(first_iterations(variant(obj16, PlainButterfly), obj16.bcsc.m), log16)
         vs32 = rel_dev(log16, log[:n_chk])
         say("butterfly", option="'dtype=bfloat16 (tiles)'", iterations=n_chk,
-            ms_per_iteration=f"{ms_per_iteration(obj16.events):.4f}", fp32_tiles_ms_per_iteration=f"{bfly_ms:.4f}",
+            ms_per_iteration=f"{replay_ms(obj16, torch.zeros(obj16.bcsc.m, device=dev)):.4f}",
+            fp32_tiles_ms_per_iteration=f"{bfly_ms:.4f}",
             objective_build_s=f"{captured['build_s']:.2f}", max_rel_dev_vs_plain=float(plain16.max()),
             max_rel_dev_vs_fp32_tiles=float(vs32.max()), launches=n16, card=card)
         check(plain16.max() <= 1e-5, f"butterfly bf16 tiles: kernels vs plain versions differ by {plain16.max()}")
         check(vs32.max() <= 4e-2, f"butterfly bf16 tiles drift {vs32.max()} relative from the fp32 tiles")
         check(n16["K3"] == n_chk and n16["K4"] == 1, f"butterfly bf16 tiles: launches {n16}")
-        time_panel("butterfly, bf16 tiles", obj16, dev, kernels, panel_err, n16)
+        graph_check("butterfly bf16 tiles", obj16, torch.zeros(obj16.bcsc.m, device=dev))
+        time_panel("butterfly, bf16 tiles", obj16, dev, kernels, panel_err, n16, calls16)
         del obj16, r16, captured["obj"]
         torch.cuda.empty_cache()
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
@@ -2320,12 +2678,14 @@ def main(argv=None) -> int:
         obj_c = captured["obj"]
         rl_c = obj_c.row_layout
         d = rel_dev(r_c.dual_objective_log, log[:n_chk]).max()
-        say("butterfly", option="'compact=True'", iterations=n_chk, ms_per_iteration=f"{ms_per_iteration(obj_c.events):.4f}",
+        say("butterfly", option="'compact=True'", iterations=n_chk,
+            ms_per_iteration=f"{replay_ms(obj_c, torch.zeros(obj_c.bcsc.m, device=dev)):.4f}",
             carry_slots=rl_c.plan.N, tiles=len(rl_c.col_tiles_T), row_tiles=len(rl_c.row_tiles),
             packs_L_L2_q=rl_c.col_pack, objective_build_s=f"{captured['build_s']:.2f}",
             routing_s=f"{rl_c.build_seconds['route']:.2f}", max_rel_dev_vs_plain_panels=float(d), launches=n_launch)
         check(d <= 1e-4, f"compact packing drifts {d} relative from the plain panels")
         check(n_launch["K3"] == n_chk and n_launch["K3t"] == 0, f"compact: K3 launches {n_launch}, expected {n_chk}")
+        graph_check("butterfly compact", obj_c, torch.zeros(obj_c.bcsc.m, device=dev))
         time_panel("compact", obj_c, dev, kernels, panel_err)
         names = profile_window("compact", obj_c, r_c.dual_val)
         if names is not None:
@@ -2339,7 +2699,7 @@ def main(argv=None) -> int:
         small = generate_synthetic_matching_input_args(
             SMALL_SOURCES, args.destinations, args.sparsity, seed=args.seed)
         say("butterfly-small", generate_s=f"{time.perf_counter() - t0:.2f}")
-        res_s, obj_s, small_launches, _ = butterfly_solve(small, SMALL_SOURCES, "butterfly-small", "K6", 0)
+        res_s, obj_s, small_launches, _, small_calls = butterfly_solve(small, SMALL_SOURCES, "butterfly-small", "K6", 0)
         plan = obj_s.row_layout.plan
         N = plan.N
         buf = torch.from_numpy(np.random.default_rng(6).normal(size=N).astype(np.float32)).to(dev)
@@ -2349,7 +2709,7 @@ def main(argv=None) -> int:
             "K6 benes_coarse", "dualip_tpu/ops/butterfly.py:568",
             lambda v: bf.benes_coarse(v, m6, steps6, E6, I6),
             lambda v: bf.benes_coarse_reference(v, m6, steps6, E6, I6),
-            m6.shape[0], small_launches["K6"])
+            m6.shape[0], small_launches["K6"], small_calls["K6"])
         del buf, ids, obj_s, res_s, plan, m6, captured["obj"]
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
@@ -2364,42 +2724,55 @@ def main(argv=None) -> int:
 
     # ------------------------------------------------------------------ 11. lp
     if "lp" in phases:
-        phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, ms_per_iteration, Timed)
+        phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, replay_ms, Timed, graph_check)
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
     # ------------------------------------------------------------------ 12. examples
     if "examples" in phases:
         captured.pop("obj", None)
         torch.cuda.empty_cache()
-        phase_examples(dev, card, counts, reset_counts, variant, Timed, n_chk)
+        phase_examples(dev, card, counts, reset_counts, variant, Timed, n_chk, graph_check, replay_ms)
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
-    # ------------------------------------------------------------------ 13. io
+    # ------------------------------------------------------------------ 13. graph
+    if "graph" in phases:
+        # the golden solves ran through run_solver on the card: each on its own graph
+        if golden is not None:
+            say("graph", golden_solves_through_run_solver=golden[0], captured_graphs=golden[1],
+                note="phase golden held each trace (1e-5; the bf16 carry at its own tolerance)")
+            check(golden[0] == golden[1], f"graph: {golden[0]} golden solves captured {golden[1]} graphs")
+        missing = [p for p in GRAPH_PATHS if p not in graph_rows]
+        say("graph", paths_checked=list(graph_rows), paths_not_run=missing, card=card)
+        check(not (full and missing), f"graph: paths not held to the eager loop: {missing}")
+        say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
+
+    # ------------------------------------------------------------------ 14. io
     if "io" in phases:
-        phase_io(dt, args, card, gen_s, inp, captured, counts, solve, ms_per_iteration, n_chk)
+        phase_io(dt, args, card, gen_s, inp, captured, counts, solve, replay_ms, n_chk)
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
-    # ------------------------------------------------------------------ 14. obs
+    # ------------------------------------------------------------------ 15. obs
     if "obs" in phases:
         phase_obs(dt, inp, card, captured, reset_counts, counts, n_chk, solver_kw)
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
-    # ------------------------------------------------------------------ 15. dist
+    # ------------------------------------------------------------------ 16. dist
     if "dist" in phases:
         # the one-device logs, where phases slice and butterfly did not give them
         if "csc" not in dist_refs:
-            dist_refs["csc"] = list(solve(inp, args.iters, False, use_pallas=True)[0].dual_objective_log)
+            dist_refs["csc"] = list(solve(inp, args.iters, False, profiled=False,
+                                          use_pallas=True)[0].dual_objective_log)
         if "butterfly" not in dist_refs:
-            dist_refs["butterfly"] = list(solve(inp, DIST_BUTTERFLY_ITERS, False, layout="butterfly")[0]
+            dist_refs["butterfly"] = list(solve(inp, DIST_BUTTERFLY_ITERS, False, profiled=False, layout="butterfly")[0]
                                           .dual_objective_log)
         captured.pop("obj", None)
         torch.cuda.empty_cache()
-        phase_dist(dt, args, inp, card, dev, dist_refs, solve, captured, ms_per_iteration)
+        phase_dist(dt, args, inp, card, dev, dist_refs, solve, captured, eager_ms)
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
     # ------------------------------------------------------------------ canonical (opt-in)
     if "canonical" in phases:
-        phase_canonical(args, card, captured, solve, ms_per_iteration, solver_kw)
+        phase_canonical(args, card, captured, solve, replay_ms, solver_kw)
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
     if not full:

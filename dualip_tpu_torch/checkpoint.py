@@ -1,7 +1,8 @@
 """Dual-vector checkpoints for warm starts (``dualip_tpu/checkpoint.py``).
 
 A checkpoint is an ``.npz`` with the dual and, optionally, the step-size
-window, so a resumed solve re-enters the secant step-size regime at once.
+window, so a resumed solve re-enters the secant step-size regime at once; the
+JAX package's files and these are the same (the window's count a 0-d int32).
 ``load_dual`` also reads a plain ``np.save``'d dual and a torch-saved dual
 tensor (``torch.save(dual, path)``).
 """
@@ -23,20 +24,22 @@ def _np(x) -> np.ndarray:
 
 
 def save_dual(path: str, dual_val, step_size_state: Optional[StepSizeState] = None) -> None:
-    """Write the checkpoint.  In a ``torch.distributed`` run only rank 0
-    writes: every rank of a sharded solve holds the same dual."""
+    """Write the checkpoint; the window's count may be an ``int`` or a 0-d
+    tensor.  In a ``torch.distributed`` run only rank 0 writes: every rank
+    of a sharded solve holds the same dual."""
     if not is_rank_zero():
         return
     arrays = {"dual_val": _np(dual_val)}
     if step_size_state is not None:
         arrays["grad_hist"] = _np(step_size_state.grad_hist)
         arrays["dual_hist"] = _np(step_size_state.dual_hist)
-        arrays["count"] = np.asarray(int(step_size_state.count))
+        arrays["count"] = np.asarray(int(step_size_state.count), dtype=np.int32)
     np.savez(Path(path), **arrays)
 
 
 def load_dual(path: str) -> Tuple[np.ndarray, Optional[StepSizeState]]:
-    """The dual as numpy and the step-size window (numpy arrays) if saved."""
+    """The dual as numpy and, if saved, the step-size window as CPU tensors
+    (its count 0-d int32)."""
     p = Path(path)
     if not p.exists() and p.with_suffix(p.suffix + ".npz").exists():
         p = p.with_suffix(p.suffix + ".npz")
@@ -57,9 +60,9 @@ def load_dual(path: str) -> Tuple[np.ndarray, Optional[StepSizeState]]:
         state = None
         if "grad_hist" in data:
             state = StepSizeState(
-                grad_hist=data["grad_hist"],
-                dual_hist=data["dual_hist"],
-                count=int(data["count"]),
+                grad_hist=torch.from_numpy(data["grad_hist"]),
+                dual_hist=torch.from_numpy(data["dual_hist"]),
+                count=torch.tensor(int(data["count"]), dtype=torch.int32),
             )
     return dual, state
 

@@ -5,20 +5,39 @@ onto the nonnegative cone with equality rows left free, gamma step decay,
 optional adaptive restart, and per-iteration dual-objective and step-size
 logs.
 
-Where the JAX package compiles the solve into one ``lax.scan``, this is an
-eager Python loop that queues each iteration's kernels on the device and
-never waits for them: the per-iteration metrics go into a preallocated
-``(max_iter, 8)`` device tensor that is fetched once at the end.  Only an
-``iteration_callback``, MLflow logging or a ``stop_condition`` makes the loop
-wait for the device, at the iterations where it runs.
+One iteration is ``_make_step``'s ``step`` on a ``_Carry`` of device tensors,
+as in the JAX package: the window's count, gamma, the restart index, the
+iteration counter and the metrics row all stay on the device, so an
+iteration never waits for the host.  Where the JAX package compiles the
+iterations into one ``lax.scan`` program, how they run here depends on where
+the dual lives:
+
+* a CUDA dual and an objective without a mesh: iteration 1 runs eagerly (the
+  objective fills its lazy state, the kernels load and set their attributes),
+  then one iteration is captured in a CUDA graph on static carry buffers and
+  every later iteration is one ``replay()``: the same kernels in the same
+  order as the eager loop, so the same bits.  A capture that fails raises; it
+  never falls back to the eager loop.
+* the CPU, or a mesh: the same step in an eager Python loop that queues each
+  iteration's kernels and never waits for them.  A mesh stays eager because
+  gloo's ``all_reduce`` goes through host memory and cannot be captured.
+
+Iterations run in chunks, as the JAX package launches its scan: a chunk is
+``callback_chunk`` iterations with an observer, else ``launch_chunk`` (0: the
+whole solve), at most ``stop_check_every`` with a ``stop_condition``; a
+chunk's replays are queued back to back with no host round trip.  The
+per-iteration metrics go into a ``(max_iter, 8)`` device tensor fetched once
+at the end, or after each chunk with an observer.
 """
 
 from __future__ import annotations
 
 import inspect
 import math
+import os
 import time
-from typing import Callable, List, Optional
+import warnings
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -32,19 +51,6 @@ from dualip_tpu_torch.optimizers.agd_utils import (
 from dualip_tpu_torch.parallel.mesh import is_rank_zero
 from dualip_tpu_torch.types import ObjectiveResult, SolverResult, resolve_device
 from dualip_tpu_torch.utils.mlflow_utils import _mlflow_state, log_metrics, log_objective_result
-
-# Columns of the per-iteration metrics tensor (``dualip_tpu`` ``_Metrics``).
-METRICS = (
-    "dual_objective",
-    "step_size",
-    "grad_norm",
-    "gamma",
-    "reg_penalty",
-    "dual_val_times_grad",
-    "max_pos_slack",
-    "sum_pos_slack",
-)
-_OPTIONAL = METRICS[4:]
 
 
 def project_on_nn_cone(y: torch.Tensor, equality_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -100,22 +106,170 @@ def format_objective_result_summary(iteration: int, objective_result: ObjectiveR
     return " | ".join(p for p in parts if p is not None)
 
 
+class _Metrics(NamedTuple):
+    """Per-iteration scalars, one row of the metrics tensor each iteration."""
+
+    dual_objective: torch.Tensor
+    step_size: torch.Tensor
+    grad_norm: torch.Tensor
+    gamma: torch.Tensor
+    reg_penalty: torch.Tensor
+    dual_val_times_grad: torch.Tensor
+    max_pos_slack: torch.Tensor
+    sum_pos_slack: torch.Tensor
+
+
+METRICS = _Metrics._fields  # the metrics tensor's columns
+
+
+class _Carry(NamedTuple):
+    x: torch.Tensor
+    y: torch.Tensor
+    ss_state: StepSizeState
+    gamma: torch.Tensor
+    max_step_size: torch.Tensor
+    last_grad: torch.Tensor  # gradient evaluated at this iteration's x (pre-update)
+    last_x: torch.Tensor  # the x the last objective evaluation used (for save_primal)
+    beta_idx: torch.Tensor  # iterations since the last adaptive restart (int64)
+    prev_obj: torch.Tensor  # previous dual objective (function-restart test)
+
+
+def _flat(tree) -> List[torch.Tensor]:
+    """The tensors of a carry (nested tuples of tensors), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for part in tree for leaf in _flat(part)]
+
+
+def _clone(tree):
+    """A carry with every tensor copied."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return type(tree)(*(_clone(t) for t in tree))
+
+
+def _calc(f, params, dual_val: torch.Tensor, gamma: Optional[torch.Tensor]) -> ObjectiveResult:
+    """The objective at ``dual_val``; ``gamma`` is None when the solver has
+    none configured, and is then not passed."""
+    if hasattr(f, "calculate_traceable"):
+        return f.calculate_traceable(params, dual_val, gamma)
+    kwargs = {"gamma": gamma} if gamma is not None else {}
+    return f.calculate(dual_val=dual_val, **kwargs)
+
+
+def _scalar(v, dtype, device) -> torch.Tensor:
+    """A 0-d tensor of ``dtype``; a host number is filled on the device, not
+    copied there (a copy from pageable memory cannot be captured)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=dtype).reshape(())
+    return torch.full((), float(v), dtype=dtype, device=device)
+
+
+class _EagerLoop:
+    """The iterations launched from Python one after another (the CPU, a
+    mesh, or ``_maximize_eager``)."""
+
+    def __init__(self, body, carry, counter, metrics):
+        self.body, self.carry, self.counter, self.metrics = body, carry, counter, metrics
+
+    def run(self, size: int) -> None:
+        for _ in range(size):
+            self.carry, self.counter = self.body(self.carry, self.counter)
+
+    def owned(self, t: torch.Tensor) -> torch.Tensor:
+        return t  # nothing overwrites the loop's outputs
+
+
+class _Graph:
+    """One iteration captured in a CUDA graph on static buffers: the carry,
+    the iteration counter and the metrics tensor, with the beta sequence and
+    the equality mask it reads.  The first ``run`` of a fresh graph runs
+    iteration 1 eagerly on the buffers, captures the next and replays it; a
+    later ``maximize`` on the same objective ``load``s its start into the
+    buffers and only replays.  The kernels' launch counters count their
+    wrappers' calls: the capture calls each wrapper once (recording its
+    launch, running nothing) and a replay calls none."""
+
+    def __init__(self, body, carry, counter, metrics, fields_present, what: str):
+        self.body = body  # kept: the graph reads the tensors it closes over (beta, mask)
+        self.carry = _clone(carry)
+        self.counter, self.metrics, self.fields_present, self.what = counter, metrics, fields_present, what
+        self.graph = None
+
+    def fits(self, carry) -> bool:
+        return all(s.shape == n.shape and s.dtype == n.dtype for s, n in zip(_flat(self.carry), _flat(carry)))
+
+    def load(self, carry) -> None:
+        for s, n in zip(_flat(self.carry), _flat(carry)):
+            s.copy_(n)
+        self.counter.zero_()
+
+    def _advance(self) -> None:
+        """One iteration in place on the static buffers: the step's outputs
+        copied over its inputs (an output that is another input, like
+        ``last_x = x``, is copied out first)."""
+        new, counter = self.body(self.carry, self.counter)
+        static, fresh = _flat((self.carry, self.counter)), _flat((new, counter))
+        fresh = [n if n is s or not any(n is t for t in static) else n.clone() for s, n in zip(static, fresh)]
+        for s, n in zip(static, fresh):
+            if n is not s:
+                s.copy_(n)
+
+    def _capture(self) -> None:
+        g = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.device(self.counter.device), torch.cuda.graph(g):
+                self._advance()
+        except Exception as e:  # name the objective; the chained traceback names the op
+            raise RuntimeError(f"capturing one AGD iteration of {self.what} in a CUDA graph failed: {e}") from e
+        self.graph = g
+
+    def run(self, size: int) -> None:
+        if self.graph is None:
+            self._advance()
+            self._capture()
+            size -= 1
+        for _ in range(size):
+            self.graph.replay()
+
+    def owned(self, t: torch.Tensor) -> torch.Tensor:
+        return t.clone()  # the next replay overwrites the static buffers
+
+
 class AcceleratedGradientDescent:
     """Maximizes a dual objective with Nesterov-accelerated ascent.
 
-    Same constructor as ``dualip_tpu``'s.  ``callback_chunk``: with an
-    iteration callback or MLflow logging, the loop fetches metrics every
-    ``callback_chunk`` iterations and calls the callback (and logs) once per
-    iteration.  ``launch_chunk`` is accepted for parity and has no effect: the
-    eager loop has no single launch to cut.
+    Same constructor as ``dualip_tpu``'s:
 
-    On a mesh (a sharded objective) every rank runs this loop on the same
-    bits and only rank 0 logs to MLflow.
+    * ``callback_chunk``: with an iteration callback or MLflow logging, the
+      iterations run in chunks of this size and the metrics are fetched after
+      each chunk; the callback (and the logging) then runs once per
+      iteration with exact values, ``callback_chunk`` iterations late.
+    * ``launch_chunk``: iterations per chunk without an observer (0: the
+      whole solve is one chunk).  A chunk's iterations are queued back to
+      back, so it changes only where ``collect_chunk_walls`` and
+      ``DUALIP_TIMING`` cut the solve.  1 is clamped to 2, as in the JAX
+      package, so one configuration gives the same chunks in both.
+    * ``collect_stats = True`` records the next ``maximize``'s wall clock in
+      ``last_run_stats``: ``total_s`` (the whole call up to the metrics
+      fetch), ``iters`` (``max_iter``) and ``drain_s`` (the fetch, which
+      waits for the device to finish the queued iterations).
+    * ``collect_chunk_walls = True`` ends each chunk with a fetch of gamma
+      (the chunk has then run on the device) and appends ``(size, seconds)``
+      to ``chunk_walls``, emptied by each ``maximize``.  ``DUALIP_TIMING=1``
+      prints each chunk's and the final fetch's wall time.
 
-    ``collect_stats = True`` records the next ``maximize``'s wall clock in
-    ``last_run_stats``: ``total_s`` (the whole call up to the metrics fetch),
-    ``iters`` (``max_iter``) and ``drain_s`` (the fetch, which waits for the
-    device to finish the queued iterations).
+    On a mesh (a sharded objective) every rank runs the eager loop on the
+    same bits and only rank 0 logs to MLflow.
+
+    The CUDA graph (module docstring) is cached in ``_jit_cache`` under the
+    JAX package's key (the objective, whether it has an equality mask, the
+    dtype), so a repeated ``maximize`` on the same objective replays it
+    without capturing again.  The cache holds the objective, the graph's
+    private memory pool (one iteration's temporaries, about what the eager
+    loop allocates in an iteration) and the static buffers (x, y, the last
+    x and gradient, the ``(H, m)`` window pair, the ``(max_iter, 8)``
+    metrics) until the solver is dropped or ``_jit_cache`` is cleared.
     """
 
     def __init__(
@@ -141,7 +295,6 @@ class AcceleratedGradientDescent:
             raise ValueError(f"Unsupported gamma decay type: {gamma_decay_type}")
         if restart not in (None, "gradient", "function"):
             raise ValueError(f"Unsupported restart scheme: {restart!r}")
-        del launch_chunk
         self.max_iter = max_iter
         self.gamma = gamma
         self.initial_step_size = float(initial_step_size)
@@ -159,22 +312,123 @@ class AcceleratedGradientDescent:
         self.stop_check_every = int(stop_check_every)
         if stop_condition is not None and self.stop_check_every <= 0:
             self.stop_check_every = 100
+        self.launch_chunk = max(0, int(launch_chunk))
+        if self.launch_chunk == 1:
+            warnings.warn(
+                "launch_chunk=1 is clamped to 2, the smallest chunk the JAX package keeps bit-identical to its "
+                "one-launch solve, so that one configuration runs the same chunks in both packages.",
+                stacklevel=2,
+            )
+            self.launch_chunk = 2
         self.restart = restart
         self.restart_min_spacing = int(restart_min_spacing)
+        self._jit_cache = {}
         self.collect_stats = False
         self.last_run_stats = None
+        self.collect_chunk_walls = False
+        self.chunk_walls: List[tuple] = []
 
     @staticmethod
     def _default_iteration_callback(iteration: int, objective_result: ObjectiveResult) -> None:
         print(format_objective_result_summary(iteration, objective_result))
 
-    def _calc(self, f, params, dual_val: torch.Tensor, gamma: torch.Tensor) -> ObjectiveResult:
-        """The objective at ``dual_val``; gamma is passed only when configured."""
-        g = gamma if self.gamma is not None else None
-        if hasattr(f, "calculate_traceable"):
-            return f.calculate_traceable(params, dual_val, g)
-        kwargs = {"gamma": g} if self.gamma is not None else {}
-        return f.calculate(dual_val=dual_val, **kwargs)
+    def _make_step(self, f, equality_mask, dtype, fields_present: dict):
+        """``step(params, carry, it_num, beta) -> (carry, _Metrics)``: one
+        iteration on device tensors (``it_num`` the 1-based iteration, a 0-d
+        integer tensor; ``beta`` its momentum).  A hook for subclass
+        maximizers, with ``_init_carry``; it records which optional fields
+        the objective gives in ``fields_present``.  The step refers to no
+        solver attribute, only to values read here, so a graph cached on the
+        solver does not keep the solver alive through it."""
+        decay = self.gamma_decay_type == "step"
+        if decay:
+            decay_steps = int(self.gamma_decay_params["decay_steps"])
+            decay_factor = float(self.gamma_decay_params["decay_factor"])
+        restart, spacing = self.restart, self.restart_min_spacing
+        has_gamma, initial_step_size = self.gamma is not None, self.initial_step_size
+        # restart mode indexes the beta sequence by iterations since the last
+        # restart (carried); placed on the dual's device at the first call,
+        # which is eager (a copy from the host cannot be captured)
+        beta_seq, beta_full = self.beta_seq, []
+
+        def step(params, carry: _Carry, it_num: torch.Tensor, beta: torch.Tensor):
+            dev = carry.x.device
+
+            def opt(val, name):
+                fields_present[name] = val is not None
+                return _scalar(val, dtype, dev) if val is not None else torch.full((), math.nan, dtype=dtype,
+                                                                                     device=dev)
+
+            res = _calc(f, params, carry.x, carry.gamma if has_gamma else None)
+            grad = res.dual_gradient
+            obj = _scalar(res.dual_objective, dtype, dev)
+            step_size, ss_state = calculate_step_size(
+                grad, carry.y, carry.ss_state, initial_step_size, carry.max_step_size
+            )
+            y_new = project_on_nn_cone(carry.x + grad * step_size, equality_mask)
+            beta_idx, prev_obj = carry.beta_idx, carry.prev_obj
+            if restart is not None:
+                if restart == "gradient":
+                    # momentum against the gradient direction: drop it this update
+                    bad = torch.dot(grad, y_new - carry.y) < 0
+                else:  # "function": the dual objective went down
+                    bad = obj < prev_obj
+                bad = bad & (beta_idx >= spacing)
+                if not beta_full:
+                    beta_full.append(torch.as_tensor(beta_seq, device=dev))
+                beta = torch.where(bad, torch.zeros((), dtype=beta_full[0].dtype, device=dev),
+                                   beta_full[0].index_select(0, beta_idx.reshape(1)).reshape(()))
+                beta_idx = torch.where(bad, torch.ones_like(beta_idx), beta_idx + 1)
+                prev_obj = obj
+            x_new = y_new * (1.0 - beta) + carry.y * beta
+            gamma, max_step = carry.gamma, carry.max_step_size
+            if decay:
+                do = torch.remainder(it_num, decay_steps) == 0
+                gamma = torch.where(do, gamma * decay_factor, gamma)
+                max_step = torch.where(do, step_size * decay_factor, max_step)
+                if restart == "function":  # the decay, not oscillation, lowers g_gamma
+                    prev_obj = torch.where(do, torch.full((), -math.inf, dtype=dtype, device=dev), prev_obj)
+            metrics = _Metrics(
+                dual_objective=obj,
+                step_size=step_size.to(dtype),
+                grad_norm=torch.linalg.vector_norm(grad).to(dtype),
+                gamma=gamma.to(dtype),
+                reg_penalty=opt(res.reg_penalty, "reg_penalty"),
+                dual_val_times_grad=opt(res.dual_val_times_grad, "dual_val_times_grad"),
+                max_pos_slack=opt(res.max_pos_slack, "max_pos_slack"),
+                sum_pos_slack=opt(res.sum_pos_slack, "sum_pos_slack"),
+            )
+            new_carry = _Carry(
+                x=x_new,
+                y=y_new,
+                ss_state=ss_state,
+                gamma=gamma,
+                max_step_size=max_step,
+                last_grad=grad,
+                last_x=carry.x,
+                beta_idx=beta_idx,
+                prev_obj=prev_obj,
+            )
+            return new_carry, metrics
+
+        return step
+
+    def _init_carry(self, x0: torch.Tensor, gamma0: torch.Tensor, ss0: StepSizeState) -> _Carry:
+        """The carry at the start.  A hook for subclass maximizers: override
+        it together with ``_make_step``; ``maximize`` only relies on the carry
+        exposing ``x``, ``y``, ``gamma``, ``last_grad`` and ``last_x``."""
+        dev, dtype = x0.device, x0.dtype
+        return _Carry(
+            x=x0,
+            y=x0,
+            ss_state=ss0,
+            gamma=gamma0,
+            max_step_size=torch.full((), self.max_step_size, dtype=torch.float32, device=dev),
+            last_grad=torch.zeros(x0.shape[0], dtype=dtype, device=dev),
+            last_x=x0,
+            beta_idx=torch.zeros((), dtype=torch.long, device=dev),
+            prev_obj=torch.full((), -math.inf, dtype=dtype, device=dev),
+        )
 
     def maximize(
         self,
@@ -189,7 +443,23 @@ class AcceleratedGradientDescent:
         ``calculate(dual_val, ...)``.  ``initial_value`` and the step-size
         window may be tensors or numpy arrays; numpy ones go to ``f.device``
         (``cuda`` when ``f`` names none), a float64 one as float32.
+
+        On a CUDA dual with an objective that has no mesh the iterations after
+        the first are replays of a CUDA graph of one iteration; on the CPU or
+        a mesh they run in the eager loop (module docstring).  Both give the
+        same bits.  ``initial_step_size_state`` (e.g. from
+        ``checkpoint.load_dual``) resumes the Lipschitz window.
         """
+        return self._maximize(f, initial_value, rank, initial_step_size_state, graph=None)
+
+    def _maximize_eager(self, f, initial_value, rank: int = 0,
+                        initial_step_size_state: Optional[StepSizeState] = None) -> SolverResult:
+        """``maximize`` in the eager loop on any device: the graph's
+        reference in the card's checks."""
+        return self._maximize(f, initial_value, rank, initial_step_size_state, graph=False)
+
+    def _maximize(self, f, initial_value, rank, initial_step_size_state, graph) -> SolverResult:
+        timing = os.environ.get("DUALIP_TIMING") == "1"
         t_start = time.perf_counter()
         if isinstance(initial_value, torch.Tensor):
             x0 = initial_value
@@ -204,89 +474,67 @@ class AcceleratedGradientDescent:
             equality_mask = torch.as_tensor(equality_mask, dtype=torch.bool, device=dev)
         params = getattr(f, "params", ())
 
-        def full(v, dt=dtype):
-            return torch.full((), v, dtype=dt, device=dev)
-
         if initial_step_size_state is None:
-            ss = init_step_size_state(m, self.history_length, dtype, dev)
+            ss0 = init_step_size_state(m, self.history_length, dtype, dev)
         else:
-            ss = StepSizeState(
-                grad_hist=torch.as_tensor(initial_step_size_state.grad_hist, dtype=dtype, device=dev),
-                dual_hist=torch.as_tensor(initial_step_size_state.dual_hist, dtype=dtype, device=dev),
-                count=int(initial_step_size_state.count),
-            )
-        gamma = full(self.gamma if self.gamma is not None else math.nan, torch.float32)
-        max_step = full(self.max_step_size, torch.float32)
-        beta_all = torch.as_tensor(self.beta_seq, device=dev)
-        nan = full(math.nan)
-        metrics = torch.full((self.max_iter, len(METRICS)), math.nan, dtype=dtype, device=dev)
-        fields_present = {}
+            s = initial_step_size_state  # tensors, numpy arrays, or another framework's arrays
 
-        decay = self.gamma_decay_type == "step"
-        if decay:
-            decay_steps = int(self.gamma_decay_params["decay_steps"])
-            decay_factor = float(self.gamma_decay_params["decay_factor"])
-        restart = self.restart
-        beta_idx = torch.zeros(1, dtype=torch.long, device=dev)
-        prev_obj = full(-math.inf)
+            def put(v, dt):
+                return torch.as_tensor(v if isinstance(v, torch.Tensor) else np.asarray(v), dtype=dt, device=dev)
 
-        x = y = last_x = x0
-        last_grad = torch.zeros(m, dtype=dtype, device=dev)
+            ss0 = StepSizeState(grad_hist=put(s.grad_hist, dtype), dual_hist=put(s.dual_hist, dtype),
+                                count=put(s.count, torch.int32).reshape(()))
+        gamma0 = torch.full((), self.gamma if self.gamma is not None else math.nan, dtype=torch.float32, device=dev)
+        carry = self._init_carry(x0, gamma0, ss0)
+
+        if graph is None:
+            graph = dev.type == "cuda" and getattr(f, "mesh", None) is None
+        if graph:
+            runner = self._graph(f, params, equality_mask, dtype, carry)
+            fields_present = runner.fields_present
+        else:
+            fields_present = {}
+            body, metrics = self._body(f, params, equality_mask, dtype, carry, fields_present)
+            runner = _EagerLoop(body, carry, torch.zeros((), dtype=torch.long, device=dev), metrics)
+        metrics = runner.metrics
+
         logging = _mlflow_state.is_enabled() and is_rank_zero()
         observing = self.iteration_callback is not None or logging
-        fetched = 0
-        done = 0
-        for i in range(self.max_iter):
-            it_num = i + 1
-            res = self._calc(f, params, x, gamma)
-            grad = res.dual_gradient
-            obj = torch.as_tensor(res.dual_objective, device=dev).to(dtype)
-            step, ss = calculate_step_size(grad, y, ss, self.initial_step_size, max_step)
-            y_new = project_on_nn_cone(x + grad * step, equality_mask)
-            beta = beta_all[i]
-            if restart is not None:
-                if restart == "gradient":
-                    bad = torch.dot(grad, y_new - y) < 0
-                else:  # "function": the dual objective went down
-                    bad = obj < prev_obj
-                bad = bad & (beta_idx[0] >= self.restart_min_spacing)
-                beta = torch.where(bad, full(0.0, beta_all.dtype), beta_all.index_select(0, beta_idx)[0])
-                beta_idx = torch.where(bad, torch.ones_like(beta_idx), beta_idx + 1)
-                prev_obj = obj
-            x_new = y_new * (1.0 - beta) + y * beta
-            if decay and it_num % decay_steps == 0:
-                gamma = gamma * decay_factor
-                max_step = step * decay_factor
-                if restart == "function":  # the decay, not oscillation, lowers g_gamma
-                    prev_obj = full(-math.inf)
+        chunk = self.callback_chunk if observing else (self.launch_chunk or self.max_iter)
+        if self.stop_condition is not None:
+            chunk = min(chunk, self.stop_check_every)
 
-            row = [obj, step.to(dtype), torch.linalg.vector_norm(grad).to(dtype), gamma.to(dtype)]
-            for name in _OPTIONAL:
-                val = getattr(res, name)
-                fields_present[name] = val is not None
-                row.append(nan if val is None else torch.as_tensor(val, device=dev).to(dtype))
-            metrics[i] = torch.stack(row)
-            last_x, last_grad = x, grad
-            x, y = x_new, y_new
-            done = it_num
-
-            if observing and (it_num - fetched >= self.callback_chunk or it_num == self.max_iter):
-                rows = metrics[fetched:it_num].cpu().numpy()
+        self.chunk_walls = []
+        pos = 0
+        while pos < self.max_iter:
+            size = min(chunk, self.max_iter - pos)
+            t0 = time.perf_counter()
+            runner.run(size)
+            if self.collect_chunk_walls:
+                runner.carry.gamma.item()  # fetch-terminated: the chunk has run on the device
+                self.chunk_walls.append((size, time.perf_counter() - t0))
+            if timing:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                print(f"[timing] chunk pos={pos} size={size}: {time.perf_counter() - t0:.3f}s")
+            if observing:
+                rows = metrics[pos:pos + size].cpu().numpy()
                 for k, r in enumerate(rows):
                     per_iter = self._row_to_result(r, fields_present)
                     if self.iteration_callback is not None:
-                        self.iteration_callback(fetched + k + 1, per_iter)
+                        self.iteration_callback(pos + k + 1, per_iter)
                     if logging:
-                        self._log_row(fetched + k + 1, r, per_iter)
-                fetched = it_num
-            if self.stop_condition is not None and (
-                it_num % self.stop_check_every == 0 or it_num == self.max_iter
-            ):
-                if self.stop_condition(it_num, y):
-                    break
+                        self._log_row(pos + k + 1, r, per_iter)
+            pos += size
+            if self.stop_condition is not None and self.stop_condition(pos, runner.owned(runner.carry.y)):
+                break
 
         t_drain = time.perf_counter()
-        host = metrics[:done].cpu().numpy()  # the one fetch of the solve's metrics
+        host = metrics[:pos].cpu().numpy()  # the one fetch of the solve's metrics
+        final = runner.carry
+        gamma_end = float(final.gamma)
+        if timing:
+            print(f"[timing] drain: {time.perf_counter() - t_drain:.3f}s")
         if self.collect_stats:
             now = time.perf_counter()
             self.last_run_stats = {"total_s": now - t_start, "iters": self.max_iter, "drain_s": now - t_drain}
@@ -295,7 +543,7 @@ class AcceleratedGradientDescent:
         dual_obj = dual_obj_log[-1]
         last = self._row_to_result(host[-1], fields_present)
         final_res = ObjectiveResult(
-            dual_gradient=last_grad,
+            dual_gradient=runner.owned(final.last_grad),
             dual_objective=np.float32(dual_obj),
             reg_penalty=last.reg_penalty,
             dual_val_times_grad=last.dual_val_times_grad,
@@ -303,11 +551,11 @@ class AcceleratedGradientDescent:
             sum_pos_slack=last.sum_pos_slack,
         )
         if self.save_primal:
-            # One more evaluation at the last iteration's x, with only the
-            # kwargs a (possibly duck-typed) objective accepts.
+            # One more evaluation, eager, at the last iteration's x, with only
+            # the kwargs a (possibly duck-typed) objective accepts.
             kwargs = {}
             if self.gamma is not None:
-                kwargs["gamma"] = gamma
+                kwargs["gamma"] = final.gamma
             try:
                 accepted = inspect.signature(f.calculate).parameters
                 if "save_primal" in accepted:
@@ -316,20 +564,54 @@ class AcceleratedGradientDescent:
                     kwargs["rank"] = rank
             except (TypeError, ValueError):
                 kwargs.update(save_primal=True, rank=rank)
-            final_res = f.calculate(dual_val=last_x, **kwargs)
+            final_res = f.calculate(dual_val=runner.owned(final.last_x), **kwargs)
 
         if logging:
             log_objective_result(final_res, step=self.max_iter)
         if self.gamma is not None:
-            self.gamma = float(gamma)
+            self.gamma = gamma_end
 
         return SolverResult(
-            dual_val=y,
+            dual_val=runner.owned(final.y),
             dual_objective=float(dual_obj),
             objective_result=final_res,
             dual_objective_log=dual_obj_log,
             step_size_log=step_size_log,
         )
+
+    def _body(self, f, params, equality_mask, dtype, carry, fields_present):
+        """The scan body of the JAX package's ``run_chunk``: ``body(carry,
+        counter) -> (carry, counter + 1)`` runs iteration ``counter + 1`` and
+        writes its metrics row; returns it with the ``(max_iter, 8)`` metrics
+        tensor it writes."""
+        dev = carry.x.device
+        step = self._make_step(f, equality_mask, dtype, fields_present)
+        beta_all = torch.as_tensor(self.beta_seq, device=dev)
+        metrics = torch.full((self.max_iter, len(METRICS)), math.nan, dtype=dtype, device=dev)
+
+        def body(carry, counter):
+            nxt = counter + 1
+            beta = beta_all.index_select(0, counter.reshape(1)).reshape(())
+            new, row = step(params, carry, nxt, beta)
+            metrics.index_copy_(0, counter.reshape(1), torch.stack(list(row))[None])
+            return new, nxt
+
+        return body, metrics
+
+    def _graph(self, f, params, equality_mask, dtype, carry) -> _Graph:
+        """The objective's cached graph with ``carry`` loaded, or a new one
+        (captured by its first ``run``)."""
+        key = (f, equality_mask is not None, str(dtype))
+        g = self._jit_cache.get(key)
+        if g is not None and g.graph is not None and g.fits(carry):
+            g.load(carry)
+            return g
+        fields_present: dict = {}
+        body, metrics = self._body(f, params, equality_mask, dtype, carry, fields_present)
+        counter = torch.zeros((), dtype=torch.long, device=carry.x.device)
+        g = _Graph(body, carry, counter, metrics, fields_present, type(f).__name__)
+        self._jit_cache[key] = g
+        return g
 
     def _log_row(self, it: int, row: np.ndarray, per_iter: ObjectiveResult) -> None:
         """The per-iteration MLflow metrics of one fetched metrics row."""

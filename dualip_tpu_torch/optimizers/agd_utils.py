@@ -5,9 +5,10 @@ A window of the last ``H`` (gradient, dual) pairs; pairwise secant estimates
 max_step_size)``, ``initial_step_size`` until the window is full or when the
 estimate is NaN/Inf, and ``max_step_size`` when the max estimate is zero.
 
-The window is an ``(H, m)`` tensor pair on the device; the count of valid
-rows is a host integer (it depends only on the iteration number), so the
-step size is chosen with ``torch.where`` and never synchronises with the host.
+The window is an ``(H, m)`` tensor pair and the count of valid rows a 0-d
+int32 tensor, all on the device, as in the JAX package: the step size is
+chosen with ``torch.where`` and never synchronises with the host, so an
+iteration can be captured in a CUDA graph (``optimizers/agd.py``).
 """
 
 from __future__ import annotations
@@ -21,11 +22,12 @@ DEFAULT_HISTORY_LENGTH = 15
 
 class StepSizeState(NamedTuple):
     """``grad_hist``/``dual_hist``: the last H pairs, oldest first; ``count``:
-    the number of valid trailing rows (saturates at H)."""
+    the number of valid trailing rows (saturates at H), a 0-d int32 tensor
+    (an ``int`` is taken too)."""
 
     grad_hist: torch.Tensor  # (H, m)
     dual_hist: torch.Tensor  # (H, m)
-    count: int
+    count: torch.Tensor  # () int32
 
 
 def init_step_size_state(
@@ -34,7 +36,7 @@ def init_step_size_state(
     return StepSizeState(
         grad_hist=torch.zeros((history_length, m), dtype=dtype, device=device),
         dual_hist=torch.zeros((history_length, m), dtype=dtype, device=device),
-        count=0,
+        count=torch.zeros((), dtype=torch.int32, device=device),
     )
 
 
@@ -59,7 +61,7 @@ def calculate_step_size(
     H = state.grad_hist.shape[0]
     grad_hist = torch.cat([state.grad_hist[1:], dual_grad[None].to(state.grad_hist.dtype)], dim=0)
     dual_hist = torch.cat([state.dual_hist[1:], dual_val[None].to(state.dual_hist.dtype)], dim=0)
-    count = min(int(state.count) + 1, H)
+    count = torch.clamp_max(torch.as_tensor(state.count, dtype=torch.int32, device=dual_grad.device) + 1, H)
 
     dg = torch.linalg.vector_norm(grad_hist[1:] - grad_hist[:-1], dim=1)
     dd = torch.linalg.vector_norm(dual_hist[1:] - dual_hist[:-1], dim=1)
@@ -71,9 +73,7 @@ def calculate_step_size(
     candidate = torch.where(l_max != 0, 1.0 / l_max, max_step_size)
     full_step = torch.minimum(candidate, max_step_size)
 
+    # the initial step until the window is full, or when the estimate blew up
     initial = torch.full((), initial_step_size, dtype=full_step.dtype, device=full_step.device)
-    if count < H:  # window not full: the initial step
-        step = initial
-    else:
-        step = torch.where(bad, initial, full_step)
+    step = torch.where((count < H) | bad, initial, full_step)
     return step, StepSizeState(grad_hist=grad_hist, dual_hist=dual_hist, count=count)

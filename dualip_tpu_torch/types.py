@@ -32,8 +32,10 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
 class SolverArgs:
     """Solver hyper-parameters (``dualip_tpu/types.py:20``).
 
-    ``launch_chunk`` is accepted so configurations carry over unchanged; the
-    eager loop here launches per iteration anyway, so it has no effect.
+    ``launch_chunk`` caps the iterations of one chunk (0: the whole solve),
+    as in the JAX package: ``optimizers/agd.py`` queues a chunk's iterations
+    (CUDA-graph replays on one card) back to back, and its
+    ``collect_chunk_walls`` and ``DUALIP_TIMING`` time each chunk.
     """
 
     max_iter: int = 10000

@@ -166,9 +166,10 @@ def test_beta_seq_step_size_and_cone_match_jax():
     g = torch.ones(3)
     for k in range(3):
         step, state = calculate_step_size(g, torch.full((3,), float(k)), state, 1e-5, torch.tensor(0.1))
-    assert state.count == 3 and float(step) == np.float32(0.1)
+    assert int(state.count) == 3 and float(step) == np.float32(0.1)
+    assert state.count.dtype == torch.int32 and state.count.dim() == 0  # on the device, as in the JAX package
     _, s1 = calculate_step_size(g, torch.zeros(3), init_step_size_state(3, 3), 1e-5, torch.tensor(0.1))
-    assert s1.count == 1
+    assert int(s1.count) == 1
 
 
 def test_later_slice_options_raise():

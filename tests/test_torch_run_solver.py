@@ -92,16 +92,20 @@ def test_later_slices_raise():
 
 def test_warm_start_resumes_the_solve(tmp_path):
     """A checkpoint round-trips (npz with the window, torch .pt), and a solve
-    resumed from it starts no worse than the cold start."""
+    resumed from it starts no worse than the cold start.  The window may be
+    numpy arrays with an int count or tensors with a 0-d count; either loads
+    with the count as a 0-d int32 tensor."""
     kwargs = dict(compute_args=dualip_tpu_torch.ComputeArgs(host_device="cpu"),
                   objective_args=dualip_tpu_torch.ObjectiveArgs())
     first = dualip_tpu_torch.run_solver(_port_args(), dualip_tpu_torch.SolverArgs(max_iter=30, gamma=1e-3), **kwargs)
     path = tmp_path / "dual.npz"
-    window = StepSizeState(np.zeros((15, 2), np.float32), np.zeros((15, 2), np.float32), 3)
-    save_dual(str(path), first.dual_val, window)
-    dual, state = load_dual(str(path))
-    np.testing.assert_array_equal(dual, first.dual_val.numpy())
-    assert state.count == 3 and state.grad_hist.shape == (15, 2)
+    for window in (StepSizeState(np.zeros((15, 2), np.float32), np.zeros((15, 2), np.float32), 3),
+                   StepSizeState(torch.zeros((15, 2)), torch.zeros((15, 2)), torch.tensor(3, dtype=torch.int32))):
+        save_dual(str(path), first.dual_val, window)
+        dual, state = load_dual(str(path))
+        np.testing.assert_array_equal(dual, first.dual_val.numpy())
+        assert int(state.count) == 3 and state.count.dtype == torch.int32 and state.count.dim() == 0
+        assert state.grad_hist.shape == (15, 2)
     torch.save(first.dual_val, tmp_path / "dual.pt")
     np.testing.assert_array_equal(load_dual(str(tmp_path / "dual.pt"))[0], dual)
     resumed = dualip_tpu_torch.run_solver(
