@@ -93,9 +93,11 @@ result lines at the end are printed only by a run of every default phase):
    ``srow_gather``, bf16 carry and bf16 tiles (butterfly), the LP's COO and
    butterfly layouts (lp) and the fairness objective on the proxy
    (examples); ``launch_chunk=50`` over the
-   slice's csc iterations (four ``chunk_walls``, the same log), and one graph
-   captured by each golden solve.  Every other solve of the script runs on
-   the graph too (the plain versions' in the eager loop): its ms an
+   slice's csc iterations (four ``chunk_walls``, the same log), a cached
+   graph reading each call's params (``b_vec`` rebound between two
+   ``maximize`` calls: the eager loop's bits on the new b after one more
+   capture), and one graph captured by each golden solve.  Every other
+   solve of the script runs on the graph too (the plain versions' in the eager loop): its ms an
    iteration is one CUDA event pair around a second ``maximize`` that only
    replays (``replay_ms``); a ``run_solver`` solve's launches are the
    profiler's records of the kernels on the card, and its wrappers are
@@ -114,14 +116,26 @@ result lines at the end are printed only by a run of every default phase):
    csc iterations writes a trace naming K1's and the segment-sum's kernels and
    the ``annotate`` span, and ``collect_stats`` fills ``last_run_stats``;
 16. dist: the entity-sharded solve (``dualip_tpu_torch/parallel``) on this
-   one card.  (a) A world of one NCCL rank in this process: the csc
-   ``use_pallas`` solve over a mesh, its 200-iteration log bit-identical to
-   the one-device log, and the all_reduce of m + 2 floats timed.  Whether
-   NCCL takes two ranks on one card (what it says).  (b) Two ranks spawned on
-   the card over gloo (the reduction through host memory), reading the slice
-   from the generator cache this process writes, each through ``run_solver
+   one card.  (a) A world of one NCCL rank in this process, every mesh path
+   on the AGD's CUDA graph with the all_reduce captured: csc ``use_pallas``
+   (200 iterations through ``run_solver``, wrapper calls counted), csc plain (50),
+   butterfly and compact (50 each), the general LP split by columns on
+   lp-2.5M's COO (200) and on lp-dense-100K (its first 100,000 variables as
+   a dense array, 50).  Each whole log bit for bit against the eager mesh
+   loop's and the one-device graph log; then over 20 iterations as phase
+   graph holds a path (one capture, the log and dual bit for bit, the
+   replays' kernels the eager loop's, ms an iteration graph and eager) plus
+   the all_reduce's calls (one an eager iteration, two on the graph's first
+   run) and NCCL's kernels a replay against an eager iteration's; NCCL's
+   version.  The csc
+   objective with and without its mesh in turns on the graph, the
+   all_reduce of m + 2 floats timed.  Whether NCCL takes two ranks on one
+   card (what it says).  (b) Two ranks spawned on the card over gloo (the
+   reduction through host memory), reading the slice from the generator
+   cache this process writes, each through ``run_solver
    (compute_device_num=2)``: csc ``use_pallas`` 200 iterations and butterfly
-   50, each twice; the ranks' logs bit-identical to each other and to their
+   50, each twice, in the eager loop (no capture: the path rule keeps gloo
+   off the graph); the ranks' logs bit-identical to each other and to their
    repeats, the first 10 iterations within 1e-5 and the last within 1e-2 of
    the one-device logs, the launches, and each rank's K1 and segment-sum (and
    its carries and K3) against their plain versions on its own shard.  The
@@ -180,6 +194,66 @@ GRAPH_PATHS = ("csc use_pallas", "csc plain", "csc bf16 tiles", "butterfly", "bu
                "butterfly srow_gather", "butterfly carry_dtype=bfloat16", "lp-2.5M coo", "lp-2.5M butterfly",
                "fairness proxy")
 GRAPH_TIMING_ITERS = 50  # replays in a solve's ms/iteration on the graph (replay_ms)
+# A torch.profiler window on the H100 machines may lose the records of its first kernels on the card: a
+# few, an eager window's first iteration, or every record of a short one, in some runs in every window
+# (and records may precede their own launch on the host's clock; tools/profiler_clock_probe.py).  So each
+# window opens with spin kernels, each waited for, whose records may go (PROFILER_LEAD_KERNELS, more at each
+# attempt), and ``lost_records`` holds the window's first launches after them to their records: a window
+# that lost any runs again, up to len(PROFILER_LEAD_KERNELS) times in all.
+PROFILER_LEAD_KERNELS = (32, 128, 512, 2048, 8192)  # by attempt
+PROFILER_ATTEMPTS = len(PROFILER_LEAD_KERNELS)
+PROFILER_TALLY = {"windows": 0, "windows_run_again": 0, "records_lost": 0}  # over the run
+CAPTURES: list = []  # (start, end) on the host's clock (ns) of the optimizer's graph captures (record_captures)
+
+
+def profiler_lead(attempt: int) -> int:
+    """The opening of a profiler window: spin kernels (``torch.cuda._sleep``;
+    ``is_lead`` names their records), each waited for.  Returns the host's
+    clock (ns) after them, where the window's counted launches begin."""
+    for _ in range(PROFILER_LEAD_KERNELS[attempt - 1]):
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    return time.time_ns()
+
+
+def is_lead(name: str) -> bool:
+    return "spin_kernel" in name
+
+
+def lost_records(prof, since_ns: int, path: str, attempt: int) -> int:
+    """The records of the card that a ``torch.profiler`` window lost from
+    the start of its launches after ``since_ns`` (the host's clock, ns), up
+    to the first launch it kept whole: a kernel launch on the host
+    (``*LaunchKernel*``) with no record under its correlation id, but for
+    those a graph capture recorded (``CAPTURES``), which run nothing, and a
+    graph launch with fewer records than the window's fullest (every window
+    here replays one graph).  Says so when it lost any; adds the window to
+    ``PROFILER_TALLY``."""
+    events = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    records, host = {}, []
+    for e in events:
+        if e.device_type() == cuda:
+            records[e.correlation_id()] = records.get(e.correlation_id(), 0) + 1
+        elif e.start_ns() >= since_ns:
+            host.append((e.correlation_id(), e.name(), e.start_ns()))
+    most = max((records.get(c, 0) for c, name, _ in host if "GraphLaunch" in name), default=0)
+    lost = 0
+    for c, name, t in sorted(host, key=lambda h: h[2]):  # the window's first launches, up to one kept whole
+        want = 1 if "LaunchKernel" in name and not any(t0 <= t <= t1 for t0, t1 in CAPTURES) else \
+            max(most, 1) if "GraphLaunch" in name else 0
+        if want and records.get(c, 0) >= want:
+            break
+        lost += want - min(records.get(c, 0), want)
+    PROFILER_TALLY["windows"] += 1
+    if lost:
+        PROFILER_TALLY["windows_run_again"] += attempt < PROFILER_ATTEMPTS
+        PROFILER_TALLY["records_lost"] += lost
+        say("profile", path=path, attempt=attempt, lost_records=lost, lead_kernels=PROFILER_LEAD_KERNELS[attempt - 1],
+            note="the profiler lost records of the window's launches: the window runs again")
+    return lost
+
+
 OPT_IN_PHASES = ("canonical",)  # host time beyond the default run's budget: run alone
 CANONICAL_SOURCES = 25_000_000
 # benchmark/results/canonical_250m.json: the native generator's nnz at the
@@ -314,10 +388,41 @@ def device_launches(prof, calls: dict) -> dict:
 
 def capture_spy():
     """Counts the optimizer's graph captures in ``call_count``; each runs the
-    package's ``_Graph._capture`` as it is."""
+    package's ``_Graph._capture`` as it is (through ``record_captures``)."""
     from dualip_tpu_torch.optimizers import agd
 
     return mock.patch.object(agd._Graph, "_capture", autospec=True, side_effect=agd._Graph._capture)
+
+
+def record_captures() -> None:
+    """Wraps the optimizer's ``_Graph._capture`` for the rest of the run so
+    that each capture's span on the host's clock lands in ``CAPTURES``: the
+    kernel launches inside it are recorded into the graph, not run."""
+    from dualip_tpu_torch.optimizers import agd
+
+    capture = agd._Graph._capture
+
+    def timed(self):
+        t = time.time_ns()
+        try:
+            return capture(self)
+        finally:
+            CAPTURES.append((t, time.time_ns()))
+
+    agd._Graph._capture = timed
+
+
+def reduce_spy():
+    """Counts the meshes' ``all_reduce_`` calls in ``call_count`` (a capture
+    records the collective: one call, nothing run); each runs as it is."""
+    from dualip_tpu_torch.parallel.mesh import EntityMesh
+
+    return mock.patch.object(EntityMesh, "all_reduce_", autospec=True, side_effect=EntityMesh.all_reduce_)
+
+
+def nccl_records(by_name: dict) -> int:
+    """NCCL's kernels among a profiler window's records by name."""
+    return sum(c for nm, c in by_name.items() if "nccl" in nm.lower())
 
 
 def reset_counts() -> None:
@@ -917,21 +1022,22 @@ def time_panel(what, obj, dev, kernels, panel_err, launches=None, calls=None):
 V150D30 = ROOT / "examples" / "miplib_2017" / "v150d30-2hopcds.mps.gz"
 V150D30_JAX_DUAL = 27.62  # the JAX package's dual at 10,000 iterations (PARITY.md, section 2.5)
 LP_SOLVER = dict(gamma=1e-3, initial_step_size=1e-5)  # the reference's MIPLIB solve
+LP_COO_ITERS = 200  # lp-2.5M's COO solve (phases lp and dist)
 
 
-def phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, replay_ms, Timed, graph_check):
+def phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, replay_ms, Timed, graph_check, refs):
     """The general LP through ``run_solver(objective_type="miplib2017")``:
     the bundled MIPLIB instance (10,000 iterations on the COO layout, a
     bit-identical repeat, the butterfly layout on the whole instance held to
     COO per ``calculate``, the PDLP bound) and the slice's matrix read as a
-    general LP (COO and butterfly, timed and profiled).  The solves run on
-    the CUDA graph, so their wrapper counts are ``graph_calls``."""
+    general LP (COO and butterfly, timed and profiled; the COO log kept in
+    ``refs`` for phase dist).  The solves run on the CUDA graph, so their
+    wrapper counts are ``graph_calls``."""
     import dualip_tpu_torch.objectives.miplib as miplib_mod
     from dualip_tpu_torch.io.mps import read_mps_file
     from dualip_tpu_torch.objectives.matching import _plan_size
-    from dualip_tpu_torch.objectives.miplib import MIPLIB2017ObjectiveFunction, MIPLIBInputArgs
+    from dualip_tpu_torch.objectives.miplib import MIPLIB2017ObjectiveFunction
     from dualip_tpu_torch.optimizers.agd import AcceleratedGradientDescent
-    from dualip_tpu_torch.projections import ProjectionEntry
 
     class TimedMIPLIB(Timed, MIPLIB2017ObjectiveFunction):
         def __init__(self, *a, **kw):
@@ -1016,11 +1122,9 @@ def phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, repl
 
     # ---- lp-2.5M: the slice's matrix as a general LP, x in [0, 1], c ~ U(-1, 0)
     m, n = inp.A.shape
-    c_lp = np.random.default_rng(42).uniform(-1.0, 0.0, size=n).astype(np.float32)
-    lp_args = MIPLIBInputArgs(A=inp.A, c=c_lp, b_vec=inp.b_vec,
-                              projection_map={"box": ProjectionEntry("box", {"lower": 0.0, "upper": 1.0}, np.arange(n))})
+    lp_args = lp_2p5m(inp)
     results = {}
-    for layout, iters in (("coo", 200), ("butterfly", 50)):
+    for layout, iters in (("coo", LP_COO_ITERS), ("butterfly", 50)):
         res, n_launch, solve_s = lp_solve(lp_args, iters, layout=layout)
         peak = torch.cuda.max_memory_allocated()
         obj = captured["obj"]
@@ -1034,6 +1138,7 @@ def phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, repl
             peak_device_bytes=peak, wrapper_calls=n_launch, card=card)
         check(res.dual_objective_log[-1] > res.dual_objective_log[0], f"lp-2.5M {layout}: the dual objective did not rise")
         if layout == "coo":
+            refs["lp-2.5M coo"] = list(res.dual_objective_log)
             check(n_launch["segsum"] == graph_calls(2), f"lp-2.5M coo: wrapper calls {n_launch}")
             again = repeat(obj, iters)
             check(np.array_equal(again, np.asarray(res.dual_objective_log)), "lp-2.5M: two COO solves differ")
@@ -1513,7 +1618,12 @@ def phase_canonical(args, card, captured, solve, replay_ms, solver_kw):
 
 
 DIST_SOLVER = dict(gamma=1e-3, initial_step_size=1e-3, max_step_size=1e-1)  # main's solver_kw
-DIST_BUTTERFLY_ITERS = 50
+DIST_BUTTERFLY_ITERS = 50  # also the dense LP's
+DIST_PLAIN_ITERS = 50  # the plain csc path: about 21 ms an iteration
+DIST_CHECK_ITERS = 20  # graph_check's iterations on a mesh path (phase graph's n_chk)
+LP_DENSE_COLUMNS = 100_000  # lp-dense-100K: 10,000 x 100,000 fp32, 4 GB (lp-2.5M dense would take 100 GB)
+# phase dist's mesh paths on the graph, in the order they run
+MESH_PATHS = ("csc use_pallas", "csc plain", "butterfly", "butterfly compact", "lp-2.5M coo", "lp-dense-100K")
 
 
 def _data_digest(inp) -> str:
@@ -1549,7 +1659,7 @@ def _dist_rank(mesh, cache_dir, shape, seed, iters, bfly_iters):
     check(path.exists(), f"rank {mesh.rank}: the parent's generator cache {path} is missing")
     t0 = time.perf_counter()
     inp = generate_synthetic_matching_input_args(*shape, seed=seed, cache_dir=cache_dir)
-    out = {"load_s": time.perf_counter() - t0, "digest": _data_digest(inp)}
+    out = {"load_s": time.perf_counter() - t0, "digest": _data_digest(inp), "captures": 0}
     built = {}
 
     class TimedMatching(Timed, MatchingSolverDualObjectiveFunction):
@@ -1567,10 +1677,12 @@ def _dist_rank(mesh, cache_dir, shape, seed, iters, bfly_iters):
 
     def solve(n, **kw):
         reset_counts()
-        res = dt.run_solver(inp, dt.SolverArgs(max_iter=n, **DIST_SOLVER),
-                            dt.ComputeArgs(host_device=str(dev), compute_device_num=mesh.world_size),
-                            dt.ObjectiveArgs(objective_type="dist_smoke", objective_kwargs=kw))
+        with capture_spy() as cap:  # a gloo mesh runs the eager loop: no capture
+            res = dt.run_solver(inp, dt.SolverArgs(max_iter=n, **DIST_SOLVER),
+                                dt.ComputeArgs(host_device=str(dev), compute_device_num=mesh.world_size),
+                                dt.ObjectiveArgs(objective_type="dist_smoke", objective_kwargs=kw))
         torch.cuda.synchronize()
+        out["captures"] += cap.call_count
         return res, counts()
 
     def timed(path, res, n_launch, obj, build_s):
@@ -1649,20 +1761,47 @@ def _nccl_probe(mesh):
     return "all_reduce completed"
 
 
-def phase_dist(dt, args, inp, card, dev, refs, solve, captured, eager_ms):
+def lp_2p5m(inp, dense_columns=None):
+    """lp-2.5M: the slice's matrix as a general LP, x in [0, 1], c ~ U(-1, 0)
+    from ``default_rng(42)``; with ``dense_columns``, its first that many
+    variables as a dense array (lp-dense-100K)."""
+    from dualip_tpu_torch.objectives.miplib import MIPLIBInputArgs
+    from dualip_tpu_torch.projections import ProjectionEntry
+
+    A = inp.A
+    m, n = A.shape
+    c = np.random.default_rng(42).uniform(-1.0, 0.0, size=n).astype(np.float32)
+    if dense_columns is not None:
+        n, end = dense_columns, int(A.indptr[dense_columns])
+        dense = np.zeros((m, n), dtype=np.float32)
+        dense[A.row_indices[:end], np.repeat(np.arange(n), np.diff(A.indptr[:n + 1]))] = A.data[:end]
+        A, c = dense, c[:n]
+    return MIPLIBInputArgs(A=A, c=c, b_vec=inp.b_vec,
+                           projection_map={"box": ProjectionEntry("box", {"lower": 0.0, "upper": 1.0}, np.arange(n))})
+
+
+def phase_dist(dt, args, inp, card, dev, refs, solve, captured, replay_ms, graph_check):
     """The entity-sharded solve on the one card.  (a) NCCL, world 1, in this
-    process: the csc ``use_pallas`` solve over a mesh, its log bit-identical
-    to the one-device log, and the all_reduce's time.  Then whether NCCL
-    takes two ranks on one card.  (b) Two ranks sharing the card over gloo
-    (the reduction goes through host memory), spawned, reading the slice from
-    the generator cache this process writes: csc 200 iterations and
-    butterfly 50, held to each other (bit for bit), to themselves (a repeat),
-    to the one-device logs (first 10 iterations within 1e-5, the last within
+    process: each mesh path on the AGD's CUDA graph with the all_reduce
+    captured (``MESH_PATHS``), its log bit for bit against the eager mesh
+    loop's and the one-device graph log, then ``graph_check`` over 20
+    iterations (one capture, the replays' kernels the eager loop's, the
+    all_reduce's calls and NCCL's kernels, ms graph and eager); the csc ``use_pallas``
+    solve through ``run_solver`` (wrapper calls counted), the same objective with
+    and without its mesh in turns on the graph, and the all_reduce of m + 2
+    floats timed.  Then whether NCCL takes two ranks on one card.  (b) Two
+    ranks sharing the card over gloo (the reduction goes through host
+    memory), spawned, reading the slice from the generator cache this process
+    writes: csc 200 iterations and butterfly 50 in the eager loop (no
+    capture), held to each other (bit for bit), to themselves (a repeat), to
+    the one-device logs (first 10 iterations within 1e-5, the last within
     1e-2) and each rank's kernels to their plain versions.  Their times are
     two processes time-sharing one card, not a multi-GPU figure."""
     import torch.distributed as dist
 
     from dualip_tpu_torch import synthetic
+    from dualip_tpu_torch.objectives.miplib import MIPLIB2017ObjectiveFunction
+    from dualip_tpu_torch.optimizers.agd import AcceleratedGradientDescent, uses_graph
     from dualip_tpu_torch.parallel import default_mesh, initialize_multihost, run_ranks
     from dualip_tpu_torch.parallel.launch import _free_port
 
@@ -1670,37 +1809,111 @@ def phase_dist(dt, args, inp, card, dev, refs, solve, captured, eager_ms):
     initialize_multihost(f"127.0.0.1:{_free_port()}", world_size=1, rank=0, device=dev, timeout_s=300)
     try:
         mesh = default_mesh(1, device=dev)
-        res, n_launch, _ = solve(inp, args.iters, False, use_pallas=True, mesh=mesh)
-        obj = captured["obj"]
-        log = res.dual_objective_log
-        same = list(log) == list(refs["csc"])
+        nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+        check(uses_graph(dev, mesh), f"dist (a): the path rule keeps a {mesh.backend()} mesh off the graph")
+        say("dist", step="a", backend=mesh.backend(), world=1, nccl_version=nccl, capture_error_mode="global",
+            path="graph (uses_graph)", card=card)
+        m = inp.b_vec.shape[0]
+        zeros = torch.zeros(m, device=dev)
+        done = []
+
+        def one_device(obj, iters, kw=DIST_SOLVER):
+            """The graph log of the same objective without its mesh (its tiles
+            are the whole problem at world 1)."""
+            one = copy.copy(obj)
+            one.mesh = None
+            return list(AcceleratedGradientDescent(max_iter=iters, **kw).maximize(one, zeros).dual_objective_log)
+
+        def mesh_path(path, obj, log, ref, ref_from, kw=DIST_SOLVER):
+            """``log``: the mesh graph's whole solve; held to the eager mesh
+            loop's and to ``ref`` (one device, on the graph) bit for bit, then
+            ``graph_check`` over its first iterations (profiled windows stay
+            at phase graph's length)."""
+            iters = len(log)
+            eager = list(AcceleratedGradientDescent(max_iter=iters, **kw)._maximize_eager(obj, zeros)
+                         .dual_objective_log)
+            ref = list(ref[:iters])
+            row = graph_check(f"dist {path}", obj, zeros, kw=kw, iters=min(iters, DIST_CHECK_ITERS), always=True)
+            say("dist", step="a", path=repr(path), iterations=iters,
+                log_vs_eager_mesh_loop="bit-identical" if log == eager else "DIFFERS",
+                log_vs_one_device_graph="bit-identical" if log == ref else "DIFFERS", one_device=repr(ref_from),
+                checked_iterations=row["iterations"], ms_per_iteration_graph=row["graph_ms_per_iteration"],
+                ms_per_iteration_eager=row["eager_ms_per_iteration"], eager_over_graph=row["eager_over_graph"],
+                all_reduce_calls_graph_run=row["all_reduce_calls_graph_run"],
+                nccl_kernels_per_replay=row["nccl_kernels_per_replay"], nccl_version=nccl,
+                capture_error_mode="global", card=card)
+            check(log == eager, f"dist (a) {path}: the mesh graph's log differs from the eager mesh loop's by "
+                                f"{rel_dev(log, eager).max()}")
+            check(log == ref, f"dist (a) {path}: the mesh graph's log differs from the one-device graph log by "
+                              f"{rel_dev(log, ref).max()}")
+            done.append(path)
+
+        # csc use_pallas through run_solver: the graph (one capture), its wrappers called for iteration 1 and
+        # the capture, its kernels on the card once an iteration
+        with capture_spy() as cap:
+            res, n_launch, _ = solve(inp, args.iters, False, use_pallas=True, mesh=mesh)
+        obj, n_calls = captured["obj"], captured["calls"]
+        log = list(res.dual_objective_log)
+        check(cap.call_count == captured["attempts"],  # one a solve: a profiled window that lost records runs again
+              f"dist (a): run_solver over the NCCL mesh captured {cap.call_count} graphs in "
+              f"{captured['attempts']} solves")
+        check(n_calls["K1g"] == graph_calls(len(obj.bcsc.tiles)) and n_calls["segsum"] == graph_calls(1),
+              f"dist (a): wrapper calls {n_calls}")
         check(n_launch["K1g"] == len(obj.bcsc.tiles) * args.iters and n_launch["segsum"] == args.iters,
               f"dist (a): launches {n_launch}")
-        # the same objective without its mesh, in turns with it (mesh, one device, one device, mesh):
-        # what the reduction adds to an iteration, within this call.  A mesh runs the eager loop, so every
-        # turn is timed in the eager loop, outside the profiler (the one-device solves, for the log, ran on
-        # the graph).
+        mesh_path("csc use_pallas", obj, log, refs["csc"], "run_solver without a mesh")
+        # the same objective without its mesh, in turns with it (mesh, one device, one device, mesh), on the
+        # graph: what the reduction adds to an iteration, within this call
         one = copy.copy(obj)
         one.mesh = None
-        turns = []
-        for k, o in enumerate((obj, one, one, obj)):
-            if k:
-                r, _, _ = solve(inp, args.iters, False, objective_type="matching_smoke_prebuilt", profiled=False,
-                                objective=o)
-                same = same and list(r.dual_objective_log) == list(log)
-            turns.append(eager_ms(o, torch.zeros(obj.bcsc.m, device=dev), args.iters))
-        buf = torch.zeros(obj.bcsc.m + 2, device=dev)
+        turns = [replay_ms(o, zeros, iters=args.iters) for o in (obj, one, one, obj)]
+        buf = torch.zeros(m + 2, device=dev)
         t_ar = cuda_ms(lambda: mesh.all_reduce_(buf), reps=200)
-        say("dist", step="a", backend=dist.get_backend(), world=1, iterations=len(log),
-            log_vs_one_device="bit-identical" if same else "DIFFERS",
-            ms_per_iteration_mesh_one_one_mesh=[f"{t:.4f}" for t in turns], loop="eager, each",
-            one_device_graph_ms_per_iteration_phase_slice=refs.get("csc_ms", "not run"),
-            allreduce_ms=f"{t_ar.eager_ms:.4f}", allreduce_host_enqueue_ms=f"{t_ar.host_ms:.4f}",
-            allreduce_floats=obj.bcsc.m + 2, launches=n_launch, card=card)
-        check(same, f"dist (a): the world-1 mesh log differs from the one-device log by "
-                    f"{rel_dev(log, refs['csc']).max()}")
-        del obj, one, res, r, captured["obj"], buf
+        t_ar_graph = cuda_ms(lambda: mesh.all_reduce_(buf), reps=200, graph=True)
+        say("dist", step="a", path="'csc use_pallas'", run_solver_captures=cap.call_count, wrapper_calls=n_calls,
+            launches=n_launch,
+            ms_per_iteration_mesh_one_one_mesh=[f"{t:.4f}" for t in turns], loop="graph, each",
+            allreduce_ms=f"{t_ar.eager_ms:.4f}", allreduce_graph_ms=f"{t_ar_graph.ms:.4f}",
+            allreduce_host_enqueue_ms=f"{t_ar.host_ms:.4f}", allreduce_floats=m + 2, card=card)
+        del obj, one, res, captured["obj"], buf
         torch.cuda.empty_cache()
+
+        # the other matching paths through run_solver over the mesh, then the same checks
+        for path, iters, kw in (("csc plain", DIST_PLAIN_ITERS, {}),
+                                ("butterfly", DIST_BUTTERFLY_ITERS, {"layout": "butterfly"}),
+                                ("butterfly compact", DIST_BUTTERFLY_ITERS,
+                                 {"layout": "butterfly", "compact": True, "keep_col_tiles": False,
+                                  "keep_flat_idx": False})):
+            with capture_spy() as cap:
+                res, _, _ = solve(inp, iters, False, profiled=False, mesh=mesh, **kw)
+            obj = captured["obj"]
+            check(cap.call_count == 1, f"dist (a) {path}: run_solver captured {cap.call_count} graphs")
+            if path == "butterfly":
+                ref, ref_from = refs["butterfly"], "run_solver without a mesh"
+            else:
+                ref, ref_from = one_device(obj, iters), "the objective without its mesh"
+            mesh_path(path, obj, list(res.dual_objective_log), ref, ref_from)
+            del obj, res, captured["obj"]
+            torch.cuda.empty_cache()
+
+        # the general LP split by columns: COO (lp-2.5M; phase lp's log where it ran) and dense
+        for path, data, iters in (("lp-2.5M coo", lp_2p5m(inp), LP_COO_ITERS),
+                                  ("lp-dense-100K", lp_2p5m(inp, LP_DENSE_COLUMNS), DIST_BUTTERFLY_ITERS)):
+            ref = refs.get(path)
+            if ref is None:
+                one = MIPLIB2017ObjectiveFunction(data, device=dev)
+                ref = list(AcceleratedGradientDescent(max_iter=iters, **LP_SOLVER).maximize(
+                    one, zeros).dual_objective_log)
+                del one
+            obj = MIPLIB2017ObjectiveFunction(data, mesh=mesh)
+            with capture_spy() as cap:
+                log = list(AcceleratedGradientDescent(max_iter=iters, **LP_SOLVER).maximize(obj, zeros)
+                           .dual_objective_log)
+            check(cap.call_count == 1, f"dist (a) {path}: maximize captured {cap.call_count} graphs")
+            mesh_path(path, obj, log, ref, "the LP without a mesh", kw=LP_SOLVER)
+            del obj, data
+            torch.cuda.empty_cache()
+        check(list(done) == list(MESH_PATHS), f"dist (a): mesh paths run {done}, expected {MESH_PATHS}")
     finally:
         dist.destroy_process_group()
 
@@ -1750,7 +1963,10 @@ def phase_dist(dt, args, inp, card, dev, refs, solve, captured, eager_ms):
             else:
                 check(n["K3"] == n_iter and n["K5"] == 2 * n_iter and n["K6"] + n["K7"] == 4 * n_iter
                       and n["K1g"] == n["segsum"] == 0, f"dist (b) butterfly rank {r}: launches {n}")
-    say("dist", step="b", ranks=2, backend="gloo", device=str(dev), wall_s=f"{wall_s:.1f}",
+    captures = [r["captures"] for r in ranks]
+    check(captures == [0, 0], f"dist (b): the gloo ranks captured {captures} graphs; a gloo mesh runs eager")
+    say("dist", step="b", ranks=2, backend="gloo", device=str(dev), loop="eager", captures=captures,
+        wall_s=f"{wall_s:.1f}",
         data_load_s=[f"{r['load_s']:.2f}" for r in ranks], allreduce_ms=[f"{r['allreduce_ms']:.4f}" for r in ranks],
         allreduce_floats=inp.b_vec.shape[0] + 2, ranks_bit_identical=True, repeats_bit_identical=True, card=card)
 
@@ -1866,6 +2082,7 @@ def main(argv=None) -> int:
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    record_captures()
 
     # 1. device
     smi = subprocess.run(
@@ -1952,35 +2169,44 @@ def main(argv=None) -> int:
         kernels that ran on the card (``device_launches``), to which the forms
         only the host launches (``HOST_FORMS``) add their calls in the build;
         each kernel that ran was called through its wrapper.  A solve whose
-        launches are not read (a repeat, a reference log) runs with
-        ``profiled=False`` and gives None for them."""
+        profiler lost records of its launches (``lost_records``) is run again.
+        A solve whose launches are not read (a repeat, a reference log) runs
+        with ``profiled=False`` and gives None for them.  ``captured["attempts"]``
+        counts the solves run."""
         from torch.profiler import ProfilerActivity, profile
 
-        reset_counts()
-        prof, window = profile(activities=[ProfilerActivity.CUDA]), {}
+        for attempt in range(1, PROFILER_ATTEMPTS + 1):
+            reset_counts()
+            prof, window = profile(activities=[ProfilerActivity.CUDA]), {}
 
-        def start():  # the factory built the objective: the solve starts
-            torch.cuda.synchronize()
-            window["calls"] = counts()
-            prof.start()
+            def start(prof=prof, window=window, attempt=attempt):  # the objective is built: the solve starts
+                torch.cuda.synchronize()
+                window["calls"] = counts()
+                prof.start()
+                window["since"] = profiler_lead(attempt)
 
-        captured["on_built"] = start if profiled else None
-        t = time.perf_counter()
-        try:
-            res = dt.run_solver(
-                data, dt.SolverArgs(max_iter=iters, save_primal=save_primal, **solver_kw), dt.ComputeArgs(),
-                dt.ObjectiveArgs(objective_type=objective_type, objective_kwargs=objective_kwargs),
-            )
-            torch.cuda.synchronize()
-        finally:
-            captured["on_built"] = None
-            if "calls" in window:
-                prof.stop()
-        seconds = time.perf_counter() - t
-        captured["calls"] = calls = counts()
-        if not profiled:
-            return res, None, seconds
-        check("calls" in window, "solve: the objective's factory did not start the profiler")
+            captured["on_built"] = start if profiled else None
+            t = time.perf_counter()
+            try:
+                res = dt.run_solver(
+                    data, dt.SolverArgs(max_iter=iters, save_primal=save_primal, **solver_kw), dt.ComputeArgs(),
+                    dt.ObjectiveArgs(objective_type=objective_type, objective_kwargs=objective_kwargs),
+                )
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t
+            finally:
+                captured["on_built"] = None
+                if "calls" in window:
+                    prof.stop()
+            captured["calls"] = calls = counts()
+            captured["attempts"] = attempt
+            if not profiled:
+                return res, None, seconds
+            check("calls" in window, "solve: the objective's factory did not start the profiler")
+            lost = lost_records(prof, window["since"], f"run_solver {objective_type}", attempt)
+            if not lost:
+                break
+        check(not lost, f"solve: the profiler lost records of the card in {PROFILER_ATTEMPTS} attempts")
         built = window["calls"]
         n = device_launches(prof, {k: calls[k] - built[k] for k in calls})
         for k in HOST_FORMS:
@@ -2005,18 +2231,27 @@ def main(argv=None) -> int:
         set to 0 just before: prints the device's busy share of the wall and
         the kernels' time by name, and returns its numbers (``launches``: the
         port's kernels that ran on the card, ``by_name``: every kernel's
-        records); None if the profiler recorded no device time."""
+        records); None if the profiler recorded no device time.  A window
+        whose profiler lost records of its launches (``lost_records``) runs
+        again."""
         from torch.profiler import ProfilerActivity, profile
 
-        torch.cuda.synchronize()
-        reset_counts()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
+        for attempt in range(1, PROFILER_ATTEMPTS + 1):
             torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+            reset_counts()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                since = profiler_lead(attempt)
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            lost = lost_records(prof, since, path, attempt)
+            if not lost:
+                break
+        check(not lost, f"profile {path}: the profiler lost records of the card in {PROFILER_ATTEMPTS} attempts")
         spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start)
+                       if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start
+                       and not is_lead(e.name))
         if not spans:
             say("profile", path=path, device_busy_share="not measured", note="the profiler recorded no device time")
             return None
@@ -2069,18 +2304,6 @@ def main(argv=None) -> int:
             agd.maximize(objective, x0)
         return event_ms(lambda: agd.maximize(objective, x0)) / agd.max_iter
 
-    def ms_per_iteration(ev):
-        """ms an iteration of the eager loop, from its evaluations' events:
-        the start of iteration 2 to the end of the last evaluation."""
-        return ev[1][0].elapsed_time(ev[-1][1]) / (len(ev) - 1)
-
-    def eager_ms(objective, x0, iters):
-        """``ms_per_iteration`` of ``iters`` iterations of ``objective`` (a
-        ``Timed`` one) in the eager loop."""
-        objective.events = []
-        AcceleratedGradientDescent(max_iter=iters, **solver_kw)._maximize_eager(objective, x0)
-        return ms_per_iteration(objective.events)
-
     def check_solution(res, obj, data, iters, what):
         log = res.dual_objective_log
         check(len(log) == iters and all(np.isfinite(log)), f"{what}: non-finite dual objective log")
@@ -2105,8 +2328,9 @@ def main(argv=None) -> int:
 
     graph_rows = {}  # phase graph: path -> its numbers
 
-    def graph_check(path, obj, x0, kw=None, iters=None):
-        """Phase graph on one path: the same objective and start through the
+    def graph_check(path, obj, x0, kw=None, iters=None, always=False):
+        """Phase graph on one path (phase dist's mesh paths call it with
+        ``always``): the same objective and start through the
         eager loop (``_maximize_eager``) and through ``maximize`` (iteration 1
         eager, then replays of a CUDA graph of one iteration), each on a
         solver of its own, three times: the first run (counts set to 0 just
@@ -2117,25 +2341,31 @@ def main(argv=None) -> int:
         wrapper twice as often as one eager iteration (iteration 1 and the
         capture); and the port's kernels that the profiler saw run in the
         graph's replays equal the eager loop's wrapper counts and its own
-        profiled launches.  The graph's nodes by kind are the profiler's
-        records of one replay (kernels, copies, memsets)."""
-        if "graph" not in phases:
-            return
+        profiled launches.  On a mesh also: the first runs' ``all_reduce``
+        calls (one an eager iteration; iteration 1 and the capture on the
+        graph) and NCCL's kernels a replay equal to those of an eager
+        iteration.  The graph's nodes by kind are the profiler's records of
+        one replay (kernels, copies, memsets).  Returns its row of numbers
+        (None when phase graph is not run)."""
+        if "graph" not in phases and not always:
+            return None
         kw, iters = kw or solver_kw, iters or n_chk
+        mesh = getattr(obj, "mesh", None)
         cls = type(obj) if isinstance(obj, Timed) else type("Timed" + type(obj).__name__, (Timed, type(obj)), {})
         tobj = variant(obj, cls)
         out = {}
         for mode in ("eager", "graph"):
             agd = AcceleratedGradientDescent(max_iter=iters, **kw)
             run = agd._maximize_eager if mode == "eager" else agd.maximize
-            with capture_spy() as cap:
+            with capture_spy() as cap, reduce_spy() as red:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 base = torch.cuda.memory_allocated()
                 reset_counts()
                 res = run(tobj, x0)
                 torch.cuda.synchronize()
-                o = out[mode] = {"res": res, "calls": counts(), "peak": torch.cuda.max_memory_allocated() - base}
+                o = out[mode] = {"res": res, "calls": counts(), "peak": torch.cuda.max_memory_allocated() - base,
+                                 "reduces": red.call_count}
                 again = []
                 o["ms"] = event_ms(lambda: again.append(run(tobj, x0))) / iters
                 prof = profile_run(f"{path} {mode}", lambda: again.append(run(tobj, x0)), iters)
@@ -2144,7 +2374,7 @@ def main(argv=None) -> int:
                                      and torch.equal(r.dual_val, res.dual_val) for r in again)
             check(prof is not None, f"graph {path} {mode}: the profiler recorded no device time")
             o.update(busy=prof["busy_share"], activities=prof["activities"], launches=prof["launches"],
-                     kinds=prof["kinds"])
+                     kinds=prof["kinds"], nccl=nccl_records(prof["by_name"]) / iters)
             del agd, run, again
         e, g = out["eager"], out["graph"]
         same_log = list(e["res"].dual_objective_log) == list(g["res"].dual_objective_log)
@@ -2165,6 +2395,9 @@ def main(argv=None) -> int:
                "port_kernels_per_replay": {k: v / iters for k, v in nonzero(g["launches"]).items()},
                "eager_wrapper_calls": nonzero(e["calls"]), "graph_run_wrapper_calls": nonzero(g["calls"]),
                "eager_peak_bytes": e["peak"], "graph_peak_bytes": g["peak"]}
+        if mesh is not None:
+            row.update(all_reduce_calls_eager_run=e["reduces"], all_reduce_calls_graph_run=g["reduces"],
+                       nccl_kernels_per_eager_iteration=e["nccl"], nccl_kernels_per_replay=g["nccl"])
         graph_rows[path] = row
         say("graph", path=repr(path), logs="bit-identical" if same_log else "DIFFER",
             final_dual="bit-identical" if same_dual else "DIFFERS",
@@ -2183,8 +2416,14 @@ def main(argv=None) -> int:
         check(replayed_as_eager, f"graph {path}: the replays launched {g['launches']}, the eager loop "
                                  f"{e['calls']}")
         check(segsum_whole, f"graph {path}: the segment-sum's two kernels ran apart: {e['launches']}, {g['launches']}")
+        if mesh is not None:
+            check(e["reduces"] == iters and g["reduces"] == 2,
+                  f"graph {path}: all_reduce calls {e['reduces']} eager, {g['reduces']} on the graph's first run")
+            check(g["nccl"] == e["nccl"], f"graph {path}: NCCL kernels {g['nccl']} a replay, {e['nccl']} an eager "
+                                          f"iteration")
         del out, e, g
         torch.cuda.empty_cache()
+        return row
 
     certs, cert_dual = {}, None
 
@@ -2266,6 +2505,27 @@ def main(argv=None) -> int:
             check(sizes == want_sizes, f"graph: chunk_walls sizes {sizes}, expected {want_sizes}")
             check(same, "graph: the launch_chunk=50 solve's log differs")
             del agd, r_c
+            # a cached graph reads the params of the call that runs it: b rebound between two maximize calls
+            agd = AcceleratedGradientDescent(max_iter=n_chk, **solver_kw)
+            b_old = obj.b_vec
+            with capture_spy() as cap:
+                r_old = agd.maximize(obj, zeros_m)
+                obj.b_vec = 0.5 * b_old
+                r_new = agd.maximize(obj, zeros_m)
+                r_again = agd.maximize(obj, zeros_m)
+            want = AcceleratedGradientDescent(max_iter=n_chk, **solver_kw)._maximize_eager(obj, zeros_m)
+            obj.b_vec = b_old
+            same = list(r_new.dual_objective_log) == list(want.dual_objective_log) and \
+                torch.equal(r_new.dual_val, want.dual_val)
+            again = list(r_again.dual_objective_log) == list(r_new.dual_objective_log)
+            say("graph", path="'csc use_pallas'", rebound="b_vec to b_vec / 2 between two maximize calls",
+                iterations=n_chk, captures=cap.call_count, final_old_b=r_old.dual_objective,
+                final_new_b=r_new.dual_objective, log_vs_eager_loop_new_b="bit-identical" if same else "DIFFERS",
+                third_call_replays_the_new_graph=again, card=card)
+            check(cap.call_count == 2, f"graph: {cap.call_count} captures for b, b / 2, b / 2 (expected 2)")
+            check(same and again, "graph: the solve after rebinding b_vec differs from the eager loop's on the new b")
+            check(r_new.dual_objective != r_old.dual_objective, "graph: rebinding b_vec changed nothing")
+            del agd, r_old, r_new, r_again, want
 
         # The first iterations again, with K1's plain version on the card (same
         # tiles, the same segment-sum kernel on both sides).
@@ -2724,7 +2984,8 @@ def main(argv=None) -> int:
 
     # ------------------------------------------------------------------ 11. lp
     if "lp" in phases:
-        phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, replay_ms, Timed, graph_check)
+        phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, replay_ms, Timed, graph_check,
+                 dist_refs)
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
     # ------------------------------------------------------------------ 12. examples
@@ -2767,7 +3028,7 @@ def main(argv=None) -> int:
                                           .dual_objective_log)
         captured.pop("obj", None)
         torch.cuda.empty_cache()
-        phase_dist(dt, args, inp, card, dev, dist_refs, solve, captured, eager_ms)
+        phase_dist(dt, args, inp, card, dev, dist_refs, solve, captured, replay_ms, graph_check)
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
     # ------------------------------------------------------------------ canonical (opt-in)
@@ -2775,6 +3036,7 @@ def main(argv=None) -> int:
         phase_canonical(args, card, captured, solve, replay_ms, solver_kw)
         say("time", seconds_so_far=f"{time.perf_counter() - t_run:.1f}")
 
+    say("profile", **PROFILER_TALLY, note="windows that lost records of their launches ran again")
     if not full:
         say("done", phases=phases, note="a partial run prints no result lines")
         return 0

@@ -315,7 +315,8 @@ class _ColShardedOps:
         for idx, fn in self._proj:
             x[idx] = fn(x.index_select(0, idx))
         m = self.shape[0]
-        buf = torch.cat([self._local_matvec(x), torch.dot(self.c_local, x).reshape(1), torch.dot(x, x).reshape(1)])
+        # c.x and |x|^2 as the single-device evaluation takes them, so one rank gives its bits
+        buf = torch.cat([self._local_matvec(x), (self.c_local @ x).reshape(1), torch.sum(x * x).reshape(1)])
         self.mesh.all_reduce_(buf)
         return buf[:m], buf[m], buf[m + 1], x
 

@@ -12,15 +12,18 @@ iteration never waits for the host.  Where the JAX package compiles the
 iterations into one ``lax.scan`` program, how they run here depends on where
 the dual lives:
 
-* a CUDA dual and an objective without a mesh: iteration 1 runs eagerly (the
-  objective fills its lazy state, the kernels load and set their attributes),
-  then one iteration is captured in a CUDA graph on static carry buffers and
-  every later iteration is one ``replay()``: the same kernels in the same
-  order as the eager loop, so the same bits.  A capture that fails raises; it
-  never falls back to the eager loop.
-* the CPU, or a mesh: the same step in an eager Python loop that queues each
-  iteration's kernels and never waits for them.  A mesh stays eager because
-  gloo's ``all_reduce`` goes through host memory and cannot be captured.
+* a CUDA dual and an objective without a mesh or on an NCCL mesh
+  (``uses_graph``): iteration 1 runs eagerly (the objective fills its lazy
+  state, the kernels load and set their attributes, NCCL creates its
+  communicator), then one iteration is captured in a CUDA graph on static
+  carry buffers and every later iteration is one ``replay()``: the same
+  kernels in the same order as the eager loop, so the same bits.  On a mesh
+  the capture holds the evaluation's one ``all_reduce``, and every rank
+  captures at iteration 2 and replays the same collectives in the same order.
+  A capture that fails raises; it never falls back to the eager loop.
+* the CPU, or a gloo mesh: the same step in an eager Python loop that queues
+  each iteration's kernels and never waits for them.  gloo's ``all_reduce``
+  goes through host memory and cannot be captured.
 
 Iterations run in chunks, as the JAX package launches its scan: a chunk is
 ``callback_chunk`` iterations with an observer, else ``launch_chunk`` (0: the
@@ -32,6 +35,7 @@ at the end, or after each chunk with an observer.
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 import math
 import os
@@ -148,6 +152,38 @@ def _clone(tree):
     return type(tree)(*(_clone(t) for t in tree))
 
 
+def _tensor_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of an objective's ``params``, in order, through tuples
+    (NamedTuples too), lists, dicts and dataclasses; a container met twice is
+    walked once."""
+    out, seen = [], set()
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+            return
+        is_dc = dataclasses.is_dataclass(v) and not isinstance(v, type)
+        if not (is_dc or isinstance(v, (tuple, list, dict))) or id(v) in seen:
+            return
+        seen.add(id(v))
+        if is_dc:
+            v = [getattr(v, fld.name) for fld in dataclasses.fields(v)]
+        for x in (v.values() if isinstance(v, dict) else v):
+            walk(x)
+
+    walk(tree)
+    return out
+
+
+def uses_graph(device, mesh) -> bool:
+    """The path rule: ``maximize`` replays a CUDA graph on a CUDA dual whose
+    objective has no mesh, or a mesh whose group runs NCCL (a graph captures
+    NCCL's ``all_reduce``); a gloo mesh (its ``all_reduce`` goes through host
+    memory and cannot be captured) and the CPU run the eager loop.  A choice
+    of path by backend, not a fallback: a capture that fails raises."""
+    return torch.device(device).type == "cuda" and (mesh is None or mesh.backend() == "nccl")
+
+
 def _calc(f, params, dual_val: torch.Tensor, gamma: Optional[torch.Tensor]) -> ObjectiveResult:
     """The objective at ``dual_val``; ``gamma`` is None when the solver has
     none configured, and is then not passed."""
@@ -166,7 +202,7 @@ def _scalar(v, dtype, device) -> torch.Tensor:
 
 
 class _EagerLoop:
-    """The iterations launched from Python one after another (the CPU, a
+    """The iterations launched from Python one after another (the CPU, a gloo
     mesh, or ``_maximize_eager``)."""
 
     def __init__(self, body, carry, counter, metrics):
@@ -182,22 +218,31 @@ class _EagerLoop:
 
 class _Graph:
     """One iteration captured in a CUDA graph on static buffers: the carry,
-    the iteration counter and the metrics tensor, with the beta sequence and
-    the equality mask it reads.  The first ``run`` of a fresh graph runs
-    iteration 1 eagerly on the buffers, captures the next and replays it; a
-    later ``maximize`` on the same objective ``load``s its start into the
+    the iteration counter and the metrics tensor, with the beta sequence, the
+    equality mask and the objective's params it reads.  The first ``run`` of
+    a fresh graph runs iteration 1 eagerly on the buffers, captures the next
+    and replays it; a later ``maximize`` on the same objective, with the same
+    params tensors and step settings (``reads``), ``load``s its start into the
     buffers and only replays.  The kernels' launch counters count their
     wrappers' calls: the capture calls each wrapper once (recording its
     launch, running nothing) and a replay calls none."""
 
-    def __init__(self, body, carry, counter, metrics, fields_present, what: str):
-        self.body = body  # kept: the graph reads the tensors it closes over (beta, mask)
+    def __init__(self, body, carry, counter, metrics, fields_present, what: str, leaves, settings):
+        self.body = body  # kept: the graph reads the tensors it closes over (beta, mask, params)
         self.carry = _clone(carry)
         self.counter, self.metrics, self.fields_present, self.what = counter, metrics, fields_present, what
+        # held, so that no id in them is reused while the graph reads their memory
+        self.leaves, self.settings = leaves, settings
         self.graph = None
 
     def fits(self, carry) -> bool:
         return all(s.shape == n.shape and s.dtype == n.dtype for s, n in zip(_flat(self.carry), _flat(carry)))
+
+    def reads(self, leaves, settings) -> bool:
+        """Whether the captured iteration reads these params tensors (the
+        same objects) with these step settings."""
+        return (settings == self.settings and len(leaves) == len(self.leaves)
+                and all(a is b for a, b in zip(leaves, self.leaves)))
 
     def load(self, carry) -> None:
         for s, n in zip(_flat(self.carry), _flat(carry)):
@@ -216,6 +261,8 @@ class _Graph:
                 s.copy_(n)
 
     def _capture(self) -> None:
+        # torch.cuda.graph synchronizes the device on entry: iteration 1's
+        # kernels and collective have finished when the capture begins
         g = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.device(self.counter.device), torch.cuda.graph(g):
@@ -259,13 +306,16 @@ class AcceleratedGradientDescent:
       to ``chunk_walls``, emptied by each ``maximize``.  ``DUALIP_TIMING=1``
       prints each chunk's and the final fetch's wall time.
 
-    On a mesh (a sharded objective) every rank runs the eager loop on the
-    same bits and only rank 0 logs to MLflow.
+    On a mesh (a sharded objective) every rank runs the same path (the graph
+    on NCCL, the eager loop on gloo) on the same bits and only rank 0 logs to
+    MLflow.
 
     The CUDA graph (module docstring) is cached in ``_jit_cache`` under the
     JAX package's key (the objective, whether it has an equality mask, the
     dtype), so a repeated ``maximize`` on the same objective replays it
-    without capturing again.  The cache holds the objective, the graph's
+    without capturing again, while the objective's ``params`` are the same
+    tensors and the solver's settings the same; otherwise that ``maximize``
+    captures a new graph in its place.  The cache holds the objective, the graph's
     private memory pool (one iteration's temporaries, about what the eager
     loop allocates in an iteration) and the static buffers (x, y, the last
     x and gradient, the ``(H, m)`` window pair, the ``(max_iter, 8)``
@@ -295,7 +345,7 @@ class AcceleratedGradientDescent:
             raise ValueError(f"Unsupported gamma decay type: {gamma_decay_type}")
         if restart not in (None, "gradient", "function"):
             raise ValueError(f"Unsupported restart scheme: {restart!r}")
-        self.max_iter = max_iter
+        self.max_iter = max_iter  # also sets beta_seq
         self.gamma = gamma
         self.initial_step_size = float(initial_step_size)
         self.max_step_size = float(max_step_size)
@@ -304,7 +354,6 @@ class AcceleratedGradientDescent:
         self.save_primal = save_primal
         self.history_length = history_length
         self.callback_chunk = max(1, int(callback_chunk))
-        self.beta_seq = compute_beta_seq(max_iter)
         self.iteration_callback = iteration_callback
         if iteration_callback is None and verbose:
             self.iteration_callback = self._default_iteration_callback
@@ -327,6 +376,24 @@ class AcceleratedGradientDescent:
         self.last_run_stats = None
         self.collect_chunk_walls = False
         self.chunk_walls: List[tuple] = []
+
+    @property
+    def max_iter(self) -> int:
+        """Iterations of a solve.  Setting it computes its beta sequence; a
+        cached graph, whose metrics table it sized, is then captured again."""
+        return self._max_iter
+
+    @max_iter.setter
+    def max_iter(self, n: int) -> None:
+        self._max_iter = int(n)
+        self.beta_seq = compute_beta_seq(self._max_iter)
+
+    def _step_settings(self) -> tuple:
+        """What a captured iteration reads from the solver's settings: the
+        iteration count (the beta sequence and the metrics table) and the
+        step's constants (``_make_step``)."""
+        return (self.max_iter, self.initial_step_size, self.gamma is not None, self.gamma_decay_type,
+                sorted(self.gamma_decay_params.items()), self.restart, self.restart_min_spacing)
 
     @staticmethod
     def _default_iteration_callback(iteration: int, objective_result: ObjectiveResult) -> None:
@@ -444,9 +511,10 @@ class AcceleratedGradientDescent:
         window may be tensors or numpy arrays; numpy ones go to ``f.device``
         (``cuda`` when ``f`` names none), a float64 one as float32.
 
-        On a CUDA dual with an objective that has no mesh the iterations after
-        the first are replays of a CUDA graph of one iteration; on the CPU or
-        a mesh they run in the eager loop (module docstring).  Both give the
+        On a CUDA dual with an objective that has no mesh, or an NCCL mesh,
+        the iterations after the first are replays of a CUDA graph of one
+        iteration; on the CPU or a gloo mesh they run in the eager loop
+        (``uses_graph``, module docstring).  Both give the
         same bits.  ``initial_step_size_state`` (e.g. from
         ``checkpoint.load_dual``) resumes the Lipschitz window.
         """
@@ -488,7 +556,7 @@ class AcceleratedGradientDescent:
         carry = self._init_carry(x0, gamma0, ss0)
 
         if graph is None:
-            graph = dev.type == "cuda" and getattr(f, "mesh", None) is None
+            graph = uses_graph(dev, getattr(f, "mesh", None))
         if graph:
             runner = self._graph(f, params, equality_mask, dtype, carry)
             fields_present = runner.fields_present
@@ -600,16 +668,26 @@ class AcceleratedGradientDescent:
 
     def _graph(self, f, params, equality_mask, dtype, carry) -> _Graph:
         """The objective's cached graph with ``carry`` loaded, or a new one
-        (captured by its first ``run``)."""
+        (captured by its first ``run``).  The cached graph serves a call whose
+        params are the same tensors (``_tensor_leaves``), whose step settings
+        are the same and whose carry has its shapes; otherwise it is dropped,
+        freeing its memory pool, before the new one is built: one graph per
+        key.  The JAX package passes the params to its compiled program on
+        every call, so a solve always reads the objective's current ones."""
         key = (f, equality_mask is not None, str(dtype))
-        g = self._jit_cache.get(key)
-        if g is not None and g.graph is not None and g.fits(carry):
+        leaves, settings = _tensor_leaves(params), self._step_settings()
+        g = self._jit_cache.pop(key, None)
+        if g is not None and g.graph is not None and g.fits(carry) and g.reads(leaves, settings):
+            self._jit_cache[key] = g
             g.load(carry)
             return g
+        del g
         fields_present: dict = {}
         body, metrics = self._body(f, params, equality_mask, dtype, carry, fields_present)
         counter = torch.zeros((), dtype=torch.long, device=carry.x.device)
-        g = _Graph(body, carry, counter, metrics, fields_present, type(f).__name__)
+        mesh = getattr(f, "mesh", None)
+        what = type(f).__name__ + ("" if mesh is None else f" on a {mesh.backend()} mesh")
+        g = _Graph(body, carry, counter, metrics, fields_present, what, leaves, settings)
         self._jit_cache[key] = g
         return g
 

@@ -50,6 +50,10 @@ class EntityMesh:
         dist.all_reduce(t, group=self.group)
         return t
 
+    def backend(self) -> str:
+        """The group's backend (``"nccl"``, ``"gloo"``)."""
+        return str(dist.get_backend(self.group))
+
     def all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
         """Every rank's ``t`` (same shape on all), in rank order."""
         t = t.contiguous()

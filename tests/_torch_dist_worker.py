@@ -7,6 +7,9 @@ it imports the port only (no JAX) and returns plain Python and numpy values.
 
 from __future__ import annotations
 
+import contextlib
+import types
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -18,6 +21,7 @@ from dualip_tpu_torch.objectives.matching import (
     matching_tile_cache_key,
 )
 from dualip_tpu_torch.objectives.miplib import MIPLIB2017ObjectiveFunction, MIPLIBInputArgs
+from dualip_tpu_torch.optimizers import agd as agd_mod
 from dualip_tpu_torch.optimizers.agd import AcceleratedGradientDescent
 from dualip_tpu_torch.parallel import EntityMesh, assemble_global_tiles, local_matching_shard, process_shard_bounds
 from dualip_tpu_torch.projections import create_projection_map
@@ -112,6 +116,46 @@ def _solve(obj, iters=30, gamma=1e-3, lam0=None, **kw):
     return list(res.dual_objective_log), (None if x is None else np.asarray(x)), _np(res.dual_val)
 
 
+@contextlib.contextmanager
+def emulated_capture():
+    """``_Graph._capture`` without a card (as ``tests/test_torch_agd_chunks.py``
+    emulates it): each replay runs the captured iteration again, collective
+    included, on the graph's static buffers.  Yields the list of the captured
+    objectives' names."""
+    captured = []
+
+    def capture(self):
+        captured.append(self.what)
+        self.graph = types.SimpleNamespace(replay=self._advance)
+
+    real = agd_mod._Graph._capture
+    agd_mod._Graph._capture = capture
+    try:
+        yield captured
+    finally:
+        agd_mod._Graph._capture = real
+
+
+def graph_and_eager(obj, iters=30, gamma=1e-3, lam0=None, **kw) -> dict:
+    """One mesh objective solved on the graph path (``_maximize(...,
+    graph=True)``, the capture emulated) and in the eager loop, each on a
+    solver of its own, with ``save_primal`` (its all-gather runs after the
+    loop, outside the graph): (log, final dual, gradient, primal) of each and
+    the captures."""
+    m = obj.b_vec.shape[0]
+    lam0 = torch.full((m,), 0.1) if lam0 is None else lam0
+    out = {}
+    with emulated_capture() as captured:
+        for path in ("graph", "eager"):
+            agd = AcceleratedGradientDescent(max_iter=iters, gamma=gamma, save_primal=True, **kw)
+            res = agd._maximize(obj, lam0, 0, None, graph=path == "graph")
+            r = res.objective_result
+            out[path] = (list(res.dual_objective_log), _np(res.dual_val), _np(r.dual_gradient),
+                         np.asarray(r.primal_var.cpu() if isinstance(r.primal_var, torch.Tensor) else r.primal_var))
+    out["captures"] = captured
+    return out
+
+
 def _sub_meshes(mesh: EntityMesh, sizes) -> dict:
     """One mesh over ranks [0, ws) for each size; every rank takes part in
     each group's creation, in the same order."""
@@ -143,7 +187,7 @@ def world8(mesh: EntityMesh) -> dict:
     widest first: every rank of a group does the same work, and a rank leaves
     when no narrower group holds it, so none waits long in a collective."""
     meshes = _sub_meshes(mesh, (2, 4, 8))
-    out = {"golden": {}, "tiles": {}, "lp": {}}
+    out = {"golden": {}, "tiles": {}, "lp": {}, "graph": {}}
     inp = random_matching()
     lam = np.random.default_rng(2).normal(size=12).astype(np.float32)
     for ws in (8, 4, 2):
@@ -154,6 +198,7 @@ def world8(mesh: EntityMesh) -> dict:
             if ws in sizes:
                 obj = MatchingSolverDualObjectiveFunction(golden_args(), gamma=1e-3, mesh=sub, **kw)
                 out["golden"][(name, ws)] = _solve(obj, save_primal=True)
+                out["graph"][(name, ws)] = graph_and_eager(obj)
         if ws in (2, 8):
             for name, kw in TILE_CASES.items():
                 out["tiles"][(name, ws)] = _rank_leaves(
@@ -173,9 +218,12 @@ def world8(mesh: EntityMesh) -> dict:
                                   float(r.dual_objective), _np(obj.ops.matvec(x)), _np(obj.ops.rmatvec(lam_j)),
                                   _np(x))
         if ws == 4:
+            lp_kw = dict(iters=40, gamma=1e-2, lam0=torch.zeros(12), initial_step_size=1e-3, max_step_size=1e-1)
             obj = MIPLIB2017ObjectiveFunction(random_lp(seed=3, sparse=True), mesh=sub)
-            out["lp"]["solve"] = _solve(obj, iters=40, gamma=1e-2, lam0=torch.zeros(12), initial_step_size=1e-3,
-                                        max_step_size=1e-1)
+            out["lp"]["solve"] = _solve(obj, **lp_kw)
+            for sparse in (False, True):
+                obj = MIPLIB2017ObjectiveFunction(random_lp(seed=3, sparse=sparse), mesh=sub)
+                out["graph"][("lp " + ("coo" if sparse else "dense"), ws)] = graph_and_eager(obj, **lp_kw)
         if ws == 2:
             obj = MatchingSolverDualObjectiveFunctionDistributed(
                 golden_args(b=False), b_vec=np.full(5, 0.7, np.float32), gamma=1e-3, host_device="cpu", mesh=sub)
@@ -202,9 +250,11 @@ def world2(mesh: EntityMesh, tmp: str, stream: dict) -> dict:
 
     out = {}
     solver = dt.SolverArgs(max_iter=30, gamma=1e-3, initial_step_size=1e-5)
-    res = dt.run_solver(golden_args(), solver, dt.ComputeArgs(host_device="cpu", compute_device_num=2),
-                        dt.ObjectiveArgs(objective_kwargs={"use_pallas": True, "pallas_block_k": 8}))
+    with emulated_capture() as captured:  # a gloo mesh runs the eager loop: nothing is captured
+        res = dt.run_solver(golden_args(), solver, dt.ComputeArgs(host_device="cpu", compute_device_num=2),
+                            dt.ObjectiveArgs(objective_kwargs={"use_pallas": True, "pallas_block_k": 8}))
     out["run_solver matching"] = (list(res.dual_objective_log), _np(res.dual_val))
+    out["gloo captures"] = captured
     lp = dict(solver_args=dt.SolverArgs(max_iter=20, initial_step_size=1e-3, gamma=1e-2, max_step_size=1e-1),
               objective_args=dt.ObjectiveArgs(objective_type="miplib2017"))
     res = dt.run_solver(random_lp(seed=7, sparse=True), compute_args=dt.ComputeArgs(host_device="cpu",

@@ -63,9 +63,9 @@ class PortQuadratic:
                                dual_objective=-((x - 3.0) ** 2) - (y + 5.0) ** 2)
 
 
-def _matching(gamma=1e-3):
-    """The 5x5 golden problem in both packages."""
-    A, b = A_COMPACT.T, np.full(5, 0.7, dtype=np.float32)
+def _matching(gamma=1e-3, A=A_COMPACT.T, b=0.7):
+    """The 5x5 golden problem in both packages (or another A or b)."""
+    b = np.full(5, b, dtype=np.float32)
     jax_obj = JaxObjective(JaxArgs(A=jax_csc(A), c=jax_csc(-A), projection_map=jax_pm("simplex", {"z": 1}, 5),
                                    b_vec=b), gamma=gamma)
     port_obj = MatchingSolverDualObjectiveFunction(
@@ -281,6 +281,52 @@ def test_graph_buffers_give_the_eager_bits(case, monkeypatch):
     assert len(solver._jit_cache) == 1
     g = next(iter(solver._jit_cache.values()))
     assert got.dual_val.data_ptr() != g.carry.y.data_ptr()  # the result is a copy of the static buffer
+
+
+@pytest.mark.parametrize("rebound", ["b_vec", "bcsc", "max_iter"])
+def test_a_cached_graph_reads_the_params_of_its_call(rebound, monkeypatch):
+    """A second graph solve on one solver after the objective's ``b_vec`` or
+    ``bcsc`` (or the solver's ``max_iter``) was rebound computes with the new
+    values: the eager loop's log, dual and gradient bit for bit (the eager
+    loop of a new solver with the new ``max_iter``), the log and step sizes
+    within 1e-5 of the JAX package's solve of the new problem, after one more
+    capture;
+    a call with nothing changed replays without one, and the cache keeps one
+    graph."""
+    captures = []
+
+    def capture(self):
+        captures.append(self)
+        _emulated_capture(self)
+
+    monkeypatch.setattr(agd_mod._Graph, "_capture", capture)
+    kw = dict(max_iter=25, gamma=1e-3, initial_step_size=1e-3)
+    _, obj = _matching()
+    solver = AcceleratedGradientDescent(**kw)
+    x0 = torch.full((5,), 0.1)
+    first = solver._maximize(obj, x0, 0, None, graph=True)
+    again = solver._maximize(obj, x0, 0, None, graph=True)
+    assert len(captures) == 1 and again.dual_objective_log == first.dual_objective_log
+
+    if rebound == "max_iter":  # longer than the cached metrics table and beta sequence
+        jax_new, kw["max_iter"] = None, 30
+        solver.max_iter = 30
+    else:
+        jax_new, new = _matching(b=0.3) if rebound == "b_vec" else _matching(A=A_COMPACT)
+        setattr(obj, rebound, getattr(new, rebound))
+    got = solver._maximize(obj, x0, 0, None, graph=True)
+    want = AcceleratedGradientDescent(**kw)._maximize_eager(obj, x0)
+    assert got.dual_objective_log[-1] == want.dual_objective_log[-1] != first.dual_objective_log[-1]
+    assert got.dual_objective_log == want.dual_objective_log
+    assert len(captures) == 2 and len(solver._jit_cache) == 1
+    assert torch.equal(got.dual_val, want.dual_val)
+    assert torch.equal(got.objective_result.dual_gradient, want.objective_result.dual_gradient)
+    if jax_new is not None:
+        ref = JaxAGD(**kw).maximize(jax_new, jnp.full(5, 0.1, jnp.float32))
+        _close(got.dual_objective_log, ref.dual_objective_log)
+        _close(got.step_size_log, ref.step_size_log)
+    assert solver._maximize(obj, x0, 0, None, graph=True).dual_objective_log == got.dual_objective_log
+    assert len(captures) == 2
 
 
 def test_run_solver_passes_launch_chunk():

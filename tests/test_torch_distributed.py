@@ -9,10 +9,12 @@ ranks carries the 2-, 4- and 8-rank cases through sub-groups, one of two runs
 results to the golden trace, to each other and to the JAX package on its
 8-device CPU mesh."""
 
+import contextlib
 import functools
 import json
 import os
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -35,7 +37,7 @@ from dualip_tpu.projections.base import ProjectionEntry as JaxEntry
 from dualip_tpu.sparse import csc_from_arrays as jax_csc_from_arrays
 from dualip_tpu_torch.objectives.matching import MatchingSolverDualObjectiveFunction, matching_tile_cache_key
 from dualip_tpu_torch.objectives.miplib import MIPLIB2017ObjectiveFunction
-from dualip_tpu_torch.optimizers.agd import AcceleratedGradientDescent
+from dualip_tpu_torch.optimizers.agd import AcceleratedGradientDescent, uses_graph
 from dualip_tpu_torch.parallel import EntityMesh, default_mesh, run_ranks
 from dualip_tpu_torch.synthetic import _cache_path, generate_synthetic_matching_input_args
 
@@ -150,6 +152,64 @@ def _one_device_primal(name):
     return np.asarray(res.objective_result.primal_var)
 
 
+GRAPH_IDS = [c for c in GOLDEN_IDS if c[0] in worker.GOLDEN_CASES] + [("lp dense", 4), ("lp coo", 4)]
+
+
+@pytest.mark.parametrize("case", GRAPH_IDS, ids=[f"{n}-{w}ranks" for n, w in GRAPH_IDS])
+def test_the_mesh_graph_gives_the_eager_mesh_loops_bits(world8, case):
+    """Each mesh path solved on the graph path (one capture a rank, each
+    replay emulated by running the captured iteration, all_reduce included,
+    again) gives the same ranks' eager mesh loop's log, dual, gradient and
+    gathered primal (``save_primal``, after the loop) bit for bit, the same
+    on every rank, and the matching paths hold the golden trace at 1e-5."""
+    ranks = [r["graph"][case] for r in world8 if case in r["graph"]]
+    assert len(ranks) == case[1]
+    for r in ranks:
+        assert len(r["captures"]) == 1 and r["captures"][0].endswith(" on a gloo mesh")
+        assert r["graph"][0] == r["eager"][0] == ranks[0]["graph"][0]
+        for got, want in zip(r["graph"][1:], r["eager"][1:]):
+            np.testing.assert_array_equal(got, want)
+    if case[0] in worker.GOLDEN_CASES:
+        log = ranks[0]["graph"][0]
+        for i, want in GOLDEN:
+            assert abs(log[i - 1] - want) < 1e-5, f"{case}, iteration {i}: {log[i - 1]} vs {want}"
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("backend", [None, "nccl", "gloo"], ids=["no mesh", "nccl", "gloo"])
+def test_the_path_rule_takes_the_graph_on_cuda_without_a_mesh_or_over_nccl(device, backend):
+    mesh = None if backend is None else types.SimpleNamespace(backend=lambda: backend)
+    assert uses_graph(torch.device(device), mesh) is (device == "cuda" and backend in (None, "nccl"))
+
+
+@pytest.mark.parametrize("objective", ["matching", "lp"])
+def test_a_failed_capture_on_a_mesh_raises_and_names_the_objective(monkeypatch, objective):
+    """A capture that fails on an NCCL mesh objective raises a RuntimeError
+    naming the objective and the backend; no eager result comes back.  One
+    rank, its all_reduce the identity; the capture refused as the card
+    refuses an unsupported call."""
+    monkeypatch.setattr(EntityMesh, "all_reduce_", lambda self, t: t)
+    monkeypatch.setattr(EntityMesh, "backend", lambda self: "nccl")
+
+    def refused(*args, **kwargs):
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: None)
+    monkeypatch.setattr(torch.cuda, "graph", refused)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    mesh = EntityMesh(group=None, rank=0, world_size=1, device=torch.device("cpu"))
+    if objective == "matching":
+        obj, name = MatchingSolverDualObjectiveFunction(worker.golden_args(), gamma=1e-3, mesh=mesh,
+                                                        use_pallas=True, pallas_block_k=8), "MatchingSolver"
+    else:
+        obj, name = MIPLIB2017ObjectiveFunction(worker.random_lp(seed=3, sparse=True), mesh=mesh), "MIPLIB2017"
+    solver = AcceleratedGradientDescent(max_iter=5, gamma=1e-3)
+    x0 = torch.full((obj.b_vec.shape[0],), 0.1)
+    with pytest.raises(RuntimeError, match=rf"{name}\w* on a nccl mesh in a CUDA graph failed"):
+        solver._maximize(obj, x0, 0, None, graph=True)
+    assert len(solver._maximize_eager(obj, x0).dual_objective_log) == 5  # the eager loop itself runs
+
+
 TILE_IDS = [(name, ws) for name in worker.TILE_CASES for ws in (2, 8)]
 
 
@@ -250,6 +310,7 @@ def test_run_solver_with_compute_device_num_2(world2):
     for key in ("run_solver matching", "run_solver miplib2017"):
         assert ranks[1][key][0] == ranks[0][key][0]
         np.testing.assert_array_equal(ranks[1][key][1], ranks[0][key][1])
+    assert [r["gloo captures"] for r in ranks] == [[], []]  # a gloo mesh on the CPU: the eager loop
 
 
 def test_run_solver_miplib2017_on_two_ranks_matches_the_jax_package(world2):

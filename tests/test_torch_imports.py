@@ -12,7 +12,8 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "dualip_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "dualip_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _forbidden(name: str) -> bool:
