@@ -10,9 +10,11 @@ result lines at the end are printed only by a run of every default phase):
 2. build: compile every hand-written kernel from this checkout (one ``nvcc``
    per source, all started together) and the native Benes router (``g++``);
 3. kernels: the fused tile kernel (K1/K2) against its plain PyTorch version on
-   the card, for every projection kind, at L in {1, 2, 8, 16, 32, 100, 29},
-   and its gather form against its lam_g form bit for bit at m = 64, 10,000
-   and 70,000;
+   the card, for every projection kind, at L in {1, 2, 8, 16, 29, 32, 65, 100,
+   128, 394, 1000, 2100} (above 64 one warp a column: in registers to 512,
+   shared memory to 2048, re-read from device memory above), its gather form against its
+   lam_g form bit for bit at m = 64, 10,000 and 70,000, and a second launch
+   bit for bit against the first;
 4. segsum: the windowed fixed-order row segment-sum over several tiles at
    once against a float64 ``index_add_``, and two launches bit for bit;
 5. benes: the three Benes kernels (K5 fine and K7 two-axis coarse side, the
@@ -22,14 +24,17 @@ result lines at the end are printed only by a run of every default phase):
    kernels build on the card against the index the plain stages build;
 6. panel: the panel kernel (K3/K4) one tile a launch against its plain
    version for every projection kind, q = 1 and q > 1, L a power of two and
-   not, either side of the largest L the kernel's ring holds (47, 57, 71 or
-   95 by carry and tile type), in all four instances: fp32 and bf16 carry x
+   not, either side of the largest L the kernel's ring holds (47, for every
+   carry and tile type) and above it, where a warp projects a column
+   (L = 96, 200, 394 with 64 buffer rows, over the whole grid, and 600, re-read
+   from device memory), in all four instances: fp32 and bf16 carry x
    fp32 and bf16 a/c tiles, a bf16 tile's launch bit for bit with the fp32
    launch on the same values; the rest of the buffer unchanged, ghost lanes
-   zero; then all tiles of a mixed table (L = 1, 2, 5, 16, 29, 48, 64, 100
-   plain, 3, 29, 34 compact, the kinds mixed across tiles) in one launch, in
-   all four instances, against the plain version, against one launch per
-   tile bit for bit on a*x and x, and repeated bit for bit on (obj, reg);
+   zero; then all tiles of a mixed table (L = 1, 2, 5, 16, 29, 48, 64, 96,
+   100, 200, 394 plain, 3, 29, 34 compact, the kinds mixed across tiles) in
+   one launch, in all four instances, against the plain version, against one
+   launch per tile bit for bit on a*x and x, and repeated bit for bit on a*x,
+   x, obj and reg;
 7. golden: the 5x5 matching golden trace through ``run_solver`` on the card,
    csc layout and butterfly layout (plain, compact, ``srow_gather``, bf16);
 8. slice: the synthetic matching LP (2,500,000 sources x 10,000 destinations,
@@ -74,8 +79,9 @@ result lines at the end are printed only by a run of every default phase):
    reference's own sensitivity, the last 10% within 2e-4, a positive
    fairness dual) and its first iteration within 1e-6 of the JAX package's;
    the launches counted, the kernels against their plain versions over 20
-   iterations, K1 tile by tile on the wide tiles (L up to 394, one block a
-   column) and K3 through all its tiles, the fairness solve's first 200
+   iterations, K1 tile by tile (L up to 394; above 64 one warp a column) and
+   K3 through all its tiles, each tile alone with its bound and share, the
+   fairness solve's first 200
    iterations repeated bit for bit; then the MIPLIB script through its
    command line (exit code 0);
 13. graph: every single-device path's CUDA graph (``maximize`` on a CUDA
@@ -343,7 +349,7 @@ def port_kernel(name: str):
     to, or None for a kernel that is not the port's.  K1's forms are told
     apart by the template flags (WANT_X, GATHER) of ``clamp_kernel``,
     ``column_kernel`` and ``wide_kernel``, K3's by ``panel_tiles_kernel``'s
-    WANT_X; the segment-sum's two kernels are ``segsum_window`` and
+    WANT_X (its third template argument; the fourth is WIDE); the segment-sum's two kernels are ``segsum_window`` and
     ``segsum``.  ``panel_tiles_kernel`` is also K3t/K4t's and
     ``coarse_kernel`` also K7w's: the records count them under K3, K4 and K6
     (``device_launches`` sorts them out)."""
@@ -353,7 +359,7 @@ def port_kernel(name: str):
         return ("K2" if want_x else "K1") + ("g" if gather else "")
     m = re.search(r"\bpanel_tiles_kernel<([^>]*)>", name)
     if m:
-        return "K4" if m.group(1).split(",")[-1].strip() == "true" else "K3"
+        return "K4" if m.group(1).split(",")[2].strip() == "true" else "K3"
     for sym, short in (("fine_gather_kernel", "K5"), ("rows_gather_kernel", "K7"), ("coarse_kernel", "K6"),
                        ("fine_kernel", "K5w"), ("window_sums", "segsum_window"), ("add_rows", "segsum")):
         if re.search(rf"\b{sym}\b", name):
@@ -525,6 +531,14 @@ def ops_per_slot(kind: str) -> int:
     return base + 2  # clamps
 
 
+def column_slots(L: int, length: torch.Tensor):
+    """(slots of the columns with a length, slots of the padding columns) of
+    a tile of L lanes a column.  A bound counts a padding column (length 0)
+    only as its writes: the function writes zeros there and reads nothing."""
+    real = L * int((length > 0).sum())
+    return real, L * length.numel() - real
+
+
 def tol_x(ref: torch.Tensor) -> float:
     return 5e-5 * max(1.0, float(ref.abs().max()))
 
@@ -564,7 +578,11 @@ def phase_kernels(widths, dev):
     n = 0
     for kind, params in CASES:
         for L in widths:
-            for m, K, block_k in ((64, 4 * 1024, 1024), (10_000, 4 * 1024, 1024), (70_000, 4102, 2051)):
+            # above 512 lanes, one shape (host generation time): the wide kernel's columns in shared
+            # memory (L <= 2048, scaled's copy beside them) or re-read from device memory
+            shapes = ((64, 4 * 1024, 1024), (10_000, 4 * 1024, 1024), (70_000, 4102, 2051)) if L <= 512 else \
+                ((10_000, 1024, 1024),)
+            for m, K, block_k in shapes:
                 a = np.abs(rng.normal(size=(L, K))).astype(np.float32)
                 c = -np.abs(rng.normal(size=(L, K))).astype(np.float32)
                 length = rng.integers(1, L + 1, size=K).astype(np.int32)
@@ -582,10 +600,13 @@ def phase_kernels(widths, dev):
                         got = fused_tile_eval_T(lam_g, *t, scale, kind, params, block_k=block_k, want_x=want_x)
                         gat = fused_tile_gather_eval_T(scaled, rows, *t, scale, kind, params, block_k=block_k,
                                                        want_x=want_x)
+                        again = fused_tile_gather_eval_T(scaled, rows, *t, scale, kind, params, block_k=block_k,
+                                                         want_x=want_x)
                         ref = fused_tile_eval_T_reference(lam_g, *t, scale, kind, params, want_x=want_x)
                         torch.cuda.synchronize()
                         check(all(torch.equal(u, v) for u, v in zip(got, gat)),
                               f"{name}: the gather form differs from the lam_g form")
+                        check(all(torch.equal(u, v) for u, v in zip(gat, again)), f"{name}: two launches differ")
                         tol = tol_x(ref[3] if want_x else ref[0])
                         e_ax = float((got[0] - ref[0]).abs().max())
                         e = e_ax
@@ -600,9 +621,11 @@ def phase_kernels(widths, dev):
                         err[want_x] = max(err[want_x], e)
                         n += 1
     say("kernels", cases=n, widths=list(widths), m_K=[(64, 4096), (10_000, 4096), (70_000, 4102)],
+        m_K_above_512_lanes=[(10_000, 1024)],
         max_abs_err_K1=err[False], max_abs_err_K2=err[True],
         tolerance="ax,x: 5e-5*max(1,max|x|); obj,reg: 1e-3+1e-4*|ref|",
-        gather_vs_lam_g_form="bit for bit in every case")
+        gather_vs_lam_g_form="bit for bit in every case", repeat="bit for bit in every case",
+        wide="L > 64 one warp a column: registers to 512, shared memory to 2048, device memory above")
     return err
 
 
@@ -774,15 +797,17 @@ def phase_panel(dev):
     from dualip_tpu_torch.ops.fused_matching import fused_panel_project, fused_panel_project_reference
 
     rng = np.random.default_rng(3)
+    gen = torch.Generator(device=dev).manual_seed(3)  # the carry buffers, made on the card
     err = {(w, c, t): 0.0 for w in (False, True) for c in DTYPES for t in DTYPES}
     plain_bits = {k: True for k in err}
     n = 0
     # (L, compact): plain panels with L a power of two and not; compact packings with q > 1
     shapes = [(1, False), (2, False), (5, False), (16, False), (29, False), (48, False), (64, False),
-              (100, False), (3, True), (5, True), (29, True), (34, True)]
+              (96, False), (100, False), (200, False), (394, False), (600, False), (3, True), (5, True), (29, True),
+              (34, True)]
     for kind, params in CASES:
         for L, compact in shapes:
-            KP = 16
+            KP = TABLE_KP.get(L, 16)
             tile16, pack, L2, q = panel_tile(rng, L, compact, KP, dev, tiles=torch.bfloat16)
             region = KP * L2 * 128
             off = 3 * region  # the region lies inside a larger buffer
@@ -790,7 +815,7 @@ def phase_panel(dev):
             for carry, tiles in ((c, t) for c in DTYPES for t in DTYPES):
                 # fp32 tiles hold the bf16 tile's values, so both tile types must give the same bits
                 tile = tile16 if tiles == torch.bfloat16 else widened(tile16)
-                buf0 = torch.from_numpy(rng.normal(size=N).astype(np.float32) * 50).to(dev).to(carry)
+                buf0 = (torch.randn(N, generator=gen, device=dev) * 50).to(carry)
                 for want_x in (False, True):
                     got = fused_panel_project(buf0.clone(), *tile, off, kind, params, want_x=want_x,
                                               neg_inv_gamma=-2.0, pack=pack)
@@ -834,7 +859,8 @@ def phase_panel(dev):
 
 
 TABLE_SHAPES = [(1, False), (2, False), (5, False), (16, False), (29, False), (48, False), (64, False),
-                (100, False), (3, True), (29, True), (34, True)]
+                (96, False), (100, False), (200, False), (394, False), (3, True), (29, True), (34, True)]
+TABLE_KP = {394: 64}  # buffer rows of a tile (16 otherwise): 1,024 wide units, more than the grid's blocks
 
 
 def phase_panel_tiles(dev, err):
@@ -850,10 +876,10 @@ def phase_panel_tiles(dev, err):
     )
 
     rng = np.random.default_rng(4)
-    KP = 16
+    gen = torch.Generator(device=dev).manual_seed(4)  # the carry buffers, made on the card
     tiles, packs, geo = [], [], []
     for L, compact in TABLE_SHAPES:
-        tile, pack, L2, q = panel_tile(rng, L, compact, KP, dev, tiles=torch.bfloat16)
+        tile, pack, L2, q = panel_tile(rng, L, compact, TABLE_KP.get(L, 16), dev, tiles=torch.bfloat16)
         tiles.append(tile)
         packs.append(pack)
         geo.append((L, L2, q))
@@ -863,7 +889,7 @@ def phase_panel_tiles(dev, err):
     offsets = [0] * len(tiles)
     for i in sorted(range(len(tiles)), key=lambda i: -geo[i][1]):
         offsets[i] = cum
-        cum += KP * geo[i][1] * 128
+        cum += tiles[i].a.shape[0] * geo[i][1] * 128
     N = cum + 128 * 512
     n = 0
     for shift in range(len(CASES)):
@@ -872,7 +898,7 @@ def phase_panel_tiles(dev, err):
                   torch.float32: build_panel_table([widened(t) for t in tiles], offsets, packs, kinds)}
         for carry, tile_dt in ((c, t) for c in DTYPES for t in DTYPES):
             table = tables[tile_dt]
-            buf0 = torch.from_numpy(rng.normal(size=N).astype(np.float32) * 50).to(dev).to(carry)
+            buf0 = (torch.randn(N, generator=gen, device=dev) * 50).to(carry)
             for want_x in (False, True):
                 got = fused_panel_project_tiles(buf0.clone(), table, -2.0, want_x=want_x)
                 if tile_dt == torch.bfloat16:
@@ -892,7 +918,8 @@ def phase_panel_tiles(dev, err):
                 check(torch.equal(got[0], per), f"panel {name}: a*x differs from one launch per tile")
                 check(all(torch.equal(g, p) for g, p in zip(got[3], per_x)) if want_x else True,
                       f"panel {name}: x differs from one launch per tile")
-                check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]),
+                check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+                      and (not want_x or all(torch.equal(g, a) for g, a in zip(got[3], again[3]))),
                       f"panel {name}: two launches differ")
                 check(torch.equal(got[0][:base], buf0[:base]) and torch.equal(got[0][cum:], buf0[cum:]),
                       f"panel {name}: wrote outside the regions")
@@ -913,9 +940,10 @@ def phase_panel_tiles(dev, err):
                     g, r = float(got[i]), float(ref[i])
                     check(abs(g - r) <= 1e-3 + 1e-4 * abs(r), f"panel {name}: {nm} {g} vs {r}")
                 n += 1
-    say("panel", form="all tiles a launch", cases=n, tiles_L_compact=TABLE_SHAPES,
+    say("panel", form="all tiles a launch", cases=n, tiles_L_compact=TABLE_SHAPES, buffer_rows=TABLE_KP,
+        work_units=tables[torch.float32].n_items, wide_instance=tables[torch.float32].wide,
         max_abs_err={f"{'K4' if k[0] else 'K3'} carry {str(k[1])[6:]} tiles {str(k[2])[6:]}": v for k, v in err.items()},
-        vs_one_launch_per_tile="bit for bit on a*x and x", repeat="bit for bit on a*x, obj and reg",
+        vs_one_launch_per_tile="bit for bit on a*x and x", repeat="bit for bit on a*x, x, obj and reg",
         bf16_tiles_vs_fp32_tiles="bit for bit", outside_regions="unchanged", ghost_lanes="zero")
     return err
 
@@ -930,8 +958,10 @@ def time_panel(what, obj, dev, kernels, panel_err, launches=None, calls=None):
     tiles where the table's a and c are bf16."""
     from dualip_tpu_torch.ops.fused_matching import (
         fused_panel_project,
+        fused_panel_project_reference,
         fused_panel_project_tiles,
         fused_panel_project_tiles_reference,
+        PANEL_RING_L_CAP,
     )
     from dualip_tpu_torch.objectives.matching import _plan_size
 
@@ -943,14 +973,20 @@ def time_panel(what, obj, dev, kernels, panel_err, launches=None, calls=None):
     n_carry = _plan_size(obj.row_layout.plan)  # the carry buffer's length
     srow0 = torch.from_numpy(np.random.default_rng(7).normal(size=n_carry).astype(np.float32) * 0.01).to(dev)
 
+    slots = {id(t): column_slots(t.L, t.length) for t in ts}  # (real, padding)
+
     def bound(tiles_, want_x, carry_bytes=4):
-        real = sum(t.a.numel() for t in tiles_)
+        # a real column's slot: a, c and srow read, a*x (and x) written; a padding column's: a*x (and x) written
+        x_bytes = 4 if want_x else 0
+        real = sum(slots[id(t)][0] for t in tiles_)
+        pad = sum(slots[id(t)][1] for t in tiles_)
         ghost = sum(t.KP * t.L2 * 128 - t.a.numel() for t in tiles_)
         cols = sum(t.length.numel() for t in tiles_)
-        nbytes = real * (2 * tile_bytes + 2 * carry_bytes + (4 if want_x else 0)) + ghost * carry_bytes + cols * 4
-        nops = sum(t.a.numel() * ops_per_slot(t.kind) for t in tiles_)
+        nbytes = (real * (2 * tile_bytes + 2 * carry_bytes + x_bytes) + pad * (carry_bytes + x_bytes)
+                  + ghost * carry_bytes + cols * 4)
+        nops = sum(slots[id(t)][0] * ops_per_slot(t.kind) for t in tiles_)
         t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_FLOP_PER_S * 1e3
-        return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, nops, real, ghost
+        return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, nops, real, pad, ghost
 
     def per_tile(b, want_x, tiles_=ts):
         return [fused_panel_project(b, t.a, t.c, t.length, t.off, t.kind, t.params, want_x=want_x,
@@ -982,7 +1018,7 @@ def time_panel(what, obj, dev, kernels, panel_err, launches=None, calls=None):
         t_per = cuda_ms(lambda: per_tile(srow, want_x), reps=10, graph=True)
         plain_ms = cuda_ms(lambda: fused_panel_project_tiles_reference(srow, table, nig, want_x=want_x),
                            reps=2, warmup=1).ms
-        b_ms, b_by, nbytes, nops, real, ghost = bound(ts, want_x)
+        b_ms, b_by, nbytes, nops, real, pad, ghost = bound(ts, want_x)
         ops_ms = nops / NON_FMA_OPS_PER_S * 1e3
         extra = {}
         if not want_x:
@@ -992,18 +1028,25 @@ def time_panel(what, obj, dev, kernels, panel_err, launches=None, calls=None):
             extra["bf16_carry_bound_ms"] = bound(ts, False, 2)[0]
             del srow_bf
             tile_rows = []
-            for t in ts:  # each tile alone: one launch of the same kernel
+            cap = PANEL_RING_L_CAP
+            for t in ts:  # each tile alone: one launch of the same kernel, and its plain version
                 ms_t = cuda_ms(lambda: per_tile(srow, False, [t]), reps=10, graph=True).ms
-                lcap = "stream" if t.L > 32 else 1 << max(t.L - 1, 0).bit_length()
-                tile_rows.append((t.L, t.q, lcap, t.a.numel(), round(ms_t, 4), round(bound([t], False)[0], 4)))
-            say("timing", path=what, kernel="'K3, each tile alone'",
-                per_tile_L_q_LCAP_slots_ms_bound=tile_rows,
-                sum_ms=f"{sum(r[4] for r in tile_rows):.4f}")
+                plain_t = cuda_ms(lambda: fused_panel_project_reference(
+                    srow, t.a, t.c, t.length, t.off, t.kind, t.params, False, nig, t.pack), reps=2, warmup=1).ms
+                b_t = bound([t], False)[0]
+                how = ("warp a column" if t.L > cap else "ring, stream" if t.L > 32
+                       else f"ring, LCAP {1 << max(t.L - 1, 0).bit_length()}")
+                tile_rows.append((t.L, t.q, how, t.a.numel(), int((t.length > 0).sum()), round(ms_t, 4),
+                                  round(b_t, 4), round(b_t / ms_t, 4), round(plain_t, 3)))
+            say("timing", path=what, kernel="'K3, each tile alone'", ring_cap=cap,
+                per_tile_L_q_path_slots_columns_ms_bound_share_plain_ms=tile_rows,
+                sum_ms=f"{sum(r[5] for r in tile_rows):.4f}")
         del per
         say("timing", path=what, kernel=repr(name), per_iteration_ms=f"{t_k.ms:.4f}",
             per_tile_form_ms=f"{t_per.ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{b_ms:.4f}",
             bound_by=b_by, share_of_bound=f"{b_ms / t_k.ms:.3f}", ops_ms_at_non_fma_rate=f"{ops_ms:.4f}",
-            bytes=nbytes, ops=nops, real_slots=real, ghost_slots=ghost, tiles=len(ts), items=table.n_items,
+            bytes=nbytes, ops=nops, real_slots=real, padding_slots=pad, ghost_slots=ghost, tiles=len(ts),
+            work_units=table.n_items, wide_instance=table.wide,
             **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in extra.items()},
             per_tile_form_host_enqueue_ms=f"{t_per.host_ms:.4f}", **timing_kv(t_k))
         if launches is not None:
@@ -1325,12 +1368,14 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk, gra
             check(abs(float(got[i]) - float(ref[i])) <= 1e-3 + 1e-4 * abs(float(ref[i])),
                   f"examples K1 sums on the L={s.L} tile")
         ms = cuda_ms(k1, reps=20, graph=True).ms
-        nbytes = s.L * s.K * 16 + s.K * 4 + obj.bcsc.m * 4
-        bound = max(nbytes / PEAK_BYTES_PER_S, s.L * s.K * ops_per_slot(s.proj_type) / PEAK_FP32_FLOP_PER_S) * 1e3
-        rows.append((s.L, s.K, "block a column" if s.L > 64 else "thread a column", e, round(ms, 4),
-                     round(bound, 4)))
+        plain_ms = cuda_ms(lambda: k1(fm.fused_tile_gather_eval_T_reference), reps=2, warmup=1).ms
+        real, pad = column_slots(s.L, t.length)  # a real slot: rows, a, c read, a*x written; padding: a*x
+        nbytes = real * 16 + pad * 4 + s.K * 4 + obj.bcsc.m * 4
+        bound = max(nbytes / PEAK_BYTES_PER_S, real * ops_per_slot(s.proj_type) / PEAK_FP32_FLOP_PER_S) * 1e3
+        rows.append((s.L, s.K, int((t.length > 0).sum()), "warp a column" if s.L > 64 else "thread a column", e,
+                     round(ms, 4), round(bound, 4), round(bound / ms, 4), round(plain_ms, 3)))
     say("timing", path="examples csc", kernel="'K1 fused_tile_gather_eval_T, each tile'",
-        L_K_path_err_ms_bound=rows, sum_ms=f"{sum(r[4] for r in rows):.4f}",
+        L_K_columns_path_err_ms_bound_share_plain_ms=rows, sum_ms=f"{sum(r[5] for r in rows):.4f}",
         scaled_bytes=obj.bcsc.m * 4, scaled_in_shared_memory=obj.bcsc.m * 4 <= 48 * 1024, card=card)
     del obj, out, scaled
     torch.cuda.empty_cache()
@@ -1350,8 +1395,8 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk, gra
         tolerance=1e-5)
     check(plain_dev.max() <= 1e-5, f"examples butterfly: kernels vs plain versions differ by {plain_dev.max()}")
     time_panel("examples butterfly", obj, dev, [], {})  # K3/K4 on the proxy's tiles, L up to 394
-    say("examples", run="butterfly", note="K3 reads tiles above its ring's cap (L > 47 with fp32 carry and tiles) "
-                                          "from device memory; 'stream' in the per-tile list marks every L > 32")
+    say("examples", run="butterfly", note="K3 projects tiles above its ring's cap (L > 47) "
+                                          "one warp a column, from device memory")
     del obj, out, plan
     torch.cuda.empty_cache()
 
@@ -2119,7 +2164,7 @@ def main(argv=None) -> int:
     panel_err = {}
     segsum_err = 0.0
     if "kernels" in phases:
-        check_err = phase_kernels(sorted({1, 2, 8, 16, 32, 100, l_max}), dev)
+        check_err = phase_kernels(sorted({1, 2, 8, 16, 32, 65, 100, 128, 394, 1000, 2100, l_max}), dev)
     if "segsum" in phases:
         segsum_err = phase_segsum(dev)
     if "benes" in phases:
@@ -2563,9 +2608,13 @@ def main(argv=None) -> int:
             return [fused_tile_eval_T(lam_g[i], t.a, t.c, t.length, nig, s.proj_type, s.proj_params, block_k=1024,
                                       want_x=want_x) for i, (t, s) in enumerate(zip(tiles, specs))]
 
-        def bound(bytes_per_slot):
-            nbytes = slots * bytes_per_slot + cols * 4 + obj.bcsc.m * 4
-            nops = sum(s.L * s.K * ops_per_slot(s.proj_type) for s in specs)
+        real_pad = [column_slots(s.L, t.length) for t, s in zip(tiles, specs)]
+
+        def bound(want_x):
+            # a real column's slot: rows, a, c read, a*x (and x) written; a padding column's: a*x (and x)
+            x_bytes = 4 if want_x else 0
+            nbytes = sum(r * (16 + x_bytes) + p_ * (4 + x_bytes) for r, p_ in real_pad) + cols * 4 + obj.bcsc.m * 4
+            nops = sum(r * ops_per_slot(s.proj_type) for (r, _), s in zip(real_pad, specs))
             t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_FLOP_PER_S * 1e3
             return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, nops
 
@@ -2595,7 +2644,7 @@ def main(argv=None) -> int:
             t_k = cuda_ms(lambda: run_gather(want_x), reps=20, graph=True)
             t_lam = cuda_ms(lambda: run_lam_g(want_x), reps=20, graph=True)
             t_plain = cuda_ms(lambda: run_gather(want_x, fn=fused_tile_gather_eval_T_reference), reps=3, warmup=1)
-            b_ms, b_by, nbytes, nops = bound(20 if want_x else 16)
+            b_ms, b_by, nbytes, nops = bound(want_x)
             say("timing", kernel=repr(name), per_iteration_ms=f"{t_k.ms:.4f}", plain_ms=f"{t_plain.ms:.3f}",
                 bound_ms=f"{b_ms:.4f}", share_of_bound=f"{b_ms / t_k.ms:.3f}", bytes=nbytes, ops=nops,
                 lam_g_form_ms=f"{t_lam.ms:.4f}",
@@ -2614,7 +2663,7 @@ def main(argv=None) -> int:
                                                                 s.proj_params) for i, (t, s) in enumerate(zip(tiles, specs))],
                           reps=3, warmup=1)
         gather_t = cuda_ms(lambda: [scaled.index_select(0, r) for r in rows], reps=20, graph=True)
-        b_ms, b_by, _, _ = bound(16)
+        b_ms, b_by, _, _ = bound(False)
         say("timing", kernel="'K1 fused_tile_eval_T (lam_g form)'", per_iteration_ms=f"{t_lam.ms:.4f}",
             gather_index_select_ms=f"{gather_t.ms:.4f}", lam_g_form_plus_gather_ms=f"{t_lam.ms + gather_t.ms:.4f}",
             gather_form_ms=f"{kernels[-2]['ms']:.4f}", **timing_kv(t_lam))

@@ -36,12 +36,26 @@
 //  * One slab in shared memory per block, not two: on an H100 a second buffer
 //    cut the blocks per SM and measured slower; the two blocks of an SM
 //    overlap one's copy with the other's bisection.
-//  * One block per column above L = 64, with the column in shared memory and
-//    block-wide reductions per bisection step (rare: wide buckets only).
-//  * One launch per tile: every slab (column, above L = 64) writes its partial
-//    (obj, reg) to a scratch; the last block to finish adds them in a fixed
-//    order, so two runs give the same bits (no float atomics), whatever the
-//    number of blocks.
+//  * One warp per column above L = 64 (wide_kernel): persistent blocks of 8
+//    warps walk groups of 8 adjacent columns, one a warp (so each 32 B sector
+//    of a lane row read from device memory serves the whole block), with
+//    the gather form and the scaled copy of the column kernel. The warp
+//    forms z once and keeps it, with a and c, in registers up to L = 512
+//    (the bisection then reads no memory, and the emit only stores), z alone
+//    in its stretch of shared memory up to L = 2048, and re-reads it from
+//    device memory (in parallel, the warp's 32 threads at once) above;
+//    every reduction is a warp shuffle, with no block barrier inside a step
+//    (project_column_warp, project_block.cuh). One column's chain of
+//    dependent steps, not the bytes, sets the time of a tile with few real
+//    columns. A column of length 0 (padding) is not projected or read: its
+//    lanes take x = 0 and a*x = 0, as the mask gives them (a padding slot's
+//    a is 0), and a group of 8 such columns is written by whole sectors.
+//    The block-a-column design this replaces spent two barriers on each of
+//    the 30 bisection steps, and half its threads held no lane at L = 128.
+//  * One launch per tile: every slab (column group, above L = 64) writes its
+//    partial (obj, reg) to a scratch; the last block to finish adds them in a
+//    fixed order, so two runs give the same bits (no float atomics), whatever
+//    the number of blocks.
 //  * The projection itself is the device function of project_block.cuh, which
 //    the panel kernel (panel_matching.cu) shares.
 //  * Exact numerics of _project_block: 30 bisection steps on [-1, 0] of the
@@ -67,10 +81,19 @@ using namespace dualip;
 
 constexpr int THREADS = 256;       // columns per slab = threads per block, per-column kernels
 constexpr int REG_L_CAP = 64;      // largest L kept in registers
-constexpr int WIDE_THREADS = 256;  // threads per column, wide kernel
+constexpr int WIDE_WARPS = 8;      // columns per group (one a warp) = warps per block, wide kernel
+constexpr int WIDE_REGS = 4;       // a wide column in registers, 4 lanes a thread, up to 128 lanes
+constexpr int WIDE_REGS_LONG = 16; // ... 16 lanes a thread up to 512
+constexpr int STRETCH_L = 2048;    // ... in its warp's stretch of shared memory up to 2048 lanes
 constexpr int SLAB_ARRAYS = 3;     // lam_g or rows, a, c
 constexpr int SCALED_SMEM_BYTES = 48 * 1024;  // largest scaled (m,) copied into shared memory
 constexpr int SMEM_LIMIT = 226 * 1024;  // dynamic shared memory of one block (227 KB less the static part)
+
+// The wide kernel's stretches of shared memory: WIDE_WARPS of L floats where
+// its columns are kept there (32 * WIDE_REGS_LONG < L <= STRETCH_L), else none.
+__host__ __device__ __forceinline__ size_t wide_bytes(int L) {
+  return L > 32 * WIDE_REGS_LONG && L <= STRETCH_L ? (size_t)WIDE_WARPS * L * sizeof(float) : 0;
+}
 
 __device__ unsigned int g_blocks_done = 0;  // blocks of the running launch that have finished
 
@@ -157,10 +180,20 @@ __device__ __forceinline__ void start_slab_copy(const Args& p, float* dst, int s
   }
 }
 
+// Every thread of the block: start copying scaled (m,) into ``copy``.
+__device__ __forceinline__ void start_scaled_copy(const Args& p, float* copy) {
+  const int t = threadIdx.x, n = blockDim.x;
+  if (p.vec16 && p.m % 4 == 0) {
+    for (int i = 4 * t; i < p.m; i += 4 * n) cp_async16(copy + i, p.scaled + i);
+  } else {
+    for (int i = t; i < p.m; i += n) cp_async4(copy + i, p.scaled + i);
+  }
+}
+
 // Writes one lane's x (masked), a*x and the sums, in pass 2.
 template <bool WANT_X>
-__device__ __forceinline__ void emit(const Args& p, size_t idx, int l, int len, float w, float av, float cv,
-                                     float& cx, float& xx) {
+__device__ __forceinline__ void emit_lane(const Args& p, size_t idx, int l, int len, float w, float av, float cv,
+                                          float& cx, float& xx) {
   const float x = (l < len) ? w : 0.f;
   p.ax[idx] = __fmul_rn(av, x);
   if (WANT_X) p.x[idx] = x;
@@ -206,65 +239,6 @@ __device__ void finish(const Args& p) {
   }
 }
 
-// Block-wide reductions that every thread receives (wide kernel).
-enum Op { OP_SUM, OP_MAX, OP_MIN };
-
-template <int OP>
-__device__ __forceinline__ float combine(float a, float b) {
-  if (OP == OP_SUM) return a + b;
-  if (OP == OP_MAX) return fmaxf(a, b);
-  return fminf(a, b);
-}
-
-template <int OP>
-__device__ float block_all(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) v = combine<OP>(v, __shfl_down_sync(FULL, v, off));
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float r = scratch[0];
-    for (int w = 1; w < nwarps; ++w) r = combine<OP>(r, scratch[w]);
-    scratch[32] = r;
-  }
-  __syncthreads();
-  const float r = scratch[32];
-  __syncthreads();
-  return r;
-}
-
-// (max, first argmax) over the block; every thread receives both.
-__device__ void block_argmax(float& v, int& i, float* scratch, int* iscratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) {
-    const float v2 = __shfl_down_sync(FULL, v, off);
-    const int i2 = __shfl_down_sync(FULL, i, off);
-    if (v2 > v || (v2 == v && i2 < i)) {
-      v = v2;
-      i = i2;
-    }
-  }
-  if (lane == 0) {
-    scratch[warp] = v;
-    iscratch[warp] = i;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < nwarps; ++w) {
-      if (scratch[w] > scratch[0] || (scratch[w] == scratch[0] && iscratch[w] < iscratch[0])) {
-        scratch[0] = scratch[w];
-        iscratch[0] = iscratch[w];
-      }
-    }
-  }
-  __syncthreads();
-  v = scratch[0];
-  i = iscratch[0];
-  __syncthreads();
-}
-
 // identity / box / cone: elementwise clamps, any L, a block per 128 columns.
 template <bool WANT_X, bool GATHER>
 __global__ void __launch_bounds__(THREADS) clamp_kernel(Args p) {
@@ -278,7 +252,7 @@ __global__ void __launch_bounds__(THREADS) clamp_kernel(Args p) {
       float w = zval<GATHER>(p, idx, nig);
       if (p.has_lo) w = fmaxf(w, p.lo);
       if (p.has_hi) w = fminf(w, p.hi);
-      emit<WANT_X>(p, idx, l, len, w, p.a[idx], p.c[idx], cx, xx);
+      emit_lane<WANT_X>(p, idx, l, len, w, p.a[idx], p.c[idx], cx, xx);
     }
   }
   block_sum2(cx, xx);
@@ -299,11 +273,7 @@ __global__ void __launch_bounds__(THREADS) column_kernel(Args p) {
   const float* table = p.scaled;  // GATHER: scaled, here or in shared memory
   if (GATHER && p.scaled_smem) {
     float* copy = smem + SLAB_ARRAYS * lanes + THREADS;
-    if (p.vec16 && p.m % 4 == 0) {
-      for (int i = 4 * t; i < p.m; i += 4 * THREADS) cp_async16(copy + i, p.scaled + i);
-    } else {
-      for (int i = t; i < p.m; i += THREADS) cp_async4(copy + i, p.scaled + i);
-    }
+    start_scaled_copy(p, copy);
     table = copy;  // arrives with the first slab
   }
   const float nig = *p.neg_inv_gamma;
@@ -327,7 +297,7 @@ __global__ void __launch_bounds__(THREADS) column_kernel(Args p) {
           },
           [&](int l, float w) {
             const int i = l * THREADS + t;
-            emit<WANT_X>(p, (size_t)l * p.K + k, l, len, w, sa[i], sc[i], cx, xx);
+            emit_lane<WANT_X>(p, (size_t)l * p.K + k, l, len, w, sa[i], sc[i], cx, xx);
           });
     }
     block_sum2(cx, xx);  // ends with a barrier: the slab may be overwritten after it
@@ -339,91 +309,78 @@ __global__ void __launch_bounds__(THREADS) column_kernel(Args p) {
   finish(p);
 }
 
-// The same kinds above L = 64: block blockIdx.x owns column k; thread t owns
-// lanes t, t + blockDim, ..., kept in dynamic shared memory.
+// The same kinds above L = 64, one warp per column (project_column_warp):
+// persistent blocks of WIDE_WARPS warps over groups of WIDE_WARPS adjacent
+// columns; warp w of a block takes column group * WIDE_WARPS + w.
 template <int KIND, bool WANT_X, bool GATHER>
-__global__ void __launch_bounds__(WIDE_THREADS) wide_kernel(Args p) {
-  extern __shared__ float r[];
-  __shared__ float scratch[33];
-  __shared__ int iscratch[32];
-  const long long k = blockIdx.x;
-  const int L = p.L, t = threadIdx.x, nt = blockDim.x;
+__global__ void __launch_bounds__(WIDE_WARPS * 32) wide_kernel(Args p) {
+  extern __shared__ __align__(16) float smem[];
+  const int L = p.L, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* const stretch = smem + (size_t)warp * L;  // this warp's, when the lanes are kept in shared memory
+  const float* table = p.scaled;  // GATHER: scaled, here or in shared memory
+  if (GATHER && p.scaled_smem) {
+    float* copy = smem + wide_bytes(L) / sizeof(float);
+    start_scaled_copy(p, copy);
+    cp_async_wait_all();
+    __syncthreads();
+    table = copy;
+  }
   const float nig = *p.neg_inv_gamma;
-  const int len = p.length[k];
-  float cx = 0.f, xx = 0.f;
-  if (KIND == SIMPLEX) {
-    const float radius = p.radius;
-    float vmax = -CUDART_INF_F, sumv = 0.f;
-    int i0 = L;
-    for (int l = t; l < L; l += nt) {
-      const float v = fmaxf(zval<GATHER>(p, (size_t)l * p.K + k, nig), 0.f);
-      sumv += v;
-      r[l] = div_radius(v, radius);
-      if (r[l] > vmax) {
-        vmax = r[l];
-        i0 = l;
+  const Proj proj{p.inequality, p.lo, p.hi, p.has_lo, p.has_hi, p.radius};
+  for (int grp = blockIdx.x; grp < p.nparts; grp += gridDim.x) {
+    const long long k0 = (long long)grp * WIDE_WARPS, k = k0 + warp;
+    float cx = 0.f, xx = 0.f;
+    bool padding = k0 + WIDE_WARPS <= p.K;  // a whole group of padding columns (the tail of a tile)?
+#pragma unroll
+    for (int i = 0; i < WIDE_WARPS; ++i) padding = padding && p.length[k0 + i] == 0;
+    if (padding) {  // zeros by whole sectors: each warp instruction 4 lane rows of the 8 columns
+      constexpr int ROWS = 32;  // lane rows a pass of the block's 256 threads over 8 columns
+      for (int l = threadIdx.x / WIDE_WARPS; l < L; l += ROWS) {
+        const size_t idx = (size_t)l * p.K + k0 + threadIdx.x % WIDE_WARPS;
+        p.ax[idx] = 0.f;
+        if (WANT_X) p.x[idx] = 0.f;
+      }
+    } else if (k < p.K) {  // the whole warp, or none of it
+      const int len = p.length[k];
+      if (len == 0) {  // padding: x = 0 and a*x = 0 on every lane; nothing read
+        for (int l = lane; l < L; l += 32) {
+          const size_t idx = (size_t)l * p.K + k;
+          p.ax[idx] = 0.f;
+          if (WANT_X) p.x[idx] = 0.f;
+        }
+      } else if (L <= 32 * WIDE_REGS_LONG) {
+        // a and c of the thread's lanes kept in registers from the first pass, so that the
+        // emit only stores (a read there waits for the previous lane's store)
+        float av[WIDE_REGS_LONG], cv[WIDE_REGS_LONG];
+        const auto z = [&](int j, int l) {
+          const size_t idx = (size_t)l * p.K + k;
+          av[j] = p.a[idx];
+          cv[j] = p.c[idx];
+          return zform(av[j], lam_at<GATHER>(p.g, idx, table), cv[j], nig);
+        };
+        const auto emit = [&](int j, int l, float w) {
+          emit_lane<WANT_X>(p, (size_t)l * p.K + k, l, len, w, av[j], cv[j], cx, xx);
+        };
+        if (L <= 32 * WIDE_REGS) project_column_warp<KIND, KeepRegs<WIDE_REGS>>(L, proj, stretch, z, emit);
+        else project_column_warp<KIND, KeepRegs<WIDE_REGS_LONG>>(L, proj, stretch, z, emit);
+      } else {
+        const auto z = [&](int, int l) {
+          const size_t idx = (size_t)l * p.K + k;
+          return zform(p.a[idx], lam_at<GATHER>(p.g, idx, table), p.c[idx], nig);
+        };
+        const auto emit = [&](int, int l, float w) {
+          const size_t idx = (size_t)l * p.K + k;
+          emit_lane<WANT_X>(p, idx, l, len, w, p.a[idx], p.c[idx], cx, xx);
+        };
+        if (L <= STRETCH_L) project_column_warp<KIND, KeepShared>(L, proj, stretch, z, emit);
+        else project_column_warp<KIND, KeepNone>(L, proj, stretch, z, emit);
       }
     }
-    block_argmax(vmax, i0, scratch, iscratch);
-    sumv = block_all<OP_SUM>(sumv, scratch);
-    float v1 = -CUDART_INF_F;
-    for (int l = t; l < L; l += nt) {
-      if (l != i0) v1 = fmaxf(v1, r[l]);
-      r[l] = r[l] - vmax;
+    block_sum2(cx, xx);
+    if (threadIdx.x == 0) {
+      p.partials[2 * grp] = cx;
+      p.partials[2 * grp + 1] = xx;
     }
-    v1 = block_all<OP_MAX>(v1, scratch);
-    float lo = -1.f, hi = 0.f;
-    for (int it = 0; it < BISECTION_ITERS; ++it) {
-      const float mid = (lo + hi) * 0.5f;
-      float s = 0.f;
-      for (int l = t; l < L; l += nt) s += fmaxf(r[l] - mid, 0.f);
-      s = block_all<OP_SUM>(s, scratch);
-      if (s > 1.0f) lo = mid; else hi = mid;
-    }
-    const float nu = (lo + hi) * 0.5f;
-    const bool shortcut = L > 1 && (vmax - v1) > 1.0f;
-    const bool feasible = p.inequality && sumv <= radius + 1e-6f;
-    for (int l = t; l < L; l += nt) {
-      const size_t idx = (size_t)l * p.K + k;
-      float w;
-      if (feasible) w = fmaxf(zval<GATHER>(p, idx, nig), 0.f);
-      else if (shortcut) w = (l == i0) ? radius : 0.f;
-      else w = __fmul_rn(fmaxf(r[l] - nu, 0.f), radius);
-      emit<WANT_X>(p, idx, l, len, w, p.a[idx], p.c[idx], cx, xx);
-    }
-  } else {  // BOXCUT
-    const float lt = p.lo, ut = p.hi, zcut = p.radius;
-    float zmin = CUDART_INF_F, zmax = -CUDART_INF_F, sumclip = 0.f;
-    for (int l = t; l < L; l += nt) {
-      const float z = zval<GATHER>(p, (size_t)l * p.K + k, nig);
-      r[l] = z;
-      zmin = fminf(zmin, z);
-      zmax = fmaxf(zmax, z);
-      sumclip += clip(z, lt, ut);
-    }
-    zmin = block_all<OP_MIN>(zmin, scratch);
-    zmax = block_all<OP_MAX>(zmax, scratch);
-    sumclip = block_all<OP_SUM>(sumclip, scratch);
-    float lo = zmin - ut, hi = zmax - lt;
-    for (int it = 0; it < BISECTION_ITERS; ++it) {
-      const float mid = (lo + hi) * 0.5f;
-      float s = 0.f;
-      for (int l = t; l < L; l += nt) s += clip(r[l] - mid, lt, ut);
-      s = block_all<OP_SUM>(s, scratch);
-      if (s > zcut) lo = mid; else hi = mid;
-    }
-    const float nu = (lo + hi) * 0.5f;
-    const bool feasible = p.inequality && sumclip <= zcut + 1e-6f;
-    for (int l = t; l < L; l += nt) {
-      const size_t idx = (size_t)l * p.K + k;
-      const float w = feasible ? clip(r[l], lt, ut) : clip(r[l] - nu, lt, ut);
-      emit<WANT_X>(p, idx, l, len, w, p.a[idx], p.c[idx], cx, xx);
-    }
-  }
-  block_sum2(cx, xx);
-  if (t == 0) {
-    p.partials[2 * k] = cx;
-    p.partials[2 * k + 1] = xx;
   }
   finish(p);
 }
@@ -447,30 +404,35 @@ int sm_count() {
   return counts[dev];
 }
 
-template <int KIND, int LCAP, bool WANT_X, bool GATHER>
-cudaError_t launch_column(const Args& p, cudaStream_t s) {
-  const auto kernel = column_kernel<KIND, LCAP, WANT_X, GATHER>;
-  const size_t smem = slab_bytes(p.L) + (p.scaled_smem ? (size_t)p.m * sizeof(float) : 0);
+// A persistent kernel: as many blocks as the SMs hold at once, at most one
+// per slab.
+template <class Kernel>
+cudaError_t launch_persistent(Kernel kernel, int threads, size_t smem, const Args& p, cudaStream_t s) {
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  int per_sm = 0;  // as many blocks as the SMs hold at once
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long resident = (long long)per_sm * sm_count();
-  kernel<<<(int)(p.nparts < resident ? p.nparts : resident), THREADS, smem, s>>>(p);
+  kernel<<<(int)(p.nparts < resident ? p.nparts : resident), threads, smem, s>>>(p);
   return cudaSuccess;
+}
+
+size_t scaled_bytes(const Args& p) { return p.scaled_smem ? (size_t)p.m * sizeof(float) : 0; }
+
+template <int KIND, int LCAP, bool WANT_X, bool GATHER>
+cudaError_t launch_column(const Args& p, cudaStream_t s) {
+  return launch_persistent(column_kernel<KIND, LCAP, WANT_X, GATHER>, THREADS, slab_bytes(p.L) + scaled_bytes(p), p,
+                           s);
 }
 
 template <int KIND, bool WANT_X, bool GATHER>
 cudaError_t launch_projection(const Args& p, cudaStream_t s) {
   const int L = p.L;
   if (L > REG_L_CAP) {
-    const size_t smem = (size_t)L * sizeof(float);
-    const cudaError_t e = allow_smem(wide_kernel<KIND, WANT_X, GATHER>, smem);
-    if (e != cudaSuccess) return e;
-    wide_kernel<KIND, WANT_X, GATHER><<<p.nparts, WIDE_THREADS, smem, s>>>(p);
-    return cudaSuccess;
+    return launch_persistent(wide_kernel<KIND, WANT_X, GATHER>, WIDE_WARPS * 32, wide_bytes(L) + scaled_bytes(p),
+                             p, s);
   }
   if (L <= 1) return launch_column<KIND, 1, WANT_X, GATHER>(p, s);
   if (L <= 2) return launch_column<KIND, 2, WANT_X, GATHER>(p, s);
@@ -506,15 +468,14 @@ extern "C" int dualip_fused_tile_eval(
       (gather && (scaled == nullptr || m < 1))) {
     return (int)cudaErrorInvalidValue;
   }
-  const bool wide = kind != CLAMP && L > REG_L_CAP;
-  const int expected_nb = wide ? K : (K + THREADS - 1) / THREADS;
+  const bool wide = kind != CLAMP && L > REG_L_CAP;  // any L: the wide kernel keeps at most 64 KB of lanes
+  const int expected_nb = wide ? (K + WIDE_WARPS - 1) / WIDE_WARPS : (K + THREADS - 1) / THREADS;
   if (nb != expected_nb) return (int)cudaErrorInvalidValue;
-  if (wide && (size_t)L * sizeof(float) > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
 
   const int vec16 = K % 4 == 0 && aligned16(g) && aligned16(a) && aligned16(c) && aligned16(length) &&
                     (!gather || aligned16(scaled));
   const int scaled_smem = gather && (size_t)m * sizeof(float) <= SCALED_SMEM_BYTES &&
-                          slab_bytes(L) + (size_t)m * sizeof(float) <= SMEM_LIMIT;
+                          (wide ? wide_bytes(L) : slab_bytes(L)) + (size_t)m * sizeof(float) <= SMEM_LIMIT;
   Args p{static_cast<const float*>(g), scaled, m, a, c, length, neg_inv_gamma, ax, x, partials, out,
          L, (long long)K, nb, inequality, lo, hi, has_lo, has_hi, radius, vec16, scaled_smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -38,11 +38,12 @@
 // Design:
 //  * A work item is one panel row of 128 columns (one segment of it on the
 //    compact packing): L lanes x 128 of srow, a and c, and 128 lengths, all
-//    contiguous. Items are numbered tile after tile; the table gives each
-//    tile's first item.
-//  * Persistent blocks of 160 threads: 4 consumer warps (one thread per
-//    column) and one producer warp. Block b takes items b, b + grid, ...
-//    (a static schedule that spreads every tile over all blocks).
+//    contiguous. An item the ring holds is one work unit; an item wider than
+//    the ring (below) is 16 units of 8 adjacent columns. Units are numbered
+//    tile after tile; the table gives each tile's first unit.
+//  * Persistent blocks of 160 threads: 4 consumer warps and one producer
+//    warp. Block b takes units b, b + grid, ... (a static schedule that
+//    spreads every tile over all blocks).
 //  * The producer's lane 0 brings each coming item into a ring in shared
 //    memory with four 1-D bulk copies (TMA: srow, a, c, length), completing
 //    on the item's "full" mbarrier, while the consumers project the items
@@ -60,23 +61,47 @@
 //    compiler drops the per-lane tests; the arithmetic is the same. a and c
 //    are read for the emit from shared memory, so once from device memory;
 //    a*x (and x) go out as coalesced stores from registers.
-//  * L = 33 up to the largest item the ring holds (ring_l_cap: 47 with fp32
-//    carry and tiles, 57 with a bf16 carry, 71 with bf16 tiles, 95 with
-//    both) go through the ring but re-read their lanes from
-//    shared memory on every pass (project_column_stream): a 64-lane column
-//    in registers raised the whole kernel's register use and spills, and
-//    cost the common tiles more than it saved the rare wide ones. Wider
-//    tiles do not go through the ring: their consumers re-read the lanes
-//    from device memory, with the same arithmetic.
-//  * Each slot of a region is read (by its item's copy) and written (by its
-//    column's thread) once, so the update is in place with no second buffer.
-//    The thread of segment 0 also zeroes its row's ghost lanes.
+//  * L = 33 up to RING_L_CAP = 47, the largest item of fp32 carry and tiles
+//    the ring holds, go through the ring but re-read their lanes from shared
+//    memory on every pass (project_column_stream): a 64-lane column in
+//    registers raised the whole kernel's register use and spills, and cost
+//    the common tiles more than it saved the rare wide ones. Items of a bf16
+//    carry or bf16 tiles are smaller but go through the ring up to the same
+//    L: a bf16 tile then takes the path and the schedule of an fp32 tile
+//    holding the same values, and gives its bits, (obj, reg) included (a
+//    wide unit adds its lane sums and its (obj, reg) terms in another order
+//    than a thread of the ring).
+//  * Wider tiles do not go through the ring (the producer passes their units
+//    with a bare arrival). A wide unit is 8 adjacent columns of one item, 2
+//    a consumer warp, one after the other, each projected by the whole warp
+//    (project_column_warp): z formed once from device memory, kept in
+//    registers up to L = 128, in the warp's 2 KB stretch of shared memory up
+//    to L = 512, re-read from device memory above; every reduction a warp
+//    shuffle. The 8 columns of a unit are one 32 B sector of each fp32 lane
+//    row, so each sector read from device memory serves all 8 (the other
+//    warps of the block, and the warp's second column, find it in L1); a
+//    column of length 0 (padding) is not projected or read: its lanes take
+//    x = 0 and a*x = 0, as the mask gives them, and a unit of 8 such
+//    columns is written by whole sectors. So a wide tile's columns spread
+//    over the whole grid, where one thread a column re-read every lane from
+//    device memory on each of ~33 passes and only as many blocks as the
+//    tile had items worked on it. The wide path is kept lean (z alone kept,
+//    the lanes' loops not unrolled above L = 128), and it is compiled only
+//    into the instances that launches with a wide tile take (WIDE): in one
+//    kernel with the ring's code it raised the ring's spills (bf16 carry 128
+//    to 220 B) and slowed tables of narrow tiles by up to 20%.
+//  * Each slot of a region is read (by its item's copy, or its column's
+//    warp) and written (by its column's thread or warp) once, so the update
+//    is in place with no second buffer. The column's thread (warp) of
+//    segment 0 also zeroes its ghost lanes.
 //  * Tiles in bf16 (a and c) are the TPU kernel's other tile type: the
 //    kernel is instanced for {fp32, bf16} carry x {fp32, bf16} tiles, and a
 //    and c are widened to fp32 where they are read. The widening is exact,
 //    so bf16 tiles give the bits of fp32 tiles holding the same values.
 //  * Numerics: z, the projection and the emit are those of the per-tile
-//    kernel this replaces, lane by lane, so a*x and x are bit for bit those
+//    kernel this replaces, lane by lane (a wide column's lane sums add in
+//    the warp's order, project_block.cuh), and a launch of one tile runs the
+//    same code as the all-tiles launch, so a*x and x are bit for bit those
 //    of a launch per tile. Only the order of the (obj, reg) sums changes:
 //    each thread adds its items in order, each block adds its threads in a
 //    fixed order into its partial, and the last block to finish adds the
@@ -106,14 +131,26 @@ using namespace dualip;
 constexpr int C = 128;                 // columns per panel row = consumer threads
 constexpr int CONSUMER_WARPS = C / 32;
 constexpr int THREADS = C + 32;        // + one producer warp
-constexpr int REG_L_CAP = 32;          // largest L kept in registers
+constexpr int REG_L_CAP = 32;          // largest L kept in registers (ring)
 constexpr int MIN_BLOCKS = 2;          // blocks an SM the registers must allow
-constexpr int SLOTS = 16;              // items in flight in a block at most (one mbarrier pair each)
+constexpr int SLOTS = 16;              // units in flight in a block at most (one mbarrier pair each)
 constexpr int BAR_BYTES = 2 * SLOTS * 8;  // the mbarriers, ahead of the ring
 constexpr unsigned BULK_BYTES = 32768;  // bytes per bulk copy
 constexpr unsigned RING_BYTES = 72 * 1024;  // the ring of items in shared memory
-constexpr size_t SMEM_BYTES = BAR_BYTES + (size_t)RING_BYTES;
+constexpr int WIDE_COLS = 8;           // columns of a wide unit (a 32 B sector of fp32)
+constexpr int WIDE_UNITS = C / WIDE_COLS;  // units of a wide item
+constexpr int COLS_PER_WARP = WIDE_COLS / CONSUMER_WARPS;
+constexpr int WIDE_REGS = 4;           // a wide column in registers up to 32 * 4 lanes
+constexpr int STRETCH_L = 512;         // ... in its warp's stretch of shared memory up to 512
+constexpr int RING_L_CAP = 47;         // the largest L that goes through the ring
+
+// Shared memory of a launch: the ring, and the wide columns' stretches.
+template <bool WIDE>
+constexpr size_t smem_bytes() {
+  return BAR_BYTES + (size_t)RING_BYTES + (WIDE ? CONSUMER_WARPS * STRETCH_L * sizeof(float) : 0);
+}
 constexpr int MAX_DEVICES = 64;
+static_assert(WIDE_COLS % CONSUMER_WARPS == 0 && C % WIDE_COLS == 0, "wide units");
 
 // One row of the tile table. Must match ops/fused_matching.py::_TILE_DTYPE.
 struct Tile {
@@ -122,7 +159,7 @@ struct Tile {
   const int* len;    // (KP, q, 128)
   long long off;     // region start in the carry buffer, in slots
   long long x_off;   // first slot of the tile's x in the x buffer
-  long long first;   // first work item
+  long long first;   // first work unit
   int L, L2, q, kind;
   int inequality, has_lo, has_hi;
   float lo, hi, radius;
@@ -137,7 +174,8 @@ struct Args {
   const Tile* table;  // nullptr: the one tile below
   Tile one;
   int n_tiles;
-  long long n_items;
+  long long n_items;  // work units of the launch
+  bool wide;          // a tile is above the ring's cap
   const float* neg_inv_gamma;
   float* x;
   float* partials;  // (gridDim.x, 2)
@@ -147,20 +185,20 @@ struct Args {
 __device__ __forceinline__ Tile tile_at(const Args& p, int t) { return p.table ? p.table[t] : p.one; }
 __device__ __forceinline__ long long first_of(const Args& p, int t) { return p.table ? p.table[t].first : 0; }
 
-// The tile of an item, walking forward (a block's items only grow).
+// The tile of a unit, walking forward (a block's units only grow).
 struct TileWalk {
   int t = 0;
   Tile tile;
-  long long next_first;  // the first item of tile t + 1 (n_items after the last)
+  long long next_first;  // the first unit of tile t + 1 (n_items after the last)
   __device__ __forceinline__ TileWalk(const Args& p) : tile(tile_at(p, 0)) {
     next_first = p.n_tiles > 1 ? first_of(p, 1) : p.n_items;
   }
-  __device__ __forceinline__ void seek(const Args& p, long long item) {
-    if (item < next_first) return;
+  __device__ __forceinline__ void seek(const Args& p, long long unit) {
+    if (unit < next_first) return;
     do {
       ++t;
       next_first = t + 1 < p.n_tiles ? first_of(p, t + 1) : p.n_items;
-    } while (item >= next_first);
+    } while (unit >= next_first);
     tile = tile_at(p, t);
   }
 };
@@ -173,18 +211,15 @@ __host__ __device__ __forceinline__ constexpr unsigned item_bytes(int L) {
   return (unsigned)L * C * (2 * sizeof(TA) + sizeof(T)) + C * 4;
 }
 
-// The largest L whose item the ring holds: 47 (fp32 carry and tiles), 57
-// (bf16 carry), 71 (bf16 tiles), 95 (both).
-template <typename T, typename TA>
-__host__ __device__ __forceinline__ constexpr int ring_l_cap() {
-  return (int)((RING_BYTES - C * 4) / (C * (2 * sizeof(TA) + sizeof(T))));
-}
-static_assert(ring_l_cap<float, float>() == 47 && ring_l_cap<__nv_bfloat16, float>() == 57, "ring size");
-static_assert(ring_l_cap<float, __nv_bfloat16>() == 71 && ring_l_cap<__nv_bfloat16, __nv_bfloat16>() == 95,
+// The ring holds an item of RING_L_CAP lanes of fp32 carry and tiles, and
+// not one lane more (items of bf16 are smaller).
+static_assert(item_bytes<float, float>(RING_L_CAP) <= RING_BYTES && item_bytes<float, float>(RING_L_CAP + 1) > RING_BYTES,
               "ring size");
 
-template <typename T, typename TA>
-__device__ __forceinline__ bool in_ring(const Tile& t) { return t.L <= ring_l_cap<T, TA>(); }
+__host__ __device__ __forceinline__ bool in_ring(int L) { return L <= RING_L_CAP; }
+
+// Work units of one item: 1 in the ring, WIDE_UNITS above it.
+__host__ __device__ __forceinline__ int units_per_item(int L) { return in_ring(L) ? 1 : WIDE_UNITS; }
 
 // Where the items go in the ring: one after the other, back to the start
 // when an item does not fit before the end. The producer and the consumers
@@ -257,13 +292,20 @@ __device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat1
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// Where one item lies: its index within the tile, buffer row and segment.
+// Where one unit lies: its item's index within the tile, buffer row and
+// segment, and its first column (0 for an item of the ring).
+// ops/fused_matching.py::panel_unit_where is the same map.
+// An instance without WIDE holds no wide tile: one unit an item.
+template <bool WIDE>
 struct Where {
   long long local, row;
-  int seg;
-  __device__ __forceinline__ Where(const Tile& t, long long item) {
-    local = item - t.first;
-    const unsigned l32 = (unsigned)local;  // the items of a launch number fewer than 2^31
+  int seg, col0;
+  __device__ __forceinline__ Where(const Tile& t, long long unit) {
+    const unsigned u = (unsigned)(unit - t.first);  // units of a launch: fewer than 2^31
+    const unsigned per = WIDE ? (unsigned)units_per_item(t.L) : 1u;
+    const unsigned l32 = per == 1 ? u : u / per;
+    col0 = (int)(u - l32 * per) * WIDE_COLS;
+    local = l32;
     const unsigned r32 = t.q == 1 ? l32 : l32 / (unsigned)t.q;
     row = r32;
     seg = (int)(l32 - r32 * (unsigned)t.q);
@@ -290,6 +332,13 @@ struct Column {
   // a*srow + nig*c, rounded as two products and a sum (no contraction)
   __device__ __forceinline__ float z(int l) const {
     return __fadd_rn(__fmul_rn(load(a + l * C), load(s + l * C)), __fmul_rn(nig, load(c + l * C)));
+  }
+
+  // lane l of a column of length 0: a*x = 0 and x = 0, a and c not read
+  template <bool WANT_X>
+  __device__ __forceinline__ void emit_zero(int l) const {
+    store(b + l * C, 0.f);
+    if (WANT_X) x[l * C] = 0.f;
   }
 
   template <bool WANT_X>
@@ -345,11 +394,11 @@ __device__ __forceinline__ void project_any(const Tile& t, const Proj& pr, const
   }
 }
 
-// identity / box / cone: elementwise, any L.
+// identity / box / cone: elementwise, any L; lanes l0, l0 + step, ...
 template <typename T, typename TA, bool WANT_X>
 __device__ __forceinline__ void clamp_item(const Tile& t, const Proj& pr, const Column<T, TA>& col, float& cx,
-                                           float& xx) {
-  for (int l = 0; l < t.L; ++l) {
+                                           float& xx, int l0 = 0, int step = 1) {
+  for (int l = l0; l < t.L; l += step) {
     float w = col.z(l);
     if (pr.has_lo) w = fmaxf(w, pr.lo);
     if (pr.has_hi) w = fminf(w, pr.hi);
@@ -367,16 +416,72 @@ __device__ __forceinline__ void ring_item(const Tile& t, const Column<T, TA>& co
   else project_any<T, TA, BOXCUT, WANT_X>(t, pr, col, cx, xx);
 }
 
-// One item wider than the ring takes, one column, from device
-// memory: nothing kept, every pass re-reads the lanes.
+// One column of a wide unit, the whole consumer warp: lanes from device
+// memory, z formed once and kept (project_column_warp_any). A column of
+// length 0 (padding) writes x = 0 and a*x = 0 on every lane, what the mask
+// makes of any projection (a padding slot's a is 0), and reads nothing.
 template <typename T, typename TA, bool WANT_X>
-__device__ __forceinline__ void wide_item(const Tile& t, const Column<T, TA>& col, float& cx, float& xx) {
+__device__ __forceinline__ void wide_column(const Tile& t, const Column<T, TA>& col, float* stretch, float& cx,
+                                            float& xx) {
   const Proj pr{t.inequality, t.lo, t.hi, t.has_lo, t.has_hi, t.radius};
-  const auto z = [&](int l) { return col.z(l); };
-  const auto emit = [&](int l, float w) { col.template emit<WANT_X>(l, w, cx, xx); };
-  if (t.kind == CLAMP) clamp_item<T, TA, WANT_X>(t, pr, col, cx, xx);
-  else if (t.kind == SIMPLEX) project_column_stream<SIMPLEX>(t.L, pr, z, emit);
-  else project_column_stream<BOXCUT>(t.L, pr, z, emit);
+  const int lane = threadIdx.x & 31;
+  const auto z = [&](int, int l) { return col.z(l); };
+  const auto emit = [&](int, int l, float w) { col.template emit<WANT_X>(l, w, cx, xx); };
+  if (col.len == 0) {
+    for (int l = lane; l < t.L; l += 32) col.template emit_zero<WANT_X>(l);
+  } else if (t.kind == CLAMP) {
+    clamp_item<T, TA, WANT_X>(t, pr, col, cx, xx, lane, 32);
+  } else if (t.kind == SIMPLEX) {
+    project_column_warp_any<SIMPLEX, WIDE_REGS>(t.L, pr, stretch, STRETCH_L, z, emit);
+  } else {
+    project_column_warp_any<BOXCUT, WIDE_REGS>(t.L, pr, stretch, STRETCH_L, z, emit);
+  }
+}
+
+// Zero a column's ghost lanes [from, to) (slot g[l*C]), lanes l0, l0 + step, ...
+template <typename T>
+__device__ __forceinline__ void zero_ghosts(T* g, int from, int to, int l0, int step) {
+  for (int l = from + l0; l < to; l += step) store(g + (long long)l * C, 0.f);
+}
+
+// A wide unit, by a block's consumer warps: COLS_PER_WARP adjacent columns a
+// warp, one after the other, from device memory. ``stretches`` is the
+// consumers' shared memory past the ring. A unit of padding columns only
+// (length 0: the tail of a tile) is written as zeros by whole sectors, each
+// warp instruction 4 lane rows of the unit's 8 columns, where a warp a
+// column would write 32 lane rows of one column (32 partial sectors).
+template <typename T, typename TA, bool WANT_X>
+__device__ __forceinline__ void wide_unit(const Args& p, const Tile& t, const Where<true>& w, unsigned char* stretches,
+                                          float nig, float& cx, float& xx) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long lanes = (long long)t.L * C;
+  T* const buf = static_cast<T*>(p.buf);
+  T* const b = buf + w.srow(t);  // the item's lane 0, column 0
+  T* const ghost = buf + t.off + w.row * t.L2 * C;  // the buffer row's lane 0
+  float* const x = WANT_X ? p.x + t.x_off + w.local * lanes : nullptr;
+  const int* const len = t.len + w.local * C + w.col0;
+  bool padding = true;
+#pragma unroll
+  for (int i = 0; i < WIDE_COLS; ++i) padding &= len[i] == 0;
+  if (padding) {
+    constexpr int ROWS = CONSUMER_WARPS * 32 / WIDE_COLS;  // lane rows a pass
+    const int col_i = w.col0 + lane % WIDE_COLS, r0 = warp * (32 / WIDE_COLS) + lane / WIDE_COLS;
+    for (int l = r0; l < t.L; l += ROWS) {
+      store(b + (long long)l * C + col_i, 0.f);
+      if (WANT_X) x[(long long)l * C + col_i] = 0.f;
+    }
+    if (w.seg == 0) zero_ghosts(ghost + col_i, t.q * t.L, t.L2, r0, ROWS);
+    return;
+  }
+  float* const stretch = reinterpret_cast<float*>(stretches) + warp * STRETCH_L;
+  for (int k = 0; k < COLS_PER_WARP; ++k) {
+    const int col_i = w.col0 + warp * COLS_PER_WARP + k;
+    const Column<T, TA> col{static_cast<const TA*>(t.a) + w.local * lanes + col_i,
+                            static_cast<const TA*>(t.c) + w.local * lanes + col_i, b + col_i, b + col_i,
+                            WANT_X ? x + col_i : nullptr, t.len[w.local * C + col_i], nig};
+    wide_column<T, TA, WANT_X>(t, col, stretch, cx, xx);
+    if (w.seg == 0) zero_ghosts(ghost + col_i, t.q * t.L, t.L2, lane, 32);
+  }
 }
 
 // Every thread of every block, after thread 0 wrote the block's partial: the
@@ -404,7 +509,8 @@ __device__ void finish(const Args& p) {
   }
 }
 
-template <typename T, typename TA, bool WANT_X>
+// WIDE: the launch may hold a tile above the ring's cap (else none does).
+template <typename T, typename TA, bool WANT_X, bool WIDE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) panel_tiles_kernel(Args p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const unsigned full0 = smem_u32(smem), empty0 = full0 + SLOTS * 8;
@@ -426,16 +532,17 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) panel_tiles_kernel(Args p
   Slot slot;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp == CONSUMER_WARPS) {
-    // producer: lane 0 fills the ring, item after item. Before an item goes
-    // in, the oldest items in flight are waited for (released by the
-    // consumers) until its slot is free and its bytes clash with none.
+    // producer: lane 0 fills the ring, unit after unit. Before an item goes
+    // in, the oldest units in flight are waited for (released by the
+    // consumers) until its slot is free and its bytes clash with none. A
+    // wide unit takes a slot and no bytes: a bare arrival.
     if (lane == 0) {
-      unsigned lo[SLOTS], hi[SLOTS];  // bytes of the items in flight, by slot
+      unsigned lo[SLOTS], hi[SLOTS];  // bytes of the units in flight, by slot
       Slot oldest;
       int in_flight = 0;
-      for (long long item = blockIdx.x; item < p.n_items; item += gridDim.x, slot.next()) {
-        tw.seek(p, item);
-        const unsigned bytes = in_ring<T, TA>(tile) ? item_bytes<T, TA>(tile.L) : 0u;
+      for (long long unit = blockIdx.x; unit < p.n_items; unit += gridDim.x, slot.next()) {
+        tw.seek(p, unit);
+        const unsigned bytes = !WIDE || in_ring(tile.L) ? item_bytes<T, TA>(tile.L) : 0u;
         const unsigned at = walk.place(bytes);
         for (;;) {
           bool clash = in_flight == SLOTS;
@@ -452,7 +559,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) panel_tiles_kernel(Args p
         ++in_flight;
         const unsigned full = full0 + 8 * slot.i;
         if (bytes) {
-          const Where w(tile, item);
+          const Where<WIDE> w(tile, unit);
           const unsigned lanes = (unsigned)tile.L * C;
           const unsigned ab = lanes * (unsigned)sizeof(TA);  // bytes of a (and of c)
           const unsigned dst = smem_u32(ring + at);
@@ -468,20 +575,19 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) panel_tiles_kernel(Args p
     }
     __syncwarp();
   } else {
-    // consumers: one thread per column
+    // consumers: an item of the ring one thread a column, a wide unit one warp a column
     const int col_i = threadIdx.x;
     const float nig = *p.neg_inv_gamma;
-    for (long long item = blockIdx.x; item < p.n_items; item += gridDim.x, slot.next()) {
-      tw.seek(p, item);
-      const Where w(tile, item);
-      const bool ringed = in_ring<T, TA>(tile);
+    for (long long unit = blockIdx.x; unit < p.n_items; unit += gridDim.x, slot.next()) {
+      tw.seek(p, unit);
+      const Where<WIDE> w(tile, unit);
+      const bool ringed = !WIDE || in_ring(tile.L);
       const unsigned at = walk.place(ringed ? item_bytes<T, TA>(tile.L) : 0u);
-      const long long lanes = (long long)tile.L * C;
-      const long long srow = w.srow(tile);
-      T* const b = buf + srow + col_i;
-      float* const x = WANT_X ? p.x + tile.x_off + w.local * lanes + col_i : nullptr;
       mbar_wait(full0 + 8 * slot.i, slot.parity);
       if (ringed) {  // a, c, srow and length from shared memory
+        const long long lanes = (long long)tile.L * C;
+        T* const b = buf + w.srow(tile) + col_i;
+        float* const x = WANT_X ? p.x + tile.x_off + w.local * lanes + col_i : nullptr;
         const unsigned char* sb = ring + at;
         const long long ab = lanes * (long long)sizeof(TA);
         const Column<T, TA> col{reinterpret_cast<const TA*>(sb) + col_i,
@@ -489,15 +595,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) panel_tiles_kernel(Args p
                                 reinterpret_cast<const T*>(sb + 2 * ab) + col_i, b, x,
                                 reinterpret_cast<const int*>(sb + 2 * ab + lanes * sizeof(T))[col_i], nig};
         ring_item<T, TA, WANT_X>(tile, col, cx, xx);
-      } else {
-        const Column<T, TA> col{static_cast<const TA*>(tile.a) + w.local * lanes + col_i,
-                                static_cast<const TA*>(tile.c) + w.local * lanes + col_i, b, b, x,
-                                tile.len[w.local * C + col_i], nig};
-        wide_item<T, TA, WANT_X>(tile, col, cx, xx);
-      }
-      if (w.seg == 0) {  // ghost lanes of this buffer row
-        T* g = buf + tile.off + w.row * tile.L2 * C + col_i;
-        for (int l = tile.q * tile.L; l < tile.L2; ++l) store(g + (long long)l * C, 0.f);
+        if (w.seg == 0) zero_ghosts(buf + tile.off + w.row * tile.L2 * C + col_i, tile.q * tile.L, tile.L2, 0, 1);
+      } else if constexpr (WIDE) {
+        wide_unit<T, TA, WANT_X>(p, tile, w, ring + RING_BYTES, nig, cx, xx);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(empty0 + 8 * slot.i);
@@ -514,7 +614,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) panel_tiles_kernel(Args p
 // Blocks a launch may take on the current device: as many as fit on every
 // SM, worked out (and the kernel's shared memory opted in) at the first
 // launch on each device.
-template <typename T, typename TA, bool WANT_X>
+template <typename T, typename TA, bool WANT_X, bool WIDE>
 cudaError_t full_grid(int& grid) {
   static std::atomic<int> cached[MAX_DEVICES];
   int dev = 0;
@@ -522,13 +622,13 @@ cudaError_t full_grid(int& grid) {
   if (e != cudaSuccess) return e;
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if ((grid = cached[dev].load(std::memory_order_relaxed)) > 0) return cudaSuccess;
-  auto kernel = panel_tiles_kernel<T, TA, WANT_X>;
+  auto kernel = panel_tiles_kernel<T, TA, WANT_X, WIDE>;
   // dynamic shared memory above the default 48 KB needs an opt-in per kernel
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes<WIDE>());
   if (e != cudaSuccess) return e;
   int sms = 0, per_sm = 0;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, SMEM_BYTES)) != cudaSuccess) {
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem_bytes<WIDE>())) != cudaSuccess) {
     return e;
   }
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -537,20 +637,25 @@ cudaError_t full_grid(int& grid) {
   return cudaSuccess;
 }
 
-template <typename T, typename TA, bool WANT_X>
+template <typename T, typename TA, bool WANT_X, bool WIDE>
 int launch(Args& p, int max_grid, cudaStream_t s) {
   int grid = 0;
-  const cudaError_t e = full_grid<T, TA, WANT_X>(grid);
+  const cudaError_t e = full_grid<T, TA, WANT_X, WIDE>(grid);
   if (e != cudaSuccess) return (int)e;
   if (grid > max_grid) grid = max_grid;
   if (grid > p.n_items) grid = (int)p.n_items;
-  panel_tiles_kernel<T, TA, WANT_X><<<grid, THREADS, SMEM_BYTES, s>>>(p);
+  panel_tiles_kernel<T, TA, WANT_X, WIDE><<<grid, THREADS, smem_bytes<WIDE>(), s>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename TA, bool WANT_X>
+int launch_wide(Args& p, int max_grid, cudaStream_t s) {
+  return p.wide ? launch<T, TA, WANT_X, true>(p, max_grid, s) : launch<T, TA, WANT_X, false>(p, max_grid, s);
 }
 
 template <typename T, typename TA>
 int launch_x(Args& p, int max_grid, cudaStream_t s) {
-  return p.x != nullptr ? launch<T, TA, true>(p, max_grid, s) : launch<T, TA, false>(p, max_grid, s);
+  return p.x != nullptr ? launch_wide<T, TA, true>(p, max_grid, s) : launch_wide<T, TA, false>(p, max_grid, s);
 }
 
 template <typename T>
@@ -570,12 +675,13 @@ int dispatch(Args& p, int carry_bytes, int tile_bytes, int max_grid, cudaStream_
 }  // namespace
 
 // Every tile of ``table`` (n_tiles rows in device memory, checked by the
-// caller against the layout): n_items work items. carry_bytes: 4 (float32
-// buffer) or 2 (bfloat16); tile_bytes: the same for every tile's a and c.
-// x == nullptr: K3; else K4. ``partials`` holds ``max_grid`` (obj, reg)
-// pairs; ``out`` receives the two sums.
+// caller against the layout): n_items work units; wide != 0 if a tile is
+// above the ring's cap (RING_L_CAP). carry_bytes: 4 (float32 buffer) or 2
+// (bfloat16); tile_bytes: the same for every tile's a and c. x == nullptr:
+// K3; else K4. ``partials`` holds ``max_grid`` (obj, reg) pairs; ``out``
+// receives the two sums.
 extern "C" int dualip_panel_project_tiles(
-    void* buf, int carry_bytes, int tile_bytes, const void* table, int n_tiles, long long n_items,
+    void* buf, int carry_bytes, int tile_bytes, const void* table, int n_tiles, long long n_items, int wide,
     const float* neg_inv_gamma, float* x, float* partials, int max_grid, float* out, void* stream) {
   if (table == nullptr || n_tiles < 1) return (int)cudaErrorInvalidValue;
   Args p{};
@@ -583,6 +689,7 @@ extern "C" int dualip_panel_project_tiles(
   p.table = static_cast<const Tile*>(table);
   p.n_tiles = n_tiles;
   p.n_items = n_items;
+  p.wide = wide != 0;
   p.neg_inv_gamma = neg_inv_gamma;
   p.x = x;
   p.partials = partials;
@@ -607,7 +714,8 @@ extern "C" int dualip_panel_project(
   p.table = nullptr;
   p.one = Tile{a, c, length, off, 0, 0, L, L2, q, kind, inequality, has_lo, has_hi, lo, hi, radius};
   p.n_tiles = 1;
-  p.n_items = (long long)KP * q;
+  p.n_items = (long long)KP * q * units_per_item(L);
+  p.wide = !in_ring(L);
   p.neg_inv_gamma = neg_inv_gamma;
   p.x = x;
   p.partials = partials;

@@ -1,20 +1,24 @@
 // Device functions shared by the fused tile kernel (fused_matching.cu, K1/K2)
 // and the panel kernel (panel_matching.cu, K3/K4): the per-column projection
-// of dualip_tpu/ops/pallas_matching.py::_project_block, and the block-wide
-// sum of the per-thread (sum c*x, sum x*x) pairs.
+// of dualip_tpu/ops/pallas_matching.py::_project_block, by one thread
+// (project_column, project_column_stream) or by one warp (project_column_warp,
+// the kernels' wide columns), and the block-wide sum of the per-thread
+// (sum c*x, sum x*x) pairs.
 //
 // Exact numerics of _project_block, the same in every kernel that includes
-// this header: z is formed by the caller as two rounded products and a rounded
-// sum (no FMA contraction); simplex runs 30 bisection steps on [-1, 0] of the
-// max-shifted, radius-normalised, pre-clamped values with the "s > 1" test,
-// the top-2 vertex shortcut with argmax taking the FIRST maximum, and the
-// inequality pass-through against radius + 1e-6; box_cut is bracketed by
-// [min(z) - u, max(z) - l]. Padding lanes take part as z = 0 and are masked
+// this header (only the order of the lane sums differs in the warp's form,
+// see project_column_warp): z is formed by the caller as two rounded
+// products and a rounded sum (no FMA contraction); simplex runs 30 bisection
+// steps on [-1, 0] of the max-shifted, radius-normalised, pre-clamped values
+// with the "s > 1" test, the top-2 vertex shortcut with argmax taking the
+// FIRST maximum, and the inequality pass-through against radius + 1e-6;
+// box_cut is bracketed by [min(z) - u, max(z) - l]. Padding lanes take part as z = 0 and are masked
 // by the caller's emit.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math_constants.h>
 #include <stdint.h>
 
@@ -227,6 +231,234 @@ __device__ __forceinline__ void project_column_stream(int L, const Proj& p, ZAt 
       emit(l, feasible ? clip(z, lt, ut) : clip(z - nu, lt, ut));
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// One column of any L, projected by one warp (the wide columns of both
+// kernels). Thread t of the warp holds lanes t, t + 32, ...; z is formed once
+// by ``z_at`` (the caller's rounding, as above) and what the passes need of a
+// lane is kept by the thread (``Keep``): in registers (KeepRegs<N>, L <= 32 N,
+// the passes unrolled over N), in the warp's own stretch of shared memory
+// (KeepShared, lane l at s[l], so the 32 threads hit 32 banks), or nowhere
+// (KeepNone: every pass calls z_at again, the warp's reads in parallel). The
+// max with its FIRST argmax, the second max, sum(v), each bisection sum, and
+// box_cut's min, max and clip sum are reduced across the warp by
+// __shfl_xor_sync: every thread receives the same bits (each step adds or
+// compares the same two values on both sides), so all take the same branch,
+// with no block barrier.
+//
+// The tests, products and branches are project_column's. Only the order of
+// the lane sums changes: each thread adds its lanes in order, then a
+// butterfly across the 32 threads, where project_column adds in lane order.
+// A sum of L terms then moves by at most about L * 2^-24 of its magnitude; a
+// bisection test "s > 1" flips only where mid already lies that close to the
+// root (s falls with slope <= -1 in mid wherever it crosses 1), so nu, x and
+// a*x move by about L * 2^-24 * radius (2.3e-5 at L = 394, radius 1), and the
+// inequality pass-through flips only for a column whose sum lies within that
+// of radius + 1e-6. Against the plain version (which adds in lane order) the
+// kernels are held to 5e-5 * max(1, max|x|) on a*x and x.
+
+template <int N>
+struct KeepRegs {  // lanes in registers: L <= 32 * N
+  static constexpr int n = N;
+  static constexpr bool kept = true;
+  float r[N];
+  __device__ __forceinline__ explicit KeepRegs(float*) {}
+  __device__ __forceinline__ float get(int j, int) const { return r[j]; }
+  __device__ __forceinline__ void set(int j, int, float v) { r[j] = v; }
+};
+
+struct KeepShared {  // lanes in the warp's stretch of shared memory, L floats
+  static constexpr int n = 0;
+  static constexpr bool kept = true;
+  float* s;
+  __device__ __forceinline__ explicit KeepShared(float* stretch) : s(stretch) {}
+  __device__ __forceinline__ float get(int, int l) const { return s[l]; }
+  __device__ __forceinline__ void set(int, int l, float v) { s[l] = v; }
+};
+
+struct KeepNone {  // nothing kept: z formed again on every pass
+  static constexpr int n = 0;
+  static constexpr bool kept = false;
+  __device__ __forceinline__ explicit KeepNone(float*) {}
+  __device__ __forceinline__ float get(int, int) const { return 0.f; }
+  __device__ __forceinline__ void set(int, int, float) {}
+};
+
+// f(j, l) for the thread's lanes l = t + 32 j < L: unrolled over N (compile
+// time, so a register array stays in registers), or a loop when N = 0.
+template <int N, class F>
+__device__ __forceinline__ void warp_lanes(int L, F f) {
+  const int t = threadIdx.x & 31;
+  if constexpr (N > 0) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (32 * j + t < L) f(j, 32 * j + t);
+    }
+  } else {
+    for (int j = 0, l = t; l < L; ++j, l += 32) f(j, l);
+  }
+}
+
+// f(j, l, z_at(j, l)) for the thread's lanes: the pass that forms z, all N
+// lanes (registers) or Z_BATCH lanes (a loop) at a time, their z formed
+// before f runs on any of them, so that their loads (for a gather, two
+// dependent ones a lane) are in flight together: f may store into shared
+// memory, which the compiler cannot tell apart from the loads' memory.
+constexpr int Z_BATCH = 8;
+
+template <int N, class ZAt, class F>
+__device__ __forceinline__ void warp_lanes_z(int L, ZAt z_at, F f) {
+  const int t = threadIdx.x & 31;
+  constexpr int B = N > 0 ? N : Z_BATCH;
+  const auto batch = [&](int j0) {
+    float z[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int l = 32 * (j0 + b) + t;
+      z[b] = l < L ? z_at(j0 + b, l) : 0.f;
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int l = 32 * (j0 + b) + t;
+      if (l < L) f(j0 + b, l, z[b]);
+    }
+  };
+  if constexpr (N > 0) {
+    static_assert(N % B == 0, "whole batches");
+#pragma unroll
+    for (int j0 = 0; j0 < N; j0 += B) batch(j0);
+  } else {
+    for (int j0 = 0; 32 * j0 < L; j0 += B) batch(j0);
+  }
+}
+
+__device__ __forceinline__ float warp_all_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_all_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_all_min(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+
+// (max, its first lane) across the warp; a thread without lanes holds (-inf, INT_MAX).
+__device__ __forceinline__ void warp_all_argmax(float& v, int& i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float v2 = __shfl_xor_sync(FULL, v, off);
+    const int i2 = __shfl_xor_sync(FULL, i, off);
+    if (v2 > v || (v2 == v && i2 < i)) {
+      v = v2;
+      i = i2;
+    }
+  }
+}
+
+// One column, one warp (the whole warp calls, with the same column). ``stretch``
+// is the warp's shared memory for KeepShared (L floats), ignored otherwise.
+// ``z_at(j, l)`` and ``emit(j, l, w)`` take the lane l and its place j among
+// the thread's lanes (known at compile time where the passes are unrolled,
+// so a caller may keep what it read of a lane in registers of its own).
+template <int KIND, class Keep, class ZAt, class Emit>
+__device__ __forceinline__ void project_column_warp(int L, const Proj& p, float* stretch, ZAt z_at, Emit emit) {
+  constexpr int N = Keep::n;
+  Keep keep(stretch);
+  if (KIND == SIMPLEX) {
+    const float radius = p.radius;
+    float vmax = -CUDART_INF_F, sumv = 0.f;
+    int i0 = INT_MAX;
+    warp_lanes_z<N>(L, z_at, [&](int j, int l, float z) {
+      const float v = fmaxf(z, 0.f);
+      sumv += v;
+      const float vn = div_radius(v, radius);
+      keep.set(j, l, vn);
+      if (vn > vmax) {  // strict: the thread's first maximum
+        vmax = vn;
+        i0 = l;
+      }
+    });
+    warp_all_argmax(vmax, i0);
+    sumv = warp_all_sum(sumv);
+    const auto vn_at = [&](int j, int l) {
+      return Keep::kept ? keep.get(j, l) : div_radius(fmaxf(z_at(j, l), 0.f), radius);
+    };
+    float v1 = -CUDART_INF_F;
+    warp_lanes<N>(L, [&](int j, int l) {
+      const float vn = vn_at(j, l);
+      if (l != i0) v1 = fmaxf(v1, vn);
+      keep.set(j, l, vn - vmax);
+    });
+    v1 = warp_all_max(v1);
+    const auto r_at = [&](int j, int l) { return Keep::kept ? keep.get(j, l) : vn_at(j, l) - vmax; };
+    float lo = -1.f, hi = 0.f;
+#pragma unroll 1  // one warp runs a column's steps alone: a short loop stays in the instruction cache
+    for (int it = 0; it < BISECTION_ITERS; ++it) {
+      const float mid = (lo + hi) * 0.5f;
+      float s = 0.f;
+      warp_lanes<N>(L, [&](int j, int l) { s += fmaxf(r_at(j, l) - mid, 0.f); });
+      s = warp_all_sum(s);
+      if (s > 1.0f) lo = mid; else hi = mid;
+    }
+    const float nu = (lo + hi) * 0.5f;
+    const bool shortcut = L > 1 && (vmax - v1) > 1.0f;
+    const bool feasible = p.inequality && sumv <= radius + 1e-6f;
+    warp_lanes<N>(L, [&](int j, int l) {
+      float w;
+      if (feasible) w = fmaxf(z_at(j, l), 0.f);
+      else if (shortcut) w = (l == i0) ? radius : 0.f;
+      else w = __fmul_rn(fmaxf(r_at(j, l) - nu, 0.f), radius);
+      emit(j, l, w);
+    });
+  } else {  // BOXCUT
+    const float lt = p.lo, ut = p.hi, zcut = p.radius;
+    float zmin = CUDART_INF_F, zmax = -CUDART_INF_F, sumclip = 0.f;
+    warp_lanes_z<N>(L, z_at, [&](int j, int l, float z) {
+      keep.set(j, l, z);
+      zmin = fminf(zmin, z);
+      zmax = fmaxf(zmax, z);
+      sumclip += clip(z, lt, ut);
+    });
+    zmin = warp_all_min(zmin);
+    zmax = warp_all_max(zmax);
+    sumclip = warp_all_sum(sumclip);
+    const auto z_of = [&](int j, int l) { return Keep::kept ? keep.get(j, l) : z_at(j, l); };
+    float lo = zmin - ut, hi = zmax - lt;
+#pragma unroll 1
+    for (int it = 0; it < BISECTION_ITERS; ++it) {
+      const float mid = (lo + hi) * 0.5f;
+      float s = 0.f;
+      warp_lanes<N>(L, [&](int j, int l) { s += clip(z_of(j, l) - mid, lt, ut); });
+      s = warp_all_sum(s);
+      if (s > zcut) lo = mid; else hi = mid;
+    }
+    const float nu = (lo + hi) * 0.5f;
+    const bool feasible = p.inequality && sumclip <= zcut + 1e-6f;
+    warp_lanes<N>(L, [&](int j, int l) {
+      const float z = z_of(j, l);
+      emit(j, l, feasible ? clip(z, lt, ut) : clip(z - nu, lt, ut));
+    });
+  }
+}
+
+// project_column_warp with the lanes kept where they fit: in registers up to
+// 32 * NREG lanes, else in the warp's ``stretch`` of shared memory (room for
+// ``room`` lanes), else nowhere.
+template <int KIND, int NREG, class ZAt, class Emit>
+__device__ __forceinline__ void project_column_warp_any(int L, const Proj& p, float* stretch, int room, ZAt z_at,
+                                                        Emit emit) {
+  if (L <= 32 * NREG) project_column_warp<KIND, KeepRegs<NREG>>(L, p, stretch, z_at, emit);
+  else if (L <= room) project_column_warp<KIND, KeepShared>(L, p, stretch, z_at, emit);
+  else project_column_warp<KIND, KeepNone>(L, p, stretch, z_at, emit);
 }
 
 }  // namespace dualip

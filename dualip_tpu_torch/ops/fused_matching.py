@@ -53,6 +53,7 @@ BISECTION_ITERS = 30
 # Must match csrc/fused_matching.cu.
 _THREADS = 256  # columns per slab (one partial each) of the per-column kernels
 REG_L_CAP = 64  # largest L whose column the per-column kernel keeps in registers
+_WIDE_WARPS = 8  # columns per group (one partial each, one warp a column) above REG_L_CAP
 _KIND_CODE = {"identity": 0, "box": 0, "cone": 0, "simplex": 1, "simplex_eq": 1, "box_cut": 2, "box_cut_eq": 2}
 
 
@@ -170,9 +171,9 @@ def _kernel_params(kind: str, params: dict):
 
 def num_partial_blocks(kind: str, L: int, K: int) -> int:
     """Partial (obj, reg) pairs of the kernel's launch: one per ``_THREADS``
-    columns, or one per column above ``REG_L_CAP``."""
+    columns, or one per ``_WIDE_WARPS`` columns above ``REG_L_CAP``."""
     if _KIND_CODE[kind] != 0 and L > REG_L_CAP:
-        return K
+        return -(-K // _WIDE_WARPS)
     return -(-K // _THREADS)
 
 
@@ -406,6 +407,10 @@ def fused_panel_project_reference(
 
 _PANEL_MAX_GRID = 2048  # (obj, reg) partials of the per-device scratch
 
+# Must match csrc/panel_matching.cu.
+PANEL_RING_L_CAP = 47  # the largest L whose items go through the kernel's ring
+_PANEL_WIDE_COLS = 8  # columns of a work unit of an item wider than the ring
+
 # One row of the kernel's tile table: csrc/panel_matching.cu's ``struct Tile``.
 _TILE_DTYPE = np.dtype(
     [("a", np.uint64), ("c", np.uint64), ("len", np.uint64), ("off", np.int64), ("x_off", np.int64),
@@ -417,9 +422,13 @@ _TILE_DTYPE = np.dtype(
 assert _TILE_DTYPE.itemsize == 88
 
 
+def _units_per_item(L: int) -> int:
+    return 1 if L <= PANEL_RING_L_CAP else 128 // _PANEL_WIDE_COLS
+
+
 class PanelTableTile(NamedTuple):
     """One column tile of a panel table: its panel-form tensors, its region
-    of the carry buffer, its projection and its place in the work items."""
+    of the carry buffer, its projection and its place in the work units."""
 
     a: torch.Tensor  # (KP, q*L, 128) float32 or bfloat16
     c: torch.Tensor
@@ -432,7 +441,7 @@ class PanelTableTile(NamedTuple):
     kind: str
     params: Tuple
     pack: Optional[Tuple]  # (L, L2, q) on the compact packing, else None
-    first: int  # first work item (one per buffer row and segment)
+    first: int  # first work unit
     x_off: int  # first slot of the tile's x in the x buffer
 
 
@@ -441,15 +450,23 @@ class PanelTable(NamedTuple):
     kernel (``fused_panel_project_tiles``).  Built once per layout by
     ``build_panel_table`` (the butterfly objective builds its own with the
     layout).  ``rows`` is the kernel's copy of the table on the tiles' CUDA
-    device (None on the CPU)."""
+    device (None on the CPU).
+
+    The launch's blocks take work units: one per buffer row and segment
+    (an item) of a tile whose item the kernel's ring holds, and
+    ``128 / _PANEL_WIDE_COLS`` per item of a wider tile (L above
+    ``PANEL_RING_L_CAP``, for every carry and tile type; ``panel_unit_where``
+    maps a unit back).  ``wide`` says whether the table holds such a tile:
+    a table without one takes the kernel's instance that has no wide path."""
 
     tiles: Tuple[PanelTableTile, ...]
-    rows: Optional[torch.Tensor]  # (n_tiles * 88,) uint8
+    rows: Optional[torch.Tensor]  # (n_tiles * 96,) uint8
     device: torch.device
     tile_dtype: torch.dtype  # of every tile's a and c
-    n_items: int
+    n_items: int  # work units of a launch
     n_buf: int  # the end of the last region: the least buffer length
     x_slots: int  # slots of the x buffer
+    wide: bool  # a tile is above PANEL_RING_L_CAP
 
 
 def build_panel_table(col_tiles, offsets, packs, kinds) -> PanelTable:
@@ -493,7 +510,7 @@ def build_panel_table(col_tiles, offsets, packs, kinds) -> PanelTable:
                 raise ValueError(f"tile {i}: the bulk copies need 16-byte aligned tensors")
             rows[i] = (a.data_ptr(), c.data_ptr(), length.data_ptr(), off, x_off, first, L, L2, q, code, ineq,
                        int(has_lo), int(has_hi), lo, hi, radius)
-        first += KP * q
+        first += KP * q * _units_per_item(L)
         x_off += a.numel()
     spans = sorted((t.off, t.off + t.KP * t.L2 * 128) for t in tiles)
     for (_, end), (start, _) in zip(spans, spans[1:]):
@@ -502,8 +519,22 @@ def build_panel_table(col_tiles, offsets, packs, kinds) -> PanelTable:
     table_rows = torch.from_numpy(rows.view(np.uint8).copy()).to(dev) if dev.type == "cuda" else None
     return PanelTable(
         tiles=tuple(tiles), rows=table_rows, device=dev, tile_dtype=tile_dtype, n_items=first, n_buf=spans[-1][1],
-        x_slots=x_off,
+        x_slots=x_off, wide=any(t.L > PANEL_RING_L_CAP for t in tiles),
     )
+
+
+def panel_unit_where(table: PanelTable, unit: int) -> Tuple[int, int, int, int, int]:
+    """Where work unit ``unit`` of a launch lies: ``(tile index, buffer row,
+    segment, first column, columns)``.  The same map as the kernel's
+    ``TileWalk`` and ``Where`` (csrc/panel_matching.cu)."""
+    if not 0 <= unit < table.n_items:
+        raise ValueError(f"unit {unit} is not one of the launch's {table.n_items}")
+    i = max(k for k, t in enumerate(table.tiles) if t.first <= unit)
+    t = table.tiles[i]
+    per = _units_per_item(t.L)
+    item, part = divmod(unit - t.first, per)
+    row, seg = divmod(item, t.q)
+    return (i, row, seg, part * _PANEL_WIDE_COLS, _PANEL_WIDE_COLS) if per > 1 else (i, row, seg, 0, 128)
 
 
 def fused_panel_project_tiles_reference(
@@ -526,7 +557,7 @@ def fused_panel_project_tiles_reference(
 def _panel_lib():
     lib = _build.load("panel_matching")
     vp, ci, cf, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.dualip_panel_project_tiles.argtypes = [vp, ci, ci, vp, ci, ll, vp, vp, vp, ci, vp, vp]
+    lib.dualip_panel_project_tiles.argtypes = [vp, ci, ci, vp, ci, ll, ci, vp, vp, vp, ci, vp, vp]
     lib.dualip_panel_project.argtypes = (
         [vp, ll, ci, ci, vp, vp, vp, ll] + [ci] * 6 + [cf, cf, ci, ci, cf] + [vp, vp, vp, ci, vp, vp])
     for fn in (lib.dualip_panel_project_tiles, lib.dualip_panel_project):
@@ -587,13 +618,13 @@ def fused_panel_project_tiles(
     with torch.cuda.device(dev):
         rc = _panel_lib().dualip_panel_project_tiles(
             buf.data_ptr(), buf.element_size(), table.tiles[0].a.element_size(), table.rows.data_ptr(),
-            len(table.tiles), table.n_items,
+            len(table.tiles), table.n_items, int(table.wide),
             nig.data_ptr(), x.data_ptr() if want_x else None, _panel_partials(dev).data_ptr(),
             _PANEL_MAX_GRID, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_panel_project_tiles: CUDA error {rc} at launch ({len(table.tiles)} tiles, "
-                           f"{table.n_items} items)")
+                           f"{table.n_items} work units)")
     if not want_x:
         fused_panel_project_tiles.launches += 1
         return buf, out[0], out[1]

@@ -94,6 +94,18 @@ def test_plain_kernel_matches_pallas_other_widths(L):
 
 
 @pytest.mark.parametrize("want_x", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("kind,params", [CASES[0], CASES[2], CASES[10], CASES[11]],
+                         ids=["simplex", "simplex_eq", "box_cut", "box_cut_eq"])
+@pytest.mark.parametrize("L", [65, 130])
+def test_plain_kernel_matches_pallas_wide_columns(L, kind, params, want_x):
+    """Above REG_L_CAP = 64, where the card's kernel projects one warp a
+    column: the plain version against the Pallas kernel at the tolerances
+    above (the plain version adds the lane sums as at any width; the
+    kernel's warp order is held to the plain version on the card)."""
+    _compare(kind, params, L=L, K=256, want_x=want_x, scale=10.0)
+
+
+@pytest.mark.parametrize("want_x", [False, True], ids=["K1", "K2"])
 @pytest.mark.parametrize("kind,params", CASES)
 def test_gather_form_matches_pallas_and_the_lam_g_form(kind, params, want_x):
     """The gather form on (scaled, rows) against the Pallas kernel on
@@ -146,5 +158,6 @@ def test_wrapper_rejects_bad_shapes():
 
 def test_partial_block_count_follows_kernel_variant():
     assert num_partial_blocks("simplex", 64, 1000) == 4  # 256 columns a slab
-    assert num_partial_blocks("simplex", 65, 1000) == 1000
+    assert num_partial_blocks("simplex", 65, 1000) == 125  # 8 columns a block, one a warp
+    assert num_partial_blocks("box_cut", 5000, 1001) == 126
     assert num_partial_blocks("box", 500, 1000) == 4

@@ -8,7 +8,13 @@ another order).  Outside the tile's region, and in its ghost
 lanes, the buffer is compared exactly.
 
 The all-tiles form is held to one call per tile: a*x and x bit for bit, the
-sums within 1e-6 relative (the same terms, added tile by tile)."""
+sums within 1e-6 relative (the same terms, added tile by tile).
+
+Above every ring cap of the kernel (L = 100, L2 = 128) the plain version is
+held to the Pallas kernel at the same tolerances: the plain version adds the
+bisection sums of L lanes as the narrow tiles' do, and the card's kernel,
+which adds them across a warp, is held to the plain version on the card
+(chip_smoke.py)."""
 
 import numpy as np
 import pytest
@@ -24,6 +30,8 @@ from dualip_tpu_torch.ops.fused_matching import (
     fused_panel_project,
     fused_panel_project_reference,
     fused_panel_project_tiles,
+    PANEL_RING_L_CAP,
+    panel_unit_where,
 )
 from dualip_tpu_torch.sparse.rowmajor import PanelTile, _pack_geometry
 
@@ -81,6 +89,47 @@ def test_panel_plain_version_matches_pallas_interpret(kind, params, L, compact, 
     g_reg, r_reg = gb[off:off + region].reshape(KP, L2, 128), rb[off:off + region].reshape(KP, L2, 128)
     assert not g_reg[:, q * L:, :].any() and not r_reg[:, q * L:, :].any()
     tol = 1e-5 * max(1.0, np.abs(r_reg).max())
+    np.testing.assert_allclose(g_reg, r_reg, atol=tol)
+    assert np.isclose(float(got[1]), float(ref[1]), rtol=1e-4, atol=1e-5)
+    assert np.isclose(float(got[2]), float(ref[2]), rtol=1e-4, atol=1e-5)
+    if want_x:
+        x_ref = np.asarray(ref[3])
+        assert tuple(got[3].shape) == x_ref.shape == (KP, q * L, 128)
+        np.testing.assert_allclose(got[3].numpy(), x_ref, atol=1e-5 * max(1.0, np.abs(x_ref).max()))
+
+
+# the projecting kinds, equality and inequality, on a tile wider than every ring cap (47, 57)
+WIDE_CASES = [CASES[0], CASES[2], CASES[7], CASES[8]]
+
+
+@pytest.mark.parametrize("want_x", [False, True], ids=["K3", "K4"])
+@pytest.mark.parametrize("carry", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kind,params", WIDE_CASES, ids=[k for k, _ in WIDE_CASES])
+def test_panel_plain_version_matches_pallas_interpret_above_the_ring(kind, params, carry, want_x):
+    """L = 100 (L2 = 128), KP = 2: the width the kernel projects one warp a
+    column.  Tolerances as above on an fp32 carry; a bf16 carry rounds a*x
+    once at the store in both, so one bf16 ulp of the largest |a*x| where the
+    fp32 values straddle a rounding boundary."""
+    a, c, length, buf, off, region, pack, (KP, L, L2, q) = _tile(100, False, seed=101, KP=2)
+    assert (L2, q) == (128, 1) and L > PANEL_RING_L_CAP
+    jbuf = jnp.asarray(buf) if carry == torch.float32 else jnp.asarray(buf).astype(jnp.bfloat16)
+    ref = jax_panel(
+        jbuf, jnp.asarray(a), jnp.asarray(c), jnp.asarray(length), off, kind, params,
+        interpret=True, want_x=want_x, neg_inv_gamma=jnp.float32(-2.0), pack=pack,
+    )
+    got = fused_panel_project(
+        torch.from_numpy(buf.copy()).to(carry), torch.from_numpy(a), torch.from_numpy(c), torch.from_numpy(length),
+        off, kind, params, want_x=want_x, neg_inv_gamma=-2.0, pack=pack,
+    )
+    assert got[0].dtype == carry
+    gb, rb = got[0].float().numpy(), np.asarray(ref[0].astype(jnp.float32))
+    np.testing.assert_array_equal(gb[:off], rb[:off])
+    np.testing.assert_array_equal(gb[off + region:], rb[off + region:])
+    g_reg, r_reg = gb[off:off + region].reshape(KP, L2, 128), rb[off:off + region].reshape(KP, L2, 128)
+    assert not g_reg[:, q * L:, :].any() and not r_reg[:, q * L:, :].any()
+    tol = 1e-5 * max(1.0, np.abs(r_reg).max())
+    if carry == torch.bfloat16:
+        tol += 2.0 ** -7 * np.abs(r_reg).max()
     np.testing.assert_allclose(g_reg, r_reg, atol=tol)
     assert np.isclose(float(got[1]), float(ref[1]), rtol=1e-4, atol=1e-5)
     assert np.isclose(float(got[2]), float(ref[2]), rtol=1e-4, atol=1e-5)
@@ -197,15 +246,65 @@ def test_all_tiles_plain_version_is_the_per_tile_sequence(shift, carry, want_x):
 
 
 def test_panel_table_geometry():
+    """Work units: an item (buffer row and segment) of a tile the ring holds,
+    16 of 8 columns for each item of L = 100 (above the ring's cap)."""
     table, buf = _mixed_table(0, torch.float32)
     first = 0
     for t, (L, compact) in zip(table.tiles, TABLE_SHAPES):
         assert (t.L, t.q > 1) == (L, compact) and t.q * t.L <= t.L2 and t.KP == 2
         assert t.first == first and t.off % (128 * t.L2) == 0
-        first += t.KP * t.q
-    assert table.n_items == first and table.n_buf == buf.shape[0] - 512
+        first += t.KP * t.q * (16 if L == 100 else 1)
+    assert table.n_items == first and table.n_buf == buf.shape[0] - 512 and table.wide
     assert table.x_slots == sum(t.a.numel() for t in table.tiles)
     assert [t.x_off for t in table.tiles] == np.cumsum([0] + [t.a.numel() for t in table.tiles[:-1]]).tolist()
+
+
+# (L, compact): narrow, just above the ring's cap (47), narrow packed, wide
+UNIT_SHAPES = [(5, False), (50, False), (29, True), (100, False), (80, False)]
+
+
+@pytest.mark.parametrize("tiles", [torch.float32, torch.bfloat16], ids=["fp32-tiles", "bf16-tiles"])
+def test_panel_table_numbers_the_wide_units(tiles):
+    """Each tile's first unit and the launch's units (the ring's cap is one
+    for every carry and tile type), the map from a unit back to its tile,
+    buffer row, segment and columns: every column of every item exactly once,
+    a tile's units in order; and the table's ``wide`` flag, set with a tile
+    above the cap and clear without one."""
+    rng = np.random.default_rng(5)
+    pts, packs, kinds, geo = [], [], [], []
+    for i, (L, compact) in enumerate(UNIT_SHAPES):
+        a, c, length, _, _, _, pack, (KP, _, L2, q) = _tile(L, compact, seed=20 + i, KP=3)
+        pts.append(PanelTile(torch.from_numpy(a).to(tiles), torch.from_numpy(c).to(tiles), torch.from_numpy(length)))
+        packs.append(pack)
+        kinds.append(CASES[i % len(CASES)])
+        geo.append((KP, L2, q))
+    offsets, cum = [0] * len(pts), 0
+    for i in sorted(range(len(pts)), key=lambda i: -geo[i][1]):  # descending L2, as build_row_layout places them
+        offsets[i] = cum
+        cum += geo[i][0] * geo[i][1] * 128
+    table = build_panel_table(pts, offsets, packs, kinds)
+    items = [kp * q for kp, _, q in geo]  # 3, 3, 3 * q, 3, 3
+    per = [1, 16, 1, 16, 16]  # units per item: 16 of 8 columns above the ring's cap
+    want = np.cumsum([0] + [n * u for n, u in zip(items, per)]).tolist()
+    assert [t.first for t in table.tiles] == want[:-1] and table.n_items == want[-1] and table.wide
+    seen = {}
+    for unit in range(table.n_items):
+        i, row, seg, col0, ncols = panel_unit_where(table, unit)
+        assert (ncols, col0 % ncols) == ((8, 0) if per[i] == 16 else (128, 0))
+        for col in range(col0, col0 + ncols):
+            key = (i, row, seg, col)
+            assert key not in seen
+            seen[key] = unit
+    assert len(seen) == sum(kp * q * 128 for kp, _, q in geo)
+    for i, (kp, _, q) in enumerate(geo):  # row-major: row, then segment, then columns
+        order = [seen[(i, r, s, col)] for r in range(kp) for s in range(q) for col in range(128)]
+        assert order == sorted(order) and order[0] == table.tiles[i].first
+    with pytest.raises(ValueError, match="is not one of"):
+        panel_unit_where(table, table.n_items)
+    narrow = [i for i, (L, _) in enumerate(UNIT_SHAPES) if L <= PANEL_RING_L_CAP]
+    only_narrow = build_panel_table([pts[i] for i in narrow], [offsets[i] for i in narrow],
+                                    [packs[i] for i in narrow], [kinds[i] for i in narrow])
+    assert not only_narrow.wide and only_narrow.n_items == sum(items[i] for i in narrow)
 
 
 def test_all_tiles_wrapper_checks_its_arguments():
