@@ -1,0 +1,8 @@
+"""idle_pct: the share of the traced window, after the spin-kernel lead, in
+which no operation ran on the card."""
+
+
+def read(ctx):
+    if ctx.trace is None or ctx.trace.window_s <= 0 or not ctx.trace.records:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
