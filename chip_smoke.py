@@ -182,6 +182,8 @@ from unittest import mock
 import numpy as np
 import torch
 
+from dualip_tpu_torch.utils import profiling
+
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the tensor cores.
@@ -326,22 +328,20 @@ class Timed:
 
 
 def _counted():
-    """The kernels' wrappers that count their launches, by the short name of
-    each count.  A wrapper counts its calls on a CUDA tensor: one launch each
-    when the host runs it, one recorded launch when a CUDA graph captures it
-    (the graph's replays then launch the kernel without calling the wrapper;
+    """The store's counters of the kernels' wrappers
+    (``dualip.ops.<wrapper>.enqueued``), by the short name of each count.  A
+    wrapper counts its calls on a CUDA tensor: one launch each when the host
+    runs it, one recorded launch when a CUDA graph captures it (the graph's
+    replays then launch the kernel without calling the wrapper;
     ``device_launches`` counts those on the card)."""
-    import dualip_tpu_torch.ops.butterfly as bf
-    import dualip_tpu_torch.ops.fused_matching as fm
-    from dualip_tpu_torch.ops.segment_sum import segment_sum_rows
-
-    return {"K1g": (fm.fused_tile_gather_eval_T, "launches"), "K2g": (fm.fused_tile_gather_eval_T, "launches_x"),
-            "K1": (fm.fused_tile_eval_T, "launches"), "K2": (fm.fused_tile_eval_T, "launches_x"),
-            "K3": (fm.fused_panel_project_tiles, "launches"), "K4": (fm.fused_panel_project_tiles, "launches_x"),
-            "K3t": (fm.fused_panel_project, "launches"), "K4t": (fm.fused_panel_project, "launches_x"),
-            "K5": (bf.benes_fine, "launches"), "K6": (bf.benes_coarse, "launches"),
-            "K7": (bf.benes_coarse2, "launches"), "K5w": (bf.benes_fine_window, "launches"),
-            "K7w": (bf.benes_coarse2_window, "launches"), "segsum": (segment_sum_rows, "launches")}
+    wrappers = {"K1g": "fused_tile_gather_eval_T", "K2g": "fused_tile_gather_eval_T.x",
+                "K1": "fused_tile_eval_T", "K2": "fused_tile_eval_T.x",
+                "K3": "fused_panel_project_tiles", "K4": "fused_panel_project_tiles.x",
+                "K3t": "fused_panel_project", "K4t": "fused_panel_project.x",
+                "K5": "benes_fine", "K6": "benes_coarse", "K7": "benes_coarse2", "K5w": "benes_fine_window",
+                "K7w": "benes_coarse2_window", "segsum": "segment_sum_rows"}
+    return {k: f"dualip.ops.{w[:-2]}.enqueued_x" if w.endswith(".x") else f"dualip.ops.{w}.enqueued"
+            for k, w in wrappers.items()}
 
 
 def port_kernel(name: str):
@@ -431,13 +431,24 @@ def nccl_records(by_name: dict) -> int:
     return sum(c for nm, c in by_name.items() if "nccl" in nm.lower())
 
 
+SINCE = [0]  # the store's last span id when the counts were last reset
+
+
 def reset_counts() -> None:
-    for fn, attr in _counted().values():
-        setattr(fn, attr, 0)
+    for name in _counted().values():
+        profiling.STORE.counters.pop(name, None)
+    SINCE[0] = profiling.STORE.ids
 
 
 def counts() -> dict:
-    return {k: getattr(fn, attr) for k, (fn, attr) in _counted().items()}
+    return {k: profiling.counter(name) for k, name in _counted().items()}
+
+
+def span_s(name: str, since=None) -> float:
+    """Seconds of the store's records of ``name`` opened after the span id
+    ``since`` (default: the last ``reset_counts``); 0.0 for none."""
+    since = SINCE[0] if since is None else since
+    return sum(e.seconds for e in profiling.STORE.events if e.name == name and e.id > since)
 
 
 def check(cond, msg: str) -> None:
@@ -731,10 +742,10 @@ def phase_benes(dev) -> None:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev).to(dtype)
             want = bf._pad_to(x, N)[torch.from_numpy(np.concatenate([perm, np.arange(n, N)])).to(dev)]
-            before = (bf.benes_fine.launches, bf.benes_coarse.launches, bf.benes_coarse2.launches)
+            kernels = [f"dualip.ops.{k}.enqueued" for k in ("benes_fine", "benes_coarse", "benes_coarse2")]
+            before = [profiling.counter(k) for k in kernels]
             y = bf.apply_butterfly_cuda(packed, x.clone(), truncate=False)
-            used = tuple(b - a for a, b in zip(before, (bf.benes_fine.launches, bf.benes_coarse.launches,
-                                                        bf.benes_coarse2.launches)))
+            used = tuple(profiling.counter(k) - b for k, b in zip(kernels, before))
             v = plain_blocked(bf, packed, bf._pad_to(x, N))
             torch.cuda.synchronize()
             check(torch.equal(y, v), f"benes {what} {dtype}: kernels differ from the plain stages")
@@ -745,8 +756,9 @@ def phase_benes(dev) -> None:
             check(torch.equal(back, plain_back), f"benes {what} {dtype}: reverse differs from the plain stages")
             check(torch.equal(back[:n_in], bf._pad_to(x, N)[:n_in]), f"benes {what} {dtype}: reverse does not undo forward")
         say("benes", slots=N, block_log2=bl, regime=repr(what), pre_groups=kinds,
-            launches_fine_coarse_coarse2=used, router=bf.last_route.get("router"), route_s=f"{route_s:.2f}",
-            index_build_s=f"{packed.index_build_s:.3f}", index_bytes=bf.index_bytes(packed),
+            launches_fine_coarse_coarse2=used, router=profiling.last("dualip.build.route").attrs["router"],
+            route_s=f"{route_s:.2f}", index_build_s=f"{profiling.last('dualip.build.index').seconds:.3f}",
+            index_bytes=bf.index_bytes(packed),
             equal="bit for bit, forward and reverse, fp32 and bf16; index as the plain stages build it")
         if "two launches" in what:  # 8192 positions do not fit one gather strip: one gather per axis
             check(used[2] == 4, f"benes {what}: expected 4 K7 launches, got {used[2]}")
@@ -1190,8 +1202,7 @@ def phase_lp(dt, inp, card, captured, counts, reset_counts, profile_window, repl
             check(n_launch["K5"] == graph_calls(2) and n_launch["segsum"] == 0,
                   f"lp-2.5M butterfly: wrapper calls {n_launch}")
             say("lp", instance="lp-2.5M", layout=layout, carry_slots=_plan_size(obj.ops.rl.plan),
-                layout_build_s=f"{obj.ops.rl.build_seconds['total']:.2f}",
-                routing_s=f"{obj.ops.rl.build_seconds['route']:.2f}")
+                layout_build_s=f"{span_s('dualip.build.rows'):.2f}", routing_s=f"{span_s('dualip.build.route'):.2f}")
         profile_window(f"lp-2.5M {layout}", obj, res.dual_val, kw=LP_SOLVER)
         graph_check(f"lp-2.5M {layout}", obj, torch.zeros(m, device=obj.device), kw=LP_SOLVER)
         results[layout] = (obj, res.dual_val)
@@ -1307,11 +1318,14 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk, gra
     # first iteration, before any step, is where two faithful solves agree
     jax_first = {f: pv.parse_log(pv.LOGS / f"{pv._tag(f)}_log.txt")["trace"][0] for f in (False, True)}
 
+    built_since = [0]  # the store's last span id before the objective's build
+
     def run(what, fairness, layout):
         """run_ours on a timed copy of the objective: its log held to the
         reference's, its wrapper calls counted from just before to just
         after; ms/iteration from the graph's replays (``replay_ms``)."""
         t0 = time.perf_counter()
+        built_since[0] = profiling.STORE.ids
         obj = pv.make_objective(lps[fairness], fairness, layout, "cuda", plan_cache_dir=tmp / "plan_cache")
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
@@ -1386,7 +1400,7 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk, gra
     N = _plan_size(plan)
     regime = "K6" if n["K6"] else "K7"
     say("examples", run="butterfly", carry_slots=N, blocks=N >> getattr(plan, "block_log2", 15), coarse_regime=regime,
-        panel_tiles=[(t.L, t.L2, t.q) for t in obj.panel_table.tiles], routing_s=f"{obj.row_layout.build_seconds['route']:.2f}")
+        panel_tiles=[(t.L, t.L2, t.q) for t in obj.panel_table.tiles], routing_s=f"{span_s('dualip.build.route', built_since[0]):.2f}")
     want = {"K3": graph_calls(1, 1), "K4": 0, "K5": graph_calls(2, 1), regime: graph_calls(4, 1), "K1g": 0,
             "segsum": 0}
     check(all(n[k] == v for k, v in want.items()), f"examples butterfly: wrapper calls {n}, expected {want}")
@@ -1495,12 +1509,14 @@ def phase_io(dt, args, card, numpy_gen_s, numpy_inp, captured, counts, solve, re
             out[what] = (res.dual_objective_log, n_launch, obj.tile_cache_key)
             say("io", objective=what, objective_build_s=f"{captured['build_s']:.2f}",
                 time_to_first_iteration_s=f"{captured['build_s'] + first_ms / 1e3:.3f}",
-                layout_build_s=f"{rl.build_seconds['total']:.2f}", routing_s=f"{rl.build_seconds['route']:.2f}",
-                index_build_s=f"{rl.plan.index_build_s:.3f}", iterations=n_chk,
+                layout_build_s=f"{span_s('dualip.build.rows'):.2f}", routing_s=f"{span_s('dualip.build.route'):.2f}",
+                index_build_s=f"{span_s('dualip.build.index'):.3f}", iterations=n_chk,
                 ms_per_iteration=f"{replay_ms(obj, torch.zeros(obj.bcsc.m, device=obj.device)):.4f}",
                 launches=n_launch, card=card,
                 # a miss's save: the leaves copied back from the card, then written
-                **{k: f"{v:.3f}" for k, v in rl.build_seconds.items() if k.startswith("tile_cache_")})
+                tile_cache_copy_s=f"{span_s('dualip.tile_cache.copy'):.3f}",
+                tile_cache_write_s=f"{span_s('dualip.tile_cache.write'):.3f}",
+                tile_cache_loaded=profiling.counter("dualip.tile_cache.loaded"))
             del res, obj, rl, captured["obj"]
             torch.cuda.empty_cache()
             if what == "cold":
@@ -1525,10 +1541,12 @@ def phase_obs(dt, inp, card, captured, reset_counts, counts, n_chk, solver_kw):
     MLflow enabled completes (mlflow is not installed there: a no-op) and
     repeats the solve without it bit for bit; ``trace`` around three csc
     iterations writes a trace naming K1's kernel, the segment-sum's two and
-    the ``annotate`` span; ``collect_stats`` fills ``last_run_stats``."""
+    the program's spans (a ``span`` of its own, ``dualip.agd.maximize``) and
+    the store's records beside it; ``collect_stats`` fills
+    ``last_run_stats``."""
     from dualip_tpu_torch.optimizers.agd import AcceleratedGradientDescent
     from dualip_tpu_torch.utils.mlflow_utils import MLflowConfig, is_mlflow_available
-    from dualip_tpu_torch.utils.profiling import annotate, trace
+    from dualip_tpu_torch.utils.profiling import span as store_span, trace
 
     def run(mlflow_config=None, **kw):
         reset_counts()
@@ -1556,20 +1574,24 @@ def phase_obs(dt, inp, card, captured, reset_counts, counts, n_chk, solver_kw):
     with tempfile.TemporaryDirectory(prefix="dualip-trace-") as tmp:
         t0 = time.perf_counter()
         with trace(tmp):
-            with annotate(span):
+            with store_span(span):
                 agd.maximize(obj, dual)
         trace_s = time.perf_counter() - t0
-        files = list(Path(tmp).glob("*.json"))
-        check(len(files) == 1, f"obs: trace wrote {len(files)} files")
+        files, kept = list(Path(tmp).glob("trace_*.json")), list(Path(tmp).glob("spans_*.json"))
+        check(len(files) == len(kept) == 1, f"obs: trace wrote {len(files)} traces and {len(kept)} span files")
         events = json.loads(files[0].read_text())["traceEvents"]
         size = files[0].stat().st_size
+        kept = json.loads(kept[0].read_text())
     names = {e.get("name", "") for e in events}
     kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
     k1 = sorted(n for n in kernels if re.search(r"(column|wide|clamp)_kernel", n))
     seg = sorted(n for n in kernels if re.search(r"window_sums|add_rows", n))
     say("obs", trace_events=len(events), trace_bytes=size, kernel_names=len(kernels), K1=[n[:60] for n in k1],
-        segment_sum=[n[:40] for n in seg], annotate_span=span in names, traced_s=f"{trace_s:.2f}")
-    check(k1 and len(seg) == 2 and span in names, "obs: the trace lacks K1's or the segment-sum's kernels or the span")
+        segment_sum=[n[:40] for n in seg], annotate_span=span in names, traced_s=f"{trace_s:.2f}",
+        store_marks_ms={k: round(v["total_ns"] / v["count"] * 1e-6, 4) for k, v in kept["aggregates"].items()
+                        if k.startswith("dualip.iter.")})
+    check(k1 and len(seg) == 2 and {span, "dualip.agd.maximize", "dualip.agd.replay"} <= names,
+          "obs: the trace lacks K1's or the segment-sum's kernels or the spans")
 
     agd = AcceleratedGradientDescent(max_iter=n_chk, **solver_kw)
     agd.collect_stats = True
@@ -1796,7 +1818,7 @@ def _dist_rank(mesh, cache_dir, shape, seed, iters, bfly_iters):
     for i in (1, 2):
         check(abs(float(got[i]) - float(ref[i])) <= 1e-3 + 1e-4 * abs(float(ref[i])), f"rank {mesh.rank} K3 sums")
     out["butterfly"].update(carry_vs_plain="bit-identical", K3_max_abs_err=e, carry_slots=p.N,
-                            blocks=p.N >> p.block_log2, routing_s=rl.build_seconds["route"])
+                            blocks=p.N >> p.block_log2, routing_s=span_s("dualip.build.route"))
     return out
 
 
@@ -2804,9 +2826,9 @@ def main(argv=None) -> int:
                 fine_stages=len(plan.fine_dists), coarse_groups=groups, row_tiles=len(rl.row_tiles),
                 row_slots=sum(R * Lr for R, Lr in rl.row_shapes), col_offsets=rl.col_offsets,
                 mask_bytes=plan.fine_masks.numel() + sum(m.numel() for m in plan.pre_masks + plan.post_masks),
-                index_bytes=bf.index_bytes(plan), index_build_s=f"{plan.index_build_s:.3f}")
-            say(what, objective_build_s=f"{captured['build_s']:.2f}", layout_build_s=f"{rl.build_seconds['total']:.2f}",
-                routing_s=f"{rl.build_seconds['route']:.2f}", router=bf.last_route.get("router"),
+                index_bytes=bf.index_bytes(plan), index_build_s=f"{span_s('dualip.build.index'):.3f}")
+            say(what, objective_build_s=f"{captured['build_s']:.2f}", layout_build_s=f"{span_s('dualip.build.rows'):.2f}",
+                routing_s=f"{span_s('dualip.build.route'):.2f}", router=profiling.last("dualip.build.route").attrs["router"],
                 run_solver_s=f"{solve_s:.2f}", peak_device_bytes=peak)
             ms_it = replay_ms(obj, torch.zeros(obj.bcsc.m, device=dev), iters=args.iters)
             say(what, iterations=len(res.dual_objective_log), ms_per_iteration=f"{ms_it:.4f}",
@@ -2991,7 +3013,7 @@ def main(argv=None) -> int:
             ms_per_iteration=f"{replay_ms(obj_c, torch.zeros(obj_c.bcsc.m, device=dev)):.4f}",
             carry_slots=rl_c.plan.N, tiles=len(rl_c.col_tiles_T), row_tiles=len(rl_c.row_tiles),
             packs_L_L2_q=rl_c.col_pack, objective_build_s=f"{captured['build_s']:.2f}",
-            routing_s=f"{rl_c.build_seconds['route']:.2f}", max_rel_dev_vs_plain_panels=float(d), launches=n_launch)
+            routing_s=f"{span_s('dualip.build.route'):.2f}", max_rel_dev_vs_plain_panels=float(d), launches=n_launch)
         check(d <= 1e-4, f"compact packing drifts {d} relative from the plain panels")
         check(n_launch["K3"] == n_chk and n_launch["K3t"] == 0, f"compact: K3 launches {n_launch}, expected {n_chk}")
         graph_check("butterfly compact", obj_c, torch.zeros(obj_c.bcsc.m, device=dev))

@@ -31,7 +31,6 @@ from __future__ import annotations
 import hashlib
 import json
 import shutil
-import time
 import warnings
 from pathlib import Path
 from typing import Optional
@@ -40,6 +39,7 @@ import numpy as np
 import torch
 
 from dualip_tpu_torch.sparse.bcsc import BlockCSC, TileSpec, is_bfloat16
+from dualip_tpu_torch.utils import profiling
 
 CACHE_VERSION = 1
 
@@ -179,54 +179,56 @@ def _publish(tmp: Path, d: Path, meta: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def save_butterfly_state(cache_dir, key: str, bcsc, rl, plan_cache_file, n_shards: int = 1) -> dict:
+@profiling.timed("dualip.tile_cache.save")
+def save_butterfly_state(cache_dir, key: str, bcsc, rl, plan_cache_file, n_shards: int = 1) -> None:
     """Write the device-ready butterfly state of ``bcsc`` (its specs and sizes)
     and ``rl`` under ``cache_dir/butterfly_<key>``, published by one atomic
     rename.  The leaves are copied back from ``rl``'s device first, as the JAX
-    package does.  Returns the seconds of the copy and of the write,
-    ``{"copy_s": ..., "write_s": ...}``.  One device only: a sharded solve's
-    ranks write the stacked entry together (``save_sharded_butterfly_state``)."""
+    package does.  The save is the span ``dualip.tile_cache.save`` of
+    ``utils/profiling.py``, the copy and the write its spans
+    ``dualip.tile_cache.copy`` and ``dualip.tile_cache.write``.  One device
+    only: a sharded solve's ranks write the stacked entry together
+    (``save_sharded_butterfly_state``)."""
     if n_shards > 1:
         raise ValueError("a stacked entry (n_shards > 1) is written by all ranks together: "
                          "save_sharded_butterfly_state(cache_dir, key, bcsc, rl, mesh)")
-    t0 = time.perf_counter()
-    leaves = _leaves(bcsc, rl)
-    t1 = time.perf_counter()
-    d = Path(cache_dir) / f"butterfly_{key}"
-    tmp = _fresh_tmp(d)
-    for name, (arr, as_bf16) in leaves.items():
-        _save(tmp / f"{name}.npy", arr, as_bf16)
-    _publish(tmp, d, _meta(bcsc, rl, 1, plan_cache_file))
-    return {"copy_s": t1 - t0, "write_s": time.perf_counter() - t1}
+    with profiling.span("dualip.tile_cache.copy", always=True):
+        leaves = _leaves(bcsc, rl)
+    with profiling.span("dualip.tile_cache.write", always=True):
+        d = Path(cache_dir) / f"butterfly_{key}"
+        tmp = _fresh_tmp(d)
+        for name, (arr, as_bf16) in leaves.items():
+            _save(tmp / f"{name}.npy", arr, as_bf16)
+        _publish(tmp, d, _meta(bcsc, rl, 1, plan_cache_file))
 
 
-def save_sharded_butterfly_state(cache_dir, key: str, bcsc, rl, mesh) -> dict:
+@profiling.timed("dualip.tile_cache.save")
+def save_sharded_butterfly_state(cache_dir, key: str, bcsc, rl, mesh) -> None:
     """The stacked entry of a sharded solve, written by every rank of
     ``mesh`` together (a collective): rank 0 preallocates each stacked
     ``.npy``, each rank writes its layout ``rl`` into its slice ``[rank]``
     after a barrier, and rank 0 publishes ``meta.json`` (one plan file per
-    shard) by one atomic rename.  Returns this rank's seconds of the copy
-    back and of the write."""
+    shard) by one atomic rename.  This rank's copy back and write are the
+    spans ``dualip.tile_cache.copy`` and ``dualip.tile_cache.write``."""
     plan_files = mesh.all_gather_object(rl.plan_cache_path)
     if any(p is None for p in plan_files):
         raise ValueError(f"a stacked entry needs one plan-cache file per shard (got {plan_files!r})")
-    t0 = time.perf_counter()
-    leaves = _leaves(bcsc, rl)
-    t1 = time.perf_counter()
-    d = Path(cache_dir) / f"butterfly_{key}"
-    tmp = d.with_name(d.name + ".tmp")
-    if mesh.rank == 0:
-        tmp = _fresh_tmp(d)
-        for name, (arr, as_bf16) in leaves.items():
-            _create_stacked(tmp / f"{name}.npy", (mesh.world_size,) + arr.shape, arr.dtype, as_bf16)
-    mesh.barrier()
-    for name, (arr, _) in leaves.items():
-        _write_slice(tmp / f"{name}.npy", mesh.rank, arr)
-    mesh.barrier()
-    if mesh.rank == 0:
-        _publish(tmp, d, _meta(bcsc, rl, mesh.world_size, plan_files))
-    mesh.barrier()
-    return {"copy_s": t1 - t0, "write_s": time.perf_counter() - t1}
+    with profiling.span("dualip.tile_cache.copy", always=True):
+        leaves = _leaves(bcsc, rl)
+    with profiling.span("dualip.tile_cache.write", always=True):
+        d = Path(cache_dir) / f"butterfly_{key}"
+        tmp = d.with_name(d.name + ".tmp")
+        if mesh.rank == 0:
+            tmp = _fresh_tmp(d)
+            for name, (arr, as_bf16) in leaves.items():
+                _create_stacked(tmp / f"{name}.npy", (mesh.world_size,) + arr.shape, arr.dtype, as_bf16)
+        mesh.barrier()
+        for name, (arr, _) in leaves.items():
+            _write_slice(tmp / f"{name}.npy", mesh.rank, arr)
+        mesh.barrier()
+        if mesh.rank == 0:
+            _publish(tmp, d, _meta(bcsc, rl, mesh.world_size, plan_files))
+        mesh.barrier()
 
 
 def _load_leaf(path: Path, device: torch.device, index: Optional[int] = None) -> torch.Tensor:
@@ -246,6 +248,7 @@ def _load_leaf(path: Path, device: torch.device, index: Optional[int] = None) ->
     return t.view(torch.bfloat16) if bf16 else t
 
 
+@profiling.timed("dualip.tile_cache.load")
 def load_butterfly_state(cache_dir, key: str, device, shard: Optional[tuple] = None):
     """``(bcsc, row_layout)`` from the entry ``key``, or ``None`` on a miss (no
     entry, another version, or a plan file gone).  ``bcsc`` has no tiles,
@@ -254,11 +257,13 @@ def load_butterfly_state(cache_dir, key: str, device, shard: Optional[tuple] = N
     kernels, source index included; on the CPU it is the plain plan.
 
     ``shard=(index, count)``: the slice ``[index]`` of a stacked entry of
-    ``count`` shards and shard ``index``'s plan; only that slice is read."""
+    ``count`` shards and shard ``index``'s plan; only that slice is read.
+
+    The lookup is the span ``dualip.tile_cache.load``; a hit counts one in
+    ``dualip.tile_cache.loaded`` (``utils/profiling.py``)."""
     from dualip_tpu_torch.ops.butterfly import benes_plan_from_numpy, pack_plan_from_planes
     from dualip_tpu_torch.sparse.rowmajor import PanelTile, RowLayout, RowTile
 
-    t0 = time.perf_counter()
     device = torch.device(device)
     d = Path(cache_dir) / f"butterfly_{key}"
     meta_path = d / "meta.json"
@@ -315,8 +320,8 @@ def load_butterfly_state(cache_dir, key: str, device, shard: Optional[tuple] = N
         row_shapes=row_shapes,
         col_pack=tuple(tuple(p) for p in col_pack) if col_pack is not None else None,
         plan_cache_path=str(plan_file),
-        build_seconds={"route": 0.0, "total": time.perf_counter() - t0},
     )
     value_dtype = torch.bfloat16 if col_tiles_T and col_tiles_T[0].a.dtype == torch.bfloat16 else None
     bcsc = BlockCSC(tiles=[], specs=specs, m=meta["m"], n=meta["n"], nnz=meta["nnz"], value_dtype=value_dtype)
+    profiling.count("dualip.tile_cache.loaded")
     return bcsc, rl

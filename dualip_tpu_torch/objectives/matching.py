@@ -62,6 +62,7 @@ from dualip_tpu_torch.sparse.bcsc import (
 )
 from dualip_tpu_torch.sparse.csc import CSCMatrix
 from dualip_tpu_torch.types import ObjectiveResult, resolve_device
+from dualip_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -84,6 +85,7 @@ def calc_grad(dual_grad, dual_obj, dual_val, b_vec, reg_penalty):
     return dual_grad, dual_obj
 
 
+@profiling.timed("dualip.build.tiles")
 def transpose_tiles(bcsc: BlockCSC) -> BlockCSC:
     """Host tiles re-laid out to (L, K) for the fused kernel: neighbouring
     entity columns sit at neighbouring addresses."""
@@ -148,7 +150,9 @@ def matching_local_parts_pallas(
             xs.append(x_p[0])
         dual_obj = dual_obj + obj_p.to(dtype)
         reg_sum = reg_sum + reg_p.to(dtype)
+    profiling.mark("columns")
     grad = segment_sum_rows(torch.zeros(bcsc_T.m, dtype=dtype, device=dev), ax_all, plan)
+    profiling.mark("rows")
     reg = (_scalar(gamma, dtype, dev) / 2) * reg_sum
     return grad, dual_obj, reg, xs
 
@@ -181,7 +185,9 @@ def matching_local_parts(
         dual_obj = dual_obj + torch.sum(c * x)
         if want_primal:
             xs.append(x)
+    profiling.mark("columns")
     grad = segment_sum_rows(torch.zeros(bcsc.m, dtype=dtype, device=dev), torch.cat(ax_parts), bcsc.row_sum)
+    profiling.mark("rows")
     return grad, dual_obj, reg, xs
 
 
@@ -384,6 +390,7 @@ def matching_local_parts_rowmajor(
             panel_table = layout_panel_table(rl, bcsc.specs)
         # every tile in one launch of the panel kernel, in place on buf
         buf, obj_p, reg_p, *x_p = fused_panel_project_tiles(buf, panel_table, neg_inv_gamma, want_x=want_primal)
+        profiling.mark("columns")
         if want_primal:
             xs = list(x_p[0])
         dual_obj = obj_p.to(dtype)
@@ -415,6 +422,7 @@ def matching_local_parts_rowmajor(
             dual_obj = dual_obj + torch.sum(tile.c.to(dtype) * x)
             if want_primal:
                 xs.append(x)
+        profiling.mark("columns")
         ax_cat = torch.cat(ax_parts + [zero.reshape(1)])
         sums = [
             torch.sum(ax_cat.index_select(0, rt.axidx.reshape(-1)).view(rt.axidx.shape), dim=1)
@@ -422,6 +430,7 @@ def matching_local_parts_rowmajor(
         ]
     sums_cat = torch.cat(sums + [zero.reshape(1)])
     grad = sums_cat.index_select(0, rl.row_pos)
+    profiling.mark("rows")
     return grad, dual_obj, reg, xs
 
 
@@ -553,8 +562,17 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
     caller's own name for the problem) and the options.  A hit skips the tile
     fill and the row layout's build; a miss builds them and saves the entry
     when the layout has a plan-cache file (``plan_cache_dir``), on any device.
+
+    The construction is the span ``dualip.build`` of ``utils/profiling.py``,
+    recorded always; inside it ``dualip.build.tiles`` (the host tiles, and
+    their transpose for ``use_pallas``), ``dualip.build.rows`` (the
+    segment-sum's ``RowSumPlan``, or the row layout with its Benes routing
+    ``dualip.build.route`` and source index ``dualip.build.index``),
+    ``dualip.build.upload`` (the tiles' copies to the device) and the tile
+    cache's ``dualip.tile_cache.load`` / ``.save``.
     """
 
+    @profiling.timed("dualip.build")
     def __init__(
         self,
         matching_input_args: MatchingInputArgs,
@@ -673,12 +691,10 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
             rl = self.row_layout
             if use_cache and rl.plan_cache_path is not None:  # a miss: save beside the routing's plan file
                 if mesh is not None:  # every rank writes its slice of the stacked entry
-                    save_s = tile_cache.save_sharded_butterfly_state(tile_cache_dir, self.tile_cache_key, bcsc,
-                                                                     rl, mesh)
+                    tile_cache.save_sharded_butterfly_state(tile_cache_dir, self.tile_cache_key, bcsc, rl, mesh)
                 else:
-                    save_s = tile_cache.save_butterfly_state(tile_cache_dir, self.tile_cache_key, bcsc, rl,
-                                                             rl.plan_cache_path)
-                rl.build_seconds.update({"tile_cache_" + k: v for k, v in save_s.items()})
+                    tile_cache.save_butterfly_state(tile_cache_dir, self.tile_cache_key, bcsc, rl,
+                                                    rl.plan_cache_path)
         if layout == "butterfly" and not keep_col_tiles:
             # the butterfly hot path never reads the (K, L) column tiles (the
             # layout carries panel copies)

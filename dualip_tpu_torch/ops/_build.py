@@ -7,7 +7,9 @@ carries a hash of the source, of every header in ``csrc/`` (``*.cuh``) and of
 the flags, so an edited source or header rebuilds and an unchanged one loads
 the existing file.  Nothing is built at import: the
 first launch builds, or ``build()`` builds ahead of time (all sources in
-parallel, one ``nvcc`` each).
+parallel, one ``nvcc`` each).  A build is the span ``dualip.ops.build`` of
+``utils/profiling.py``; the counters ``dualip.ops.compiled`` and
+``dualip.ops.loaded`` count the sources compiled and the libraries loaded.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+from dualip_tpu_torch.utils import profiling
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dualip_tpu_torch"
 NVCC_FLAGS = (
@@ -28,7 +32,7 @@ NVCC_FLAGS = (
 )
 
 # every kernel source of the port, for ``build(KERNEL_SOURCES)``
-KERNEL_SOURCES = ("fused_matching", "panel_matching", "benes", "segment_sum")
+KERNEL_SOURCES = ("fused_matching", "panel_matching", "benes", "segment_sum", "marks")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -50,6 +54,7 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
+@profiling.timed("dualip.ops.build")
 def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile the named sources that are not built yet, all at once; returns
     each one's compiler output (``-Xptxas -v``: registers, spills)."""
@@ -71,6 +76,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
+        profiling.count("dualip.ops.compiled")
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return logs
@@ -83,4 +89,5 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = ctypes.CDLL(str(_lib_path(name)))
         _loaded[name] = lib
+        profiling.count("dualip.ops.loaded")
     return lib

@@ -12,7 +12,8 @@ Pieces:
 * ``benes_route(perm)`` / ``benes_route_planes(perm)``: host-side routing, the
   looping argument vectorised in numpy by pointer doubling (O(N log^2 N)); from
   N = 2^14 on the native router (``io/native_loader.py``) when it can be built.
-  ``last_route`` says which router ran last and how long it took.
+  Each routing is a span ``dualip.build.route`` of ``utils/profiling.py``
+  (attributes ``router``, ``"native"`` or ``"numpy"``, and ``N``).
 * ``apply_butterfly(plan, x)``: the plain version, stage by stage in torch ops.
 * ``pack_plan`` / ``pack_plan_from_planes``: the split of a plan at a block
   size into coarse groups and fine stages, masks bit-packed 8 stages per uint8
@@ -51,6 +52,7 @@ import numpy as np
 import torch
 
 from dualip_tpu_torch.ops import _build
+from dualip_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -62,9 +64,6 @@ class BenesPlan:
     n_in: int  # valid input length (inputs zero-padded to N)
     n_out: int  # valid output length
 
-
-# which router produced the last plan: {"router": "native"|"numpy", "N": ..., "seconds": ...}
-last_route: dict = {}
 
 
 def _components_min(h: np.ndarray, max_cycle_log2: Optional[int] = None) -> np.ndarray:
@@ -119,9 +118,8 @@ def _benes_dists(n: int) -> tuple:
     return tuple(1 << b for b in range(n - 1, 0, -1)) + (1,) + tuple(1 << b for b in range(1, n))
 
 
-def _note_route(router: str, N: int, t0: float) -> None:
-    last_route.clear()
-    last_route.update(router=router, N=N, seconds=time.perf_counter() - t0)
+def _note_route(router: str, N: int, t0_ns: int) -> None:
+    profiling.add_span("dualip.build.route", t0_ns, router=router, N=N)
 
 
 def benes_route_planes(perm: np.ndarray, pad_to: Optional[int] = None, n_in: Optional[int] = None):
@@ -133,7 +131,7 @@ def benes_route_planes(perm: np.ndarray, pad_to: Optional[int] = None, n_in: Opt
     if N >= (1 << 14):
         from dualip_tpu_torch.io.native_loader import benes_route_packed_native
 
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         planes = benes_route_packed_native(_complete_bijection(perm, n_out, N))
         if planes is not None:
             _note_route("native", N, t0)
@@ -153,7 +151,7 @@ def benes_route(perm: np.ndarray, pad_to: Optional[int] = None, n_in: Optional[i
     src = _complete_bijection(perm, n_out, N)
     n_stages = 2 * n - 1
     dists = _benes_dists(n)
-    t0 = time.perf_counter()
+    t0 = time.time_ns()
 
     if N >= (1 << 14):
         from dualip_tpu_torch.io.native_loader import benes_route_native
@@ -286,7 +284,6 @@ class BenesPlanPacked:
     fine_src_rev: Optional[torch.Tensor] = None
     pre_src: Optional[tuple] = None
     post_src: Optional[tuple] = None
-    index_build_s: float = 0.0  # seconds ``build_index`` took (synchronised on the card)
 
 
 def _packbits_stages(m: np.ndarray) -> np.ndarray:
@@ -566,7 +563,8 @@ def _gather_lanes(E: int, inner: int, elem: int) -> int:
 def benes_fine_window(v, fine_masks, fine_dists, reverse=False):
     """The fine stages of every block in register windows (the index builder
     of K5).  In place on CUDA (returns ``v``); plain version on CPU.  Counts
-    launches in ``benes_fine_window.launches``."""
+    what it enqueues in the counter ``dualip.ops.benes_fine_window.enqueued``
+    (``utils/profiling.py``)."""
     if v.device.type == "cpu":
         return benes_fine_reference(v, fine_masks, fine_dists, reverse)
     P, nb, R, C = fine_masks.shape
@@ -584,18 +582,16 @@ def benes_fine_window(v, fine_masks, fine_dists, reverse=False):
         )
     if rc != 0:
         raise RuntimeError(f"benes_fine_window: CUDA error {rc} at launch (N={N}, block=2^{bs_log2}, stages={n})")
-    benes_fine_window.launches += 1
+    profiling.count("dualip.ops.benes_fine_window.enqueued")
     return v
-
-
-benes_fine_window.launches = 0
 
 
 def benes_coarse(v: torch.Tensor, masks: torch.Tensor, steps: tuple, E: int, I_rows: int) -> torch.Tensor:
     """K6: all stages of one single-axis coarse group, exchanging along E of
     the (O, E, I_rows, 128) view; ``steps`` = ((bit, q), ...) in execution
     order.  In place on CUDA (returns ``v``); plain version on CPU.  Counts
-    launches in ``benes_coarse.launches``."""
+    launches in the counter ``dualip.ops.benes_coarse.enqueued``: a CUDA
+    graph's capture enqueues once, and a replay calls no wrapper."""
     if v.device.type == "cpu":
         return benes_coarse_reference(v, masks, steps, E, I_rows)
     if v.device.type != "cuda":
@@ -614,11 +610,8 @@ def benes_coarse(v: torch.Tensor, masks: torch.Tensor, steps: tuple, E: int, I_r
         )
     if rc != 0:
         raise RuntimeError(f"benes_coarse: CUDA error {rc} at launch (N={N}, E={E}, W={W}, stages={n})")
-    benes_coarse.launches += 1
+    profiling.count("dualip.ops.benes_coarse.enqueued")
     return v
-
-
-benes_coarse.launches = 0
 
 
 def benes_coarse2_window(v, masks, steps, E_hi, E_lo, R):
@@ -627,7 +620,7 @@ def benes_coarse2_window(v, masks, steps, E_hi, E_lo, R):
     of K7): one launch when the whole side fits shared memory at one 32 B
     sector of lanes, else one launch per run of stages on one axis.  In place
     on CUDA (returns ``v``); plain version on CPU.  Counts kernel launches in
-    ``benes_coarse2_window.launches``."""
+    the counter ``dualip.ops.benes_coarse2_window.enqueued``."""
     if v.device.type == "cpu":
         return benes_coarse2_reference(v, masks, steps, E_hi, E_lo, R)
     P = masks.shape[0]
@@ -661,11 +654,8 @@ def benes_coarse2_window(v, masks, steps, E_hi, E_lo, R):
             if rc != 0:
                 raise RuntimeError(f"benes_coarse2_window: CUDA error {rc} at launch "
                                    f"(N={N}, E=({E_hi}, {E_lo}), axis={axis}, W={Wa})")
-            benes_coarse2_window.launches += 1
+            profiling.count("dualip.ops.benes_coarse2_window.enqueued")
     return v
-
-
-benes_coarse2_window.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -709,6 +699,7 @@ def index_values(idx: torch.Tensor) -> torch.Tensor:
     return idx.to(torch.int64) & 0xFFFF
 
 
+@profiling.timed("dualip.build.index")
 def build_index(plan: BenesPlanPacked, plain: bool = False) -> BenesPlanPacked:
     """Fills the plan's source index in place and returns the plan.
 
@@ -717,8 +708,8 @@ def build_index(plan: BenesPlanPacked, plain: bool = False) -> BenesPlanPacked:
     both such runs (the stages in reverse order give the inverse), two
     gathers, never a scatter.  On a CUDA plan the window kernels run them
     (``benes_fine_window``, ``benes_coarse2_window``: 4-byte payloads of any
-    type); on a CPU plan, or with ``plain=True``, the plain stages."""
-    t0 = time.perf_counter()
+    type); on a CPU plan, or with ``plain=True``, the plain stages.  The
+    build, synchronised on the card, is the span ``dualip.build.index``."""
     P, nb, R, C = plan.fine_masks.shape
     bs = R * C
     if bs > 1 << 16:
@@ -757,7 +748,6 @@ def build_index(plan: BenesPlanPacked, plain: bool = False) -> BenesPlanPacked:
     plan.post_src = side(plan.post_groups, plan.post_masks)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    plan.index_build_s = time.perf_counter() - t0
     return plan
 
 
@@ -804,7 +794,8 @@ def benes_fine(v: torch.Tensor, fine_masks: torch.Tensor, fine_dists: tuple, rev
     tensor one gather kernel, in place, through ``src`` (the plan's
     ``fine_src_rev`` for ``reverse``, else ``fine_src_fwd``), and ``v`` is
     returned; on a CPU tensor the plain stages return a new tensor.  Counts
-    launches in ``benes_fine.launches``."""
+    launches in the counter ``dualip.ops.benes_fine.enqueued``: a CUDA
+    graph's capture enqueues once, and a replay calls no wrapper."""
     if v.device.type == "cpu":
         return benes_fine_reference(v, fine_masks, fine_dists, reverse)
     if v.device.type != "cuda":
@@ -823,11 +814,8 @@ def benes_fine(v: torch.Tensor, fine_masks: torch.Tensor, fine_dists: tuple, rev
         rc = _lib().dualip_benes_gather_fine(v.data_ptr(), src.data_ptr(), N, bs_log2, elem, _stream(v.device))
     if rc != 0:
         raise RuntimeError(f"benes_fine: CUDA error {rc} at launch (N={N}, block=2^{bs_log2})")
-    benes_fine.launches += 1
+    profiling.count("dualip.ops.benes_fine.enqueued")
     return v
-
-
-benes_fine.launches = 0
 
 
 def benes_coarse2(v: torch.Tensor, masks: torch.Tensor, steps: tuple, E_hi: int, E_lo: int, R: int,
@@ -838,7 +826,8 @@ def benes_coarse2(v: torch.Tensor, masks: torch.Tensor, steps: tuple, E_hi: int,
     kernel per entry of ``src`` = ((axis, index), ...), in execution order
     (``coarse2_launches``; each strip holds all positions of its axis and a
     few lanes), in place, returning ``v``; on a CPU tensor the plain stages.
-    Counts kernel launches in ``benes_coarse2.launches``."""
+    Counts kernel launches in the counter ``dualip.ops.benes_coarse2.enqueued``:
+    a CUDA graph's capture enqueues once, and a replay calls no wrapper."""
     if v.device.type == "cpu":
         return benes_coarse2_reference(v, masks, steps, E_hi, E_lo, R)
     if v.device.type != "cuda":
@@ -858,11 +847,8 @@ def benes_coarse2(v: torch.Tensor, masks: torch.Tensor, steps: tuple, E_hi: int,
                                                  _stream(v.device))
         if rc != 0:
             raise RuntimeError(f"benes_coarse2: CUDA error {rc} at launch (N={N}, E={E}, inner={inner}, W={W})")
-        benes_coarse2.launches += 1
+        profiling.count("dualip.ops.benes_coarse2.enqueued")
     return v
-
-
-benes_coarse2.launches = 0
 
 
 def _direction(src: Optional[tuple], reverse: bool) -> Optional[tuple]:

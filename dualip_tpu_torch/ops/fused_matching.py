@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from dualip_tpu_torch.ops import _build
+from dualip_tpu_torch.utils import profiling
 from dualip_tpu_torch.projections.base import project
 
 DEFAULT_BLOCK_K = 1024
@@ -259,8 +260,10 @@ def fused_tile_eval_T(
     tensor is read by the kernel on the card, with no host sync).  The TPU
     kernel's contract: ``lam_g_T`` is gathered by the caller.
 
-    Counts launches of the kernel in ``fused_tile_eval_T.launches`` (K1) and
-    ``fused_tile_eval_T.launches_x`` (K2, ``want_x``); CPU calls count nothing.
+    Counts launches of the kernel in the counters
+    ``dualip.ops.fused_tile_eval_T.enqueued`` (K1) and ``.enqueued_x`` (K2,
+    ``want_x``) of ``utils/profiling.py``: a CUDA graph's capture enqueues
+    once, and a replay calls no wrapper; CPU calls count nothing.
     """
     _check_tile(a_T, (("lam_g_T", lam_g_T), ("c_T", c_T)), length, block_k)
     if any(t.device != a_T.device for t in (lam_g_T, c_T, length)):
@@ -271,14 +274,10 @@ def fused_tile_eval_T(
         raise TypeError("the fused kernel takes a float32 lam_g_T")
     res = _launch(lam_g_T, None, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want_x, None)
     if want_x:
-        fused_tile_eval_T.launches_x += 1
+        profiling.count("dualip.ops.fused_tile_eval_T.enqueued_x")
     else:
-        fused_tile_eval_T.launches += 1
+        profiling.count("dualip.ops.fused_tile_eval_T.enqueued")
     return res
-
-
-fused_tile_eval_T.launches = 0
-fused_tile_eval_T.launches_x = 0
 
 
 def fused_tile_gather_eval_T_reference(
@@ -322,8 +321,9 @@ def fused_tile_gather_eval_T(
     builder's do; the kernel does not check).  ``out`` (L, K) float32, when
     given, receives ``a*x`` (a view into a larger buffer serves).
 
-    Counts launches in ``fused_tile_gather_eval_T.launches`` (K1) and
-    ``.launches_x`` (K2); CPU calls count nothing."""
+    Counts launches in the counters ``dualip.ops.fused_tile_gather_eval_T.enqueued``
+    (K1) and ``.enqueued_x`` (K2): a CUDA graph's capture enqueues once, and
+    a replay calls no wrapper; CPU calls count nothing."""
     _check_tile(a_T, (("rows_T", rows_T), ("c_T", c_T)), length, block_k)
     if scaled.dim() != 1:
         raise ValueError(f"scaled must be (m,), got shape {tuple(scaled.shape)}")
@@ -336,14 +336,10 @@ def fused_tile_gather_eval_T(
         raise TypeError("the gather form takes a float32 scaled and int32 rows_T")
     res = _launch(rows_T, scaled, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want_x, out)
     if want_x:
-        fused_tile_gather_eval_T.launches_x += 1
+        profiling.count("dualip.ops.fused_tile_gather_eval_T.enqueued_x")
     else:
-        fused_tile_gather_eval_T.launches += 1
+        profiling.count("dualip.ops.fused_tile_gather_eval_T.enqueued")
     return res
-
-
-fused_tile_gather_eval_T.launches = 0
-fused_tile_gather_eval_T.launches_x = 0
 
 
 # ---------------------------------------------------------------------------
@@ -598,8 +594,10 @@ def fused_panel_project_tiles(
     of each tile's x (KP, q*L, 128) float32, views of one buffer.
 
     a*x and x are bit for bit those of ``fused_panel_project`` tile by tile;
-    the two sums are added in another (fixed) order.  Counts launches in
-    ``fused_panel_project_tiles.launches`` (K3) and ``.launches_x`` (K4); CPU
+    the two sums are added in another (fixed) order.  Counts launches in the
+    counters ``dualip.ops.fused_panel_project_tiles.enqueued`` (K3) and
+    ``.enqueued_x`` (K4; a CUDA graph's capture enqueues once, and a replay
+    calls no wrapper); CPU
     calls count nothing."""
     if buf.dim() != 1:
         raise ValueError(f"buf must be (N,), got shape {tuple(buf.shape)}")
@@ -626,15 +624,11 @@ def fused_panel_project_tiles(
         raise RuntimeError(f"fused_panel_project_tiles: CUDA error {rc} at launch ({len(table.tiles)} tiles, "
                            f"{table.n_items} work units)")
     if not want_x:
-        fused_panel_project_tiles.launches += 1
+        profiling.count("dualip.ops.fused_panel_project_tiles.enqueued")
         return buf, out[0], out[1]
-    fused_panel_project_tiles.launches_x += 1
+    profiling.count("dualip.ops.fused_panel_project_tiles.enqueued_x")
     xs = [x[t.x_off:t.x_off + t.a.numel()].view(t.a.shape) for t in table.tiles]
     return buf, out[0], out[1], xs
-
-
-fused_panel_project_tiles.launches = 0
-fused_panel_project_tiles.launches_x = 0
 
 
 def fused_panel_project(
@@ -662,8 +656,9 @@ def fused_panel_project(
     Returns ``(buf, sum(c*x), sum(x*x))`` plus ``x`` (KP, q*L, 128) float32
     with ``want_x``.
 
-    Counts launches of the kernel in ``fused_panel_project.launches`` (K3) and
-    ``.launches_x`` (K4); CPU calls count nothing."""
+    Counts launches of the kernel in the counters
+    ``dualip.ops.fused_panel_project.enqueued`` (K3) and ``.enqueued_x`` (K4);
+    CPU calls count nothing."""
     KP, L, L2, q = _panel_geometry(a_p, pack)
     if c_p.shape != a_p.shape:
         raise ValueError(f"c_p shape {tuple(c_p.shape)} != a_p shape {tuple(a_p.shape)}")
@@ -705,11 +700,7 @@ def fused_panel_project(
     if rc != 0:
         raise RuntimeError(f"fused_panel_project: CUDA error {rc} at launch (kind={kind}, KP={KP}, L={L}, L2={L2}, q={q})")
     if want_x:
-        fused_panel_project.launches_x += 1
+        profiling.count("dualip.ops.fused_panel_project.enqueued_x")
         return buf, out[0], out[1], x.view(a_p.shape)
-    fused_panel_project.launches += 1
+    profiling.count("dualip.ops.fused_panel_project.enqueued")
     return buf, out[0], out[1]
-
-
-fused_panel_project.launches = 0
-fused_panel_project.launches_x = 0

@@ -21,6 +21,7 @@ import functools
 import torch
 
 from dualip_tpu_torch.ops import _build
+from dualip_tpu_torch.utils import profiling
 from dualip_tpu_torch.sparse.bcsc import RowSumPlan
 
 _PLAN_INDEX = ("order", "seg_ptr", "item_ptr", "row_ptr", "row_segs")
@@ -73,7 +74,8 @@ def segment_sum_rows(out: torch.Tensor, vals: torch.Tensor, plan: RowSumPlan) ->
     tensors the kernel runs (float32 values and ``out``, the plan's int32
     index arrays on the same card) or the call raises; on CPU tensors the plain
     version runs.  One call launches the kernel's two passes and counts one in
-    ``segment_sum_rows.launches``."""
+    the counter ``dualip.ops.segment_sum_rows.enqueued`` (``utils/profiling.py``;
+    a CUDA graph's capture enqueues once, and a replay calls no wrapper)."""
     dev = out.device
     if vals.device != dev:
         raise ValueError(f"vals on {vals.device}, out on {dev}")
@@ -103,8 +105,5 @@ def segment_sum_rows(out: torch.Tensor, vals: torch.Tensor, plan: RowSumPlan) ->
         )
     if rc != 0:
         raise RuntimeError(f"segment_sum_rows: CUDA error {rc} at launch (m={out.shape[0]}, slots={plan.order.numel()})")
-    segment_sum_rows.launches += 1
+    profiling.count("dualip.ops.segment_sum_rows.enqueued")
     return out
-
-
-segment_sum_rows.launches = 0

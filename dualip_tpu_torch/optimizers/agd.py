@@ -39,7 +39,6 @@ import dataclasses
 import inspect
 import math
 import os
-import time
 import warnings
 from typing import Callable, List, NamedTuple, Optional
 
@@ -54,6 +53,7 @@ from dualip_tpu_torch.optimizers.agd_utils import (
 )
 from dualip_tpu_torch.parallel.mesh import is_rank_zero
 from dualip_tpu_torch.types import ObjectiveResult, SolverResult, resolve_device
+from dualip_tpu_torch.utils import profiling
 from dualip_tpu_torch.utils.mlflow_utils import _mlflow_state, log_metrics, log_objective_result
 
 
@@ -205,12 +205,14 @@ class _EagerLoop:
     """The iterations launched from Python one after another (the CPU, a gloo
     mesh, or ``_maximize_eager``)."""
 
-    def __init__(self, body, carry, counter, metrics):
-        self.body, self.carry, self.counter, self.metrics = body, carry, counter, metrics
+    def __init__(self, body, carry, counter, metrics, marks):
+        self.body, self.carry, self.counter, self.metrics, self.marks = body, carry, counter, metrics, marks
 
     def run(self, size: int) -> None:
         for _ in range(size):
             self.carry, self.counter = self.body(self.carry, self.counter)
+            profiling.end_iteration()
+        profiling.count("dualip.agd.eager_iterations", size)
 
     def owned(self, t: torch.Tensor) -> torch.Tensor:
         return t  # nothing overwrites the loop's outputs
@@ -223,12 +225,14 @@ class _Graph:
     a fresh graph runs iteration 1 eagerly on the buffers, captures the next
     and replays it; a later ``maximize`` on the same objective, with the same
     params tensors and step settings (``reads``), ``load``s its start into the
-    buffers and only replays.  The kernels' launch counters count their
-    wrappers' calls: the capture calls each wrapper once (recording its
-    launch, running nothing) and a replay calls none."""
+    buffers and only replays.  The kernels' wrappers count what they enqueue
+    (``dualip.ops.<wrapper>.enqueued``): the capture calls each wrapper once
+    (recording its launch, running nothing) and a replay calls none.  The
+    iteration's ``marks`` are captured with it."""
 
-    def __init__(self, body, carry, counter, metrics, fields_present, what: str, leaves, settings):
+    def __init__(self, body, carry, counter, metrics, fields_present, what: str, leaves, settings, marks):
         self.body = body  # kept: the graph reads the tensors it closes over (beta, mask, params)
+        self.marks = marks
         self.carry = _clone(carry)
         self.counter, self.metrics, self.fields_present, self.what = counter, metrics, fields_present, what
         # held, so that no id in them is reused while the graph reads their memory
@@ -259,6 +263,7 @@ class _Graph:
         for s, n in zip(static, fresh):
             if n is not s:
                 s.copy_(n)
+        profiling.end_iteration()
 
     def _capture(self) -> None:
         # torch.cuda.graph synchronizes the device on entry: iteration 1's
@@ -273,11 +278,15 @@ class _Graph:
 
     def run(self, size: int) -> None:
         if self.graph is None:
-            self._advance()
-            self._capture()
+            with profiling.span("dualip.agd.capture", always=True, what=self.what):
+                self._advance()
+                self._capture()
+            profiling.count("dualip.agd.captures")
+            profiling.count("dualip.agd.eager_iterations")
             size -= 1
         for _ in range(size):
             self.graph.replay()
+        profiling.count("dualip.agd.replays", size)
 
     def owned(self, t: torch.Tensor) -> torch.Tensor:
         return t.clone()  # the next replay overwrites the static buffers
@@ -300,11 +309,25 @@ class AcceleratedGradientDescent:
     * ``collect_stats = True`` records the next ``maximize``'s wall clock in
       ``last_run_stats``: ``total_s`` (the whole call up to the metrics
       fetch), ``iters`` (``max_iter``) and ``drain_s`` (the fetch, which
-      waits for the device to finish the queued iterations).
+      waits for the device to finish the queued iterations), read from its
+      spans ``dualip.agd.maximize`` and ``dualip.agd.drain``.
     * ``collect_chunk_walls = True`` ends each chunk with a fetch of gamma
       (the chunk has then run on the device) and appends ``(size, seconds)``
-      to ``chunk_walls``, emptied by each ``maximize``.  ``DUALIP_TIMING=1``
-      prints each chunk's and the final fetch's wall time.
+      to ``chunk_walls``, emptied by each ``maximize``: the chunk's span
+      ``dualip.agd.replay``.  ``DUALIP_TIMING=1`` prints each chunk's and the
+      final fetch's wall time, from the same spans.
+
+    Each call records its spans in the port's store
+    (``utils/profiling.py``) while tracing is on: ``dualip.agd.maximize``
+    around ``dualip.agd.start`` (the carry, the graph's lookup and ``load``),
+    one ``dualip.agd.replay`` a chunk (attribute ``size``; a capture inside
+    it as ``dualip.agd.capture``, recorded always), ``dualip.agd.drain`` (the
+    metrics fetch, the wait for the card; traced, the marks' table fetched
+    beside it) and ``dualip.agd.result``; the
+    counters ``dualip.agd.captures``, ``.graph_reuse``, ``.replays`` and
+    ``.eager_iterations`` count always.  On a CUDA device each iteration
+    records ``profiling.IterationMarks`` (captured into the graph), which a
+    traced call reads in its drain.
 
     On a mesh (a sharded objective) every rank runs the same path (the graph
     on NCCL, the eager loop on gloo) on the same bits and only rank 0 logs to
@@ -527,64 +550,78 @@ class AcceleratedGradientDescent:
         return self._maximize(f, initial_value, rank, initial_step_size_state, graph=False)
 
     def _maximize(self, f, initial_value, rank, initial_step_size_state, graph) -> SolverResult:
+        with profiling.span("dualip.agd.maximize", always=self.collect_stats, new_call=True,
+                            max_iter=self.max_iter) as call:
+            return self._solve(call, f, initial_value, rank, initial_step_size_state, graph)
+
+    def _solve(self, call, f, initial_value, rank, initial_step_size_state, graph) -> SolverResult:
+        """The body of ``maximize`` inside its span ``call``: the spans
+        ``dualip.agd.start``, ``.replay`` (one per chunk), ``.drain`` and
+        ``.result``."""
         timing = os.environ.get("DUALIP_TIMING") == "1"
-        t_start = time.perf_counter()
-        if isinstance(initial_value, torch.Tensor):
-            x0 = initial_value
-        else:  # numpy float64 solves in float32, as in the JAX package (x64 off)
-            x0 = np.asarray(initial_value)
-            x0 = torch.as_tensor(x0.astype(np.float32) if x0.dtype == np.float64 else x0,
-                                 device=resolve_device(getattr(f, "device", None)))
-        dev = x0.device
-        dtype, m = x0.dtype, x0.shape[0]
-        equality_mask = getattr(f, "equality_mask", None)
-        if equality_mask is not None:
-            equality_mask = torch.as_tensor(equality_mask, dtype=torch.bool, device=dev)
-        params = getattr(f, "params", ())
+        walls = self.collect_chunk_walls or timing  # the chunks are timed whether tracing is on or not
+        with profiling.span("dualip.agd.start"):
+            if isinstance(initial_value, torch.Tensor):
+                x0 = initial_value
+            else:  # numpy float64 solves in float32, as in the JAX package (x64 off)
+                x0 = np.asarray(initial_value)
+                x0 = torch.as_tensor(x0.astype(np.float32) if x0.dtype == np.float64 else x0,
+                                     device=resolve_device(getattr(f, "device", None)))
+            dev = x0.device
+            dtype, m = x0.dtype, x0.shape[0]
+            equality_mask = getattr(f, "equality_mask", None)
+            if equality_mask is not None:
+                equality_mask = torch.as_tensor(equality_mask, dtype=torch.bool, device=dev)
+            params = getattr(f, "params", ())
 
-        if initial_step_size_state is None:
-            ss0 = init_step_size_state(m, self.history_length, dtype, dev)
-        else:
-            s = initial_step_size_state  # tensors, numpy arrays, or another framework's arrays
+            if initial_step_size_state is None:
+                ss0 = init_step_size_state(m, self.history_length, dtype, dev)
+            else:
+                s = initial_step_size_state  # tensors, numpy arrays, or another framework's arrays
 
-            def put(v, dt):
-                return torch.as_tensor(v if isinstance(v, torch.Tensor) else np.asarray(v), dtype=dt, device=dev)
+                def put(v, dt):
+                    return torch.as_tensor(v if isinstance(v, torch.Tensor) else np.asarray(v), dtype=dt, device=dev)
 
-            ss0 = StepSizeState(grad_hist=put(s.grad_hist, dtype), dual_hist=put(s.dual_hist, dtype),
-                                count=put(s.count, torch.int32).reshape(()))
-        gamma0 = torch.full((), self.gamma if self.gamma is not None else math.nan, dtype=torch.float32, device=dev)
-        carry = self._init_carry(x0, gamma0, ss0)
+                ss0 = StepSizeState(grad_hist=put(s.grad_hist, dtype), dual_hist=put(s.dual_hist, dtype),
+                                    count=put(s.count, torch.int32).reshape(()))
+            gamma0 = torch.full((), self.gamma if self.gamma is not None else math.nan, dtype=torch.float32,
+                                device=dev)
+            carry = self._init_carry(x0, gamma0, ss0)
 
-        if graph is None:
-            graph = uses_graph(dev, getattr(f, "mesh", None))
-        if graph:
-            runner = self._graph(f, params, equality_mask, dtype, carry)
-            fields_present = runner.fields_present
-        else:
-            fields_present = {}
-            body, metrics = self._body(f, params, equality_mask, dtype, carry, fields_present)
-            runner = _EagerLoop(body, carry, torch.zeros((), dtype=torch.long, device=dev), metrics)
-        metrics = runner.metrics
+            if graph is None:
+                graph = uses_graph(dev, getattr(f, "mesh", None))
+            if graph:
+                runner = self._graph(f, params, equality_mask, dtype, carry)
+                fields_present = runner.fields_present
+            else:
+                fields_present = {}
+                marks = profiling.IterationMarks.for_device(dev, self.max_iter)
+                body, metrics = self._body(f, params, equality_mask, dtype, carry, fields_present, marks)
+                runner = _EagerLoop(body, carry, torch.zeros((), dtype=torch.long, device=dev), metrics, marks)
+            metrics = runner.metrics
+            if runner.marks is not None and profiling.is_on():
+                runner.marks.reset()
 
-        logging = _mlflow_state.is_enabled() and is_rank_zero()
-        observing = self.iteration_callback is not None or logging
-        chunk = self.callback_chunk if observing else (self.launch_chunk or self.max_iter)
-        if self.stop_condition is not None:
-            chunk = min(chunk, self.stop_check_every)
+            logging = _mlflow_state.is_enabled() and is_rank_zero()
+            observing = self.iteration_callback is not None or logging
+            chunk = self.callback_chunk if observing else (self.launch_chunk or self.max_iter)
+            if self.stop_condition is not None:
+                chunk = min(chunk, self.stop_check_every)
 
         self.chunk_walls = []
         pos = 0
         while pos < self.max_iter:
             size = min(chunk, self.max_iter - pos)
-            t0 = time.perf_counter()
-            runner.run(size)
-            if self.collect_chunk_walls:
-                runner.carry.gamma.item()  # fetch-terminated: the chunk has run on the device
-                self.chunk_walls.append((size, time.perf_counter() - t0))
-            if timing:
-                if dev.type == "cuda":
+            with profiling.span("dualip.agd.replay", always=walls, size=size) as rec:
+                runner.run(size)
+                if self.collect_chunk_walls:
+                    runner.carry.gamma.item()  # fetch-terminated: the chunk has run on the device
+                if timing and dev.type == "cuda":
                     torch.cuda.synchronize(dev)
-                print(f"[timing] chunk pos={pos} size={size}: {time.perf_counter() - t0:.3f}s")
+            if self.collect_chunk_walls:
+                self.chunk_walls.append((size, rec.seconds))
+            if timing:
+                print(f"[timing] chunk pos={pos} size={size}: {rec.seconds:.3f}s")
             if observing:
                 rows = metrics[pos:pos + size].cpu().numpy()
                 for k, r in enumerate(rows):
@@ -597,67 +634,73 @@ class AcceleratedGradientDescent:
             if self.stop_condition is not None and self.stop_condition(pos, runner.owned(runner.carry.y)):
                 break
 
-        t_drain = time.perf_counter()
-        host = metrics[:pos].cpu().numpy()  # the one fetch of the solve's metrics
-        final = runner.carry
-        gamma_end = float(final.gamma)
+        with profiling.span("dualip.agd.drain", always=timing or self.collect_stats) as drain:
+            host = metrics[:pos].cpu().numpy()  # the one fetch of the solve's metrics
+            final = runner.carry
+            gamma_end = float(final.gamma)
+            if runner.marks is not None and profiling.is_on():
+                runner.marks.read(pos)  # the marks' table beside the metrics: the layers' mean, one sample a call
         if timing:
-            print(f"[timing] drain: {time.perf_counter() - t_drain:.3f}s")
+            print(f"[timing] drain: {drain.seconds:.3f}s")
         if self.collect_stats:
-            now = time.perf_counter()
-            self.last_run_stats = {"total_s": now - t_start, "iters": self.max_iter, "drain_s": now - t_drain}
-        dual_obj_log: List[float] = host[:, 0].tolist()
-        step_size_log: List[float] = host[:, 1].tolist()
-        dual_obj = dual_obj_log[-1]
-        last = self._row_to_result(host[-1], fields_present)
-        final_res = ObjectiveResult(
-            dual_gradient=runner.owned(final.last_grad),
-            dual_objective=np.float32(dual_obj),
-            reg_penalty=last.reg_penalty,
-            dual_val_times_grad=last.dual_val_times_grad,
-            max_pos_slack=last.max_pos_slack,
-            sum_pos_slack=last.sum_pos_slack,
-        )
-        if self.save_primal:
-            # One more evaluation, eager, at the last iteration's x, with only
-            # the kwargs a (possibly duck-typed) objective accepts.
-            kwargs = {}
+            self.last_run_stats = {"total_s": (drain.end_ns - call.start_ns) * 1e-9, "iters": self.max_iter,
+                                   "drain_s": drain.seconds}
+
+        with profiling.span("dualip.agd.result"):
+            dual_obj_log: List[float] = host[:, 0].tolist()
+            step_size_log: List[float] = host[:, 1].tolist()
+            dual_obj = dual_obj_log[-1]
+            last = self._row_to_result(host[-1], fields_present)
+            final_res = ObjectiveResult(
+                dual_gradient=runner.owned(final.last_grad),
+                dual_objective=np.float32(dual_obj),
+                reg_penalty=last.reg_penalty,
+                dual_val_times_grad=last.dual_val_times_grad,
+                max_pos_slack=last.max_pos_slack,
+                sum_pos_slack=last.sum_pos_slack,
+            )
+            if self.save_primal:
+                # One more evaluation, eager, at the last iteration's x, with only
+                # the kwargs a (possibly duck-typed) objective accepts.
+                kwargs = {}
+                if self.gamma is not None:
+                    kwargs["gamma"] = final.gamma
+                try:
+                    accepted = inspect.signature(f.calculate).parameters
+                    if "save_primal" in accepted:
+                        kwargs["save_primal"] = True
+                    if "rank" in accepted:
+                        kwargs["rank"] = rank
+                except (TypeError, ValueError):
+                    kwargs.update(save_primal=True, rank=rank)
+                final_res = f.calculate(dual_val=runner.owned(final.last_x), **kwargs)
+
+            if logging:
+                log_objective_result(final_res, step=self.max_iter)
             if self.gamma is not None:
-                kwargs["gamma"] = final.gamma
-            try:
-                accepted = inspect.signature(f.calculate).parameters
-                if "save_primal" in accepted:
-                    kwargs["save_primal"] = True
-                if "rank" in accepted:
-                    kwargs["rank"] = rank
-            except (TypeError, ValueError):
-                kwargs.update(save_primal=True, rank=rank)
-            final_res = f.calculate(dual_val=runner.owned(final.last_x), **kwargs)
+                self.gamma = gamma_end
 
-        if logging:
-            log_objective_result(final_res, step=self.max_iter)
-        if self.gamma is not None:
-            self.gamma = gamma_end
+            return SolverResult(
+                dual_val=runner.owned(final.y),
+                dual_objective=float(dual_obj),
+                objective_result=final_res,
+                dual_objective_log=dual_obj_log,
+                step_size_log=step_size_log,
+            )
 
-        return SolverResult(
-            dual_val=runner.owned(final.y),
-            dual_objective=float(dual_obj),
-            objective_result=final_res,
-            dual_objective_log=dual_obj_log,
-            step_size_log=step_size_log,
-        )
-
-    def _body(self, f, params, equality_mask, dtype, carry, fields_present):
+    def _body(self, f, params, equality_mask, dtype, carry, fields_present, marks):
         """The scan body of the JAX package's ``run_chunk``: ``body(carry,
         counter) -> (carry, counter + 1)`` runs iteration ``counter + 1`` and
         writes its metrics row; returns it with the ``(max_iter, 8)`` metrics
-        tensor it writes."""
+        tensor it writes.  The iteration's ``marks`` (None off CUDA) record its
+        start here; the runner records its end."""
         dev = carry.x.device
         step = self._make_step(f, equality_mask, dtype, fields_present)
         beta_all = torch.as_tensor(self.beta_seq, device=dev)
         metrics = torch.full((self.max_iter, len(METRICS)), math.nan, dtype=dtype, device=dev)
 
         def body(carry, counter):
+            profiling.begin_iteration(marks)
             nxt = counter + 1
             beta = beta_all.index_select(0, counter.reshape(1)).reshape(())
             new, row = step(params, carry, nxt, beta)
@@ -680,14 +723,16 @@ class AcceleratedGradientDescent:
         if g is not None and g.graph is not None and g.fits(carry) and g.reads(leaves, settings):
             self._jit_cache[key] = g
             g.load(carry)
+            profiling.count("dualip.agd.graph_reuse")
             return g
         del g
         fields_present: dict = {}
-        body, metrics = self._body(f, params, equality_mask, dtype, carry, fields_present)
+        marks = profiling.IterationMarks.for_device(carry.x.device, self.max_iter)
+        body, metrics = self._body(f, params, equality_mask, dtype, carry, fields_present, marks)
         counter = torch.zeros((), dtype=torch.long, device=carry.x.device)
         mesh = getattr(f, "mesh", None)
         what = type(f).__name__ + ("" if mesh is None else f" on a {mesh.backend()} mesh")
-        g = _Graph(body, carry, counter, metrics, fields_present, what, leaves, settings)
+        g = _Graph(body, carry, counter, metrics, fields_present, what, leaves, settings, marks)
         self._jit_cache[key] = g
         return g
 

@@ -33,6 +33,7 @@ import torch
 
 from dualip_tpu_torch.projections.base import ProjectionEntry, project
 from dualip_tpu_torch.sparse.csc import CSCMatrix, same_pattern
+from dualip_tpu_torch.utils import profiling
 
 
 class Tile(NamedTuple):
@@ -232,6 +233,7 @@ def _build_tile(
     return Tile(rows=rows, a=a, c=c, length=length, col_ids=col_ids), spec
 
 
+@profiling.timed("dualip.build.tiles")
 def build_blockcsc(
     A: CSCMatrix,
     C: CSCMatrix,
@@ -322,6 +324,7 @@ def _windows(shapes: Sequence[Tuple[int, int]], cap_slots: int):
     return tuple(windows)
 
 
+@profiling.timed("dualip.build.rows")
 def build_row_sum_plan(
     rows: Sequence[np.ndarray], lengths: Sequence[np.ndarray], m: int, transposed: bool = False,
     window_bytes: int = WINDOW_BYTES,
@@ -384,28 +387,30 @@ def put_row_sum_plan(plan: RowSumPlan, device) -> RowSumPlan:
 def device_put_blockcsc(bcsc: BlockCSC, device, row_sum: bool = False) -> BlockCSC:
     """Copy every tile array to ``device`` as a tensor (rows widened to int32,
     a and c in ``bcsc.value_dtype`` where it is set).  ``row_sum=True`` also
-    builds the tiles' ``RowSumPlan`` on the host and places it beside the
-    tiles."""
+    builds the tiles' ``RowSumPlan`` on the host (the span
+    ``dualip.build.rows``) and places it beside the tiles; the copies are the
+    span ``dualip.build.upload``."""
 
     def put(x, dtype=None):
         return host_tensor(x, device, dtype)
 
     plan = None
     if row_sum:
-        plan = put_row_sum_plan(
-            build_row_sum_plan([t.rows for t in bcsc.tiles], [t.length for t in bcsc.tiles], bcsc.m, bcsc.transposed),
-            device)
-
-    tiles = [
-        Tile(
-            rows=put(t.rows, torch.int32),
-            a=put(t.a, bcsc.value_dtype),
-            c=put(t.c, bcsc.value_dtype),
-            length=put(t.length, torch.int32),
-            col_ids=put(t.col_ids, torch.int32),
-        )
-        for t in bcsc.tiles
-    ]
+        plan = build_row_sum_plan([t.rows for t in bcsc.tiles], [t.length for t in bcsc.tiles], bcsc.m,
+                                  bcsc.transposed)
+    with profiling.span("dualip.build.upload", always=True):
+        if plan is not None:
+            plan = put_row_sum_plan(plan, device)
+        tiles = [
+            Tile(
+                rows=put(t.rows, torch.int32),
+                a=put(t.a, bcsc.value_dtype),
+                c=put(t.c, bcsc.value_dtype),
+                length=put(t.length, torch.int32),
+                col_ids=put(t.col_ids, torch.int32),
+            )
+            for t in bcsc.tiles
+        ]
     return BlockCSC(
         tiles=tiles, specs=bcsc.specs, m=bcsc.m, n=bcsc.n, nnz=bcsc.nnz,
         transposed=bcsc.transposed, row_sum=plan, value_dtype=bcsc.value_dtype,

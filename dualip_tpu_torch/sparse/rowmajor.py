@@ -25,7 +25,6 @@ own shard.
 from __future__ import annotations
 
 import hashlib
-import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import List, NamedTuple, Optional
@@ -40,6 +39,7 @@ from dualip_tpu_torch.ops.butterfly import (
     pack_plan_from_planes,
 )
 from dualip_tpu_torch.sparse.bcsc import _geom_thresholds, _pow2_thresholds, host_tensor
+from dualip_tpu_torch.utils import profiling
 
 
 class RowTile(NamedTuple):
@@ -144,9 +144,9 @@ class RowLayout:
     col_pack: Optional[tuple] = None
     srow_colidx: Optional[torch.Tensor] = None
     plan_cache_path: Optional[str] = None  # the plan-cache file of this layout's routing
-    build_seconds: Optional[dict] = None  # host seconds: {"route": ..., "total": ...}
 
 
+@profiling.timed("dualip.build.rows")
 def build_row_layout(
     bcsc,
     method: str = "gather",
@@ -172,12 +172,15 @@ def build_row_layout(
     same shapes; short buckets pad with rows of length 0.
     ``materialize_plan=False`` (butterfly with ``plan_cache_dir``): route and
     write the plan file only, leaving ``plan`` ``None`` (a cache builder that
-    never applies it, ``io/streaming_build.py``)."""
+    never applies it, ``io/streaming_build.py``).
+
+    The build is the span ``dualip.build.rows`` of ``utils/profiling.py``;
+    a routing inside it ``dualip.build.route`` (none on a plan-cache hit) and
+    the source index's build ``dualip.build.index``."""
     if method not in ("gather", "butterfly"):
         raise ValueError(f"Unknown row-layout method {method!r}")
     if compact and method != "butterfly":
         raise ValueError("compact packing is butterfly-only")
-    t_start = time.perf_counter()
     device = torch.device(device)
     m = bcsc.m
 
@@ -336,7 +339,6 @@ def build_row_layout(
         use_cuda_kernel = device.type == "cuda"
         packed = None  # (planes, dists, n_in, n_out): the cache's and the kernels' currency
         cache_path = None
-        t_route = time.perf_counter()
         if plan_cache_dir is not None:
             # hash the int64 view so keys do not depend on the position dtype
             key = hashlib.sha1(np.ascontiguousarray(perm, dtype=np.int64).tobytes()).hexdigest()[:20]
@@ -363,7 +365,6 @@ def build_row_layout(
                     n_out=packed[3],
                 )
                 tmp.replace(cache_path)  # atomic: no corrupt cache on interrupt
-        route_s = time.perf_counter() - t_route
         if not materialize_plan:
             if cache_path is None:
                 raise ValueError("materialize_plan=False needs plan_cache_dir")
@@ -419,7 +420,6 @@ def build_row_layout(
             row_shapes=tuple(row_shapes),
             col_pack=tuple((L, L2, q) for (_, L, L2, q, _) in KLs) if compact else None,
             plan_cache_path=str(cache_path) if cache_path is not None else None,
-            build_seconds={"route": route_s, "total": time.perf_counter() - t_start},
         )
 
     # gather mode: column-tile zidx (where each column slot's z lives)
@@ -436,10 +436,7 @@ def build_row_layout(
         pos += nvalid
         zidx.append(put(zi.astype(np.int32)))
 
-    return RowLayout(
-        row_tiles=row_tiles, zidx=zidx, row_pos=put(row_pos), row_shapes=tuple(row_shapes),
-        build_seconds={"route": 0.0, "total": time.perf_counter() - t_start},
-    )
+    return RowLayout(row_tiles=row_tiles, zidx=zidx, row_pos=put(row_pos), row_shapes=tuple(row_shapes))
 
 
 def _slice_bcsc_cols(bcsc, d: int, n_shards: int):

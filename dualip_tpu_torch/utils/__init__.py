@@ -1,4 +1,5 @@
-"""Observability: MLflow logging (a no-op without mlflow) and profiling hooks."""
+"""Observability: MLflow logging (a no-op without mlflow) and the store of
+spans, counters and device marks with ``trace`` (``utils/profiling.py``)."""
 
 from dualip_tpu_torch.utils.mlflow_utils import (  # noqa: F401
     MLflowConfig,
@@ -8,4 +9,4 @@ from dualip_tpu_torch.utils.mlflow_utils import (  # noqa: F401
     log_objective_result,
     mlflow_run_context,
 )
-from dualip_tpu_torch.utils.profiling import PhaseTimer, annotate, trace  # noqa: F401
+from dualip_tpu_torch.utils.profiling import count, span, trace  # noqa: F401

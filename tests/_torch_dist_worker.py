@@ -29,6 +29,7 @@ from dualip_tpu_torch.projections.base import ProjectionEntry
 from dualip_tpu_torch.sparse import csc_from_dense
 from dualip_tpu_torch.sparse.bcsc import build_blockcsc
 from dualip_tpu_torch.synthetic import generate_synthetic_matching_input_args
+from dualip_tpu_torch.utils import profiling
 
 A_COMPACT = np.array(
     [
@@ -266,27 +267,36 @@ def world2(mesh: EntityMesh, tmp: str, stream: dict) -> dict:
         kw = dict(gamma=1e-3, mesh=mesh, layout="butterfly", pallas_block_k=128, compact=compact,
                   keep_flat_idx=False, keep_col_tiles=False, plan_cache_dir=f"{tmp}/plans",
                   tile_cache_dir=f"{tmp}/tiles")
-        cold = MatchingSolverDualObjectiveFunction(inp, **kw)
-        warm = MatchingSolverDualObjectiveFunction(inp, **kw)
+        cold, cold_spans, _ = _built(lambda: MatchingSolverDualObjectiveFunction(inp, **kw))
+        warm, warm_spans, warm_hits = _built(lambda: MatchingSolverDualObjectiveFunction(inp, **kw))
         out[("tile cache", compact)] = {
-            "key": cold.tile_cache_key, "cold_saved": "tile_cache_write_s" in cold.row_layout.build_seconds,
-            "warm_loaded": warm.row_layout.build_seconds["route"] == 0.0 and "tile_cache_write_s" not in
-            warm.row_layout.build_seconds,
+            "key": cold.tile_cache_key, "cold_saved": "dualip.tile_cache.write" in cold_spans,
+            "warm_loaded": warm_hits == 1 and not {"dualip.build.route", "dualip.tile_cache.write"} & warm_spans,
             "cold": _solve(cold, iters=10)[0], "warm": _solve(warm, iters=10)[0], "leaves": _rank_leaves(warm)}
 
     inp = random_matching(stream["spec"])
     kw = dict(gamma=1e-3, mesh=mesh, layout="butterfly", pallas_block_k=128, compact=True, keep_flat_idx=False,
               keep_col_tiles=False, plan_cache_dir=stream["plans"])
-    streamed = MatchingSolverDualObjectiveFunction(inp, tile_cache_dir=stream["tiles"], **kw)
+    streamed, streamed_spans, streamed_hits = _built(
+        lambda: MatchingSolverDualObjectiveFunction(inp, tile_cache_dir=stream["tiles"], **kw))
     direct = MatchingSolverDualObjectiveFunction(inp, **kw)
     key = matching_tile_cache_key(inp, n_shards=2, pallas_block_k=128, compact=True)
     zero = torch.zeros(inp.b_vec.shape[0])
     out["streamed"] = {
         "key": streamed.tile_cache_key, "expected_key": key,
-        "loaded": streamed.row_layout.build_seconds["route"] == 0.0,
+        "loaded": streamed_hits == 1 and "dualip.build.route" not in streamed_spans,
         "streamed": _solve(streamed, iters=15, lam0=zero, initial_step_size=1e-3, max_step_size=1e-1)[0],
         "direct": _solve(direct, iters=15, lam0=zero, initial_step_size=1e-3, max_step_size=1e-1)[0]}
     return out
+
+
+def _built(make):
+    """``make()``, the names of the store's records its call made, and the
+    tile cache's hits it counted."""
+    since, hits = profiling.STORE.ids, profiling.counter("dualip.tile_cache.loaded")
+    obj = make()
+    names = {e.name for e in profiling.STORE.events if e.id > since}
+    return obj, names, profiling.counter("dualip.tile_cache.loaded") - hits
 
 
 def failing(mesh: EntityMesh):

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import dualip_tpu.ops.butterfly as jbf
 import dualip_tpu_torch.ops.butterfly as pbf
 from dualip_tpu_torch.io import native_loader
+from dualip_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -70,11 +71,11 @@ def test_native_router_equals_numpy_router(monkeypatch):
         pytest.skip("no C++ compiler: the numpy router is the only one")
     perm = _perm(1 << 14, 9)
     native = pbf.benes_route(perm)
-    assert pbf.last_route["router"] == "native"
+    assert profiling.last("dualip.build.route").attrs == {"router": "native", "N": 1 << 14}
     packed = native_loader.benes_route_packed_native(pbf._complete_bijection(perm, perm.size, 1 << 14))
     monkeypatch.setattr(native_loader, "benes_route_native", lambda src: None)
     plain = pbf.benes_route(perm)
-    assert pbf.last_route["router"] == "numpy"
+    assert profiling.last("dualip.build.route").attrs == {"router": "numpy", "N": 1 << 14}
     np.testing.assert_array_equal(np.asarray(native.masks), np.asarray(plain.masks))
     np.testing.assert_array_equal(packed, pbf._packbits_stages(np.asarray(plain.masks)))
 
@@ -201,4 +202,4 @@ def test_per_group_plain_versions_compose_to_the_plan():
         for (steps, E, I_rows), m in zip(packed.post_groups, packed.post_masks):
             v = pbf.benes_coarse(v, m, steps, E, I_rows)
         np.testing.assert_array_equal(v.numpy(), x.numpy()[perm])
-    assert pbf.benes_fine.launches == pbf.benes_coarse.launches == pbf.benes_coarse2.launches == 0
+    assert all(profiling.counter(f"dualip.ops.{k}.enqueued") == 0 for k in ("benes_fine", "benes_coarse", "benes_coarse2"))

@@ -36,9 +36,10 @@ def test_port_file_imports_no_jax(path):
 def test_port_package_imports_without_cuda():
     import dualip_tpu_torch
     import dualip_tpu_torch.ops.fused_matching as fm
+    from dualip_tpu_torch.utils import profiling
 
-    assert dualip_tpu_torch.run_solver is not None
-    assert fm.fused_tile_eval_T.launches >= 0
+    assert dualip_tpu_torch.run_solver is not None and fm.fused_tile_eval_T is not None
+    assert profiling.counter("dualip.ops.fused_tile_eval_T.enqueued") >= 0
 
 
 def test_the_scan_covers_the_parallel_layer():

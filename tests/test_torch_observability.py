@@ -1,6 +1,7 @@
 """The port's observability: MLflow logging as a silent no-op where mlflow is
-missing or disabled, ``PhaseTimer``, ``collect_stats`` and ``trace`` with
-``annotate`` (the cases of ``tests/test_misc_components.py``), on the CPU."""
+missing or disabled, the store's spans (where the JAX package has
+``PhaseTimer``), ``collect_stats`` and ``trace`` with a ``span`` (the cases of
+``tests/test_misc_components.py``), on the CPU."""
 
 import json
 
@@ -23,7 +24,8 @@ from dualip_tpu_torch.utils.mlflow_utils import (
     log_objective_result,
     mlflow_run_context,
 )
-from dualip_tpu_torch.utils.profiling import PhaseTimer, annotate, trace
+from dualip_tpu_torch.utils import profiling
+from dualip_tpu_torch.utils.profiling import span, trace
 
 
 def _args():
@@ -97,14 +99,16 @@ def test_agd_logs_each_iteration_when_enabled(monkeypatch):
     assert [c[1] for c in calls if c[0] == "r"] == [1, 2, 3, 4, 4]  # each iteration, then the final result
 
 
-def test_phase_timer():
-    t = PhaseTimer()
-    with t.phase("a"):
+def test_phase_timer(monkeypatch):
+    """Phases add up in the store, per name, whether tracing is on or not
+    when asked to (``always``)."""
+    monkeypatch.setattr(profiling, "STORE", profiling.Store())
+    with span("test.phase.a", always=True):
         pass
-    with t.phase("a"):
+    with span("test.phase.a", always=True):
         pass
-    assert "a" in t.phases and t.phases["a"] >= 0
-    assert "a=" in t.report()
+    agg = profiling.aggregate("test.phase.a")
+    assert agg.count == 2 and agg.total_ns >= 0 and agg.self_ns == agg.total_ns
 
 
 def test_collect_stats_populates_last_run_stats():
@@ -121,13 +125,18 @@ def test_collect_stats_populates_last_run_stats():
 
 def test_trace_writes_a_chrome_trace_with_the_annotation(tmp_path):
     with trace(str(tmp_path / "t")):
-        with annotate("dualip.solve"):
+        with span("dualip.solve"):
             run_solver(_args(), SolverArgs(max_iter=2, gamma=1e-3), ComputeArgs(host_device="cpu"),
                        ObjectiveArgs(objective_type="matching"))
-    files = list((tmp_path / "t").glob("*.json"))
+    files = list((tmp_path / "t").glob("trace_*.json"))
     assert len(files) == 1
     names = {e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]}
-    assert "dualip.solve" in names
+    assert {"dualip.solve", "dualip.agd.maximize", "dualip.agd.replay", "dualip.build"} <= names
+    (spans,) = (tmp_path / "t").glob("spans_*.json")
+    assert spans.name[len("spans_"):] == files[0].name[len("trace_"):]
+    kept = json.loads(spans.read_text())
+    assert {"dualip.solve", "dualip.agd.maximize"} <= {e["name"] for e in kept["events"]}
+    assert kept["aggregates"]["dualip.agd.maximize"]["count"] >= 1
     with trace(str(tmp_path / "off"), enabled=False):
         pass
     assert not (tmp_path / "off").exists()

@@ -34,6 +34,7 @@ from dualip_tpu_torch.ops.fused_matching import (
     panel_unit_where,
 )
 from dualip_tpu_torch.sparse.rowmajor import PanelTile, _pack_geometry
+from dualip_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -175,7 +176,8 @@ def test_panel_wrapper_checks_its_arguments():
         fused_panel_project(b, *t, off, "simplex")
     with pytest.raises(ValueError, match="Unsupported projection kind"):
         fused_panel_project_reference(b, *t, off, "ball", neg_inv_gamma=-1.0)
-    assert fused_panel_project.launches == fused_panel_project.launches_x == 0
+    assert profiling.counter("dualip.ops.fused_panel_project.enqueued") == 0
+    assert profiling.counter("dualip.ops.fused_panel_project.enqueued_x") == 0
 
 
 def test_panel_x_to_kl_unstacks_both_packings():
@@ -242,7 +244,8 @@ def test_all_tiles_plain_version_is_the_per_tile_sequence(shift, carry, want_x):
         assert len(got[3]) == len(xs) == len(table.tiles)
         for g, r, t in zip(got[3], xs, table.tiles):
             assert g.shape == t.a.shape and torch.equal(g, r)
-    assert fused_panel_project_tiles.launches == fused_panel_project_tiles.launches_x == 0
+    assert profiling.counter("dualip.ops.fused_panel_project_tiles.enqueued") == 0
+    assert profiling.counter("dualip.ops.fused_panel_project_tiles.enqueued_x") == 0
 
 
 def test_panel_table_geometry():

@@ -33,6 +33,7 @@ from dualip_tpu_torch.objectives.matching import (
 from dualip_tpu_torch.optimizers.agd import AcceleratedGradientDescent
 from dualip_tpu_torch.projections import create_projection_map
 from dualip_tpu_torch.sparse import csc_from_dense
+from dualip_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -130,8 +131,11 @@ def test_hit_skips_the_layout_build(tmp_path, monkeypatch):
 def test_cold_and_warm_dual_logs_are_bit_identical(tmp_path, kw):
     port, _ = _problem(seed=4)
     m = port.A.shape[0]
-    cold, warm = _build(port, tmp_path, **kw), _build(port, tmp_path, **kw)
-    assert warm.row_layout.build_seconds["route"] == 0.0  # loaded, not routed
+    cold = _build(port, tmp_path, **kw)
+    routed, loaded = profiling.records("dualip.build.route"), profiling.counter("dualip.tile_cache.loaded")
+    warm = _build(port, tmp_path, **kw)
+    assert profiling.records("dualip.build.route") == routed  # loaded, not routed
+    assert profiling.counter("dualip.tile_cache.loaded") == loaded + 1
     logs = []
     for obj in (cold, warm):
         solver = AcceleratedGradientDescent(max_iter=12, gamma=1e-3, initial_step_size=1e-3, max_step_size=1e-1)
@@ -233,13 +237,16 @@ def test_a_loaded_layout_saves_the_bytes_it_was_loaded_from(tmp_path, dtype):
     the layout a hit placed, saved again, gives the entry it came from byte
     for byte, and the cold build's save timed its copy and its write."""
     port, _ = _problem(seed=9)
+    saves = [profiling.STORE.ids]
     cold = _build(port, tmp_path, dtype=dtype)
-    assert {"tile_cache_copy_s", "tile_cache_write_s"} <= set(cold.row_layout.build_seconds)
+    saved = [e for e in profiling.STORE.events if e.id > saves[0] and e.name.startswith("dualip.tile_cache.")]
+    assert [e.name for e in saved] == ["dualip.tile_cache.load", "dualip.tile_cache.copy", "dualip.tile_cache.write",
+                                       "dualip.tile_cache.save"]
     warm = _build(port, tmp_path, dtype=dtype)
     key = warm.tile_cache_key
-    secs = tile_cache.save_butterfly_state(tmp_path / "again", key, warm.bcsc, warm.row_layout,
-                                           warm.row_layout.plan_cache_path)
-    assert secs["copy_s"] >= 0 and secs["write_s"] >= 0
+    tile_cache.save_butterfly_state(tmp_path / "again", key, warm.bcsc, warm.row_layout,
+                                    warm.row_layout.plan_cache_path)
+    assert all(profiling.last(f"dualip.tile_cache.{k}").seconds >= 0 for k in ("copy", "write"))
     d1, d2 = _entry(tmp_path / "tiles", key), _entry(tmp_path / "again", key)
     names = sorted(p.name for p in d1.iterdir())
     assert names == sorted(p.name for p in d2.iterdir())
