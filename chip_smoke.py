@@ -17,6 +17,11 @@ result lines at the end are printed only by a run of every default phase):
    bit for bit against the first;
 4. segsum: the windowed fixed-order row segment-sum over several tiles at
    once against a float64 ``index_add_``, and two launches bit for bit;
+   simplex: the sort-and-scan simplex kernel of the default csc path against
+   its plain version bit for bit at every L from 1 to 64 and within fp32 of
+   the torch ops, then on the tiles the path projects at the canonical shape
+   (the benchmark generator's column lengths, bucketed as the tiles are
+   built) timed and held bit for bit again;
 5. benes: the three Benes kernels (K5 fine and K7 two-axis coarse side, the
    gathers through the plan's source index; K6 coarse group, stage windows)
    against the plain stages with ``torch.equal``, forward and reverse, fp32
@@ -195,8 +200,8 @@ NON_FMA_OPS_PER_S = 132 * 128 * 1.98e9
 BISECTION_ITERS = 30
 
 SMALL_SOURCES = 250_000  # the second butterfly solve: few enough blocks for one single-axis group a side
-ALL_PHASES = ("kernels", "segsum", "benes", "panel", "golden", "slice", "butterfly", "cert", "lp", "examples",
-              "graph", "io", "obs", "dist")
+ALL_PHASES = ("kernels", "segsum", "simplex", "benes", "panel", "golden", "slice", "butterfly", "cert", "lp",
+              "examples", "graph", "io", "obs", "dist")
 # the single-device paths phase graph holds to the eager loop (each checked in the phase that builds it)
 GRAPH_PATHS = ("csc use_pallas", "csc plain", "csc bf16 tiles", "butterfly", "butterfly compact",
                "butterfly srow_gather", "butterfly carry_dtype=bfloat16", "lp-2.5M coo", "lp-2.5M butterfly",
@@ -339,7 +344,7 @@ def _counted():
                 "K3": "fused_panel_project_tiles", "K4": "fused_panel_project_tiles.x",
                 "K3t": "fused_panel_project", "K4t": "fused_panel_project.x",
                 "K5": "benes_fine", "K6": "benes_coarse", "K7": "benes_coarse2", "K5w": "benes_fine_window",
-                "K7w": "benes_coarse2_window", "segsum": "segment_sum_rows"}
+                "K7w": "benes_coarse2_window", "segsum": "segment_sum_rows", "simplex": "simplex_project"}
     return {k: f"dualip.ops.{w[:-2]}.enqueued_x" if w.endswith(".x") else f"dualip.ops.{w}.enqueued"
             for k, w in wrappers.items()}
 
@@ -361,7 +366,8 @@ def port_kernel(name: str):
     if m:
         return "K4" if m.group(1).split(",")[2].strip() == "true" else "K3"
     for sym, short in (("fine_gather_kernel", "K5"), ("rows_gather_kernel", "K7"), ("coarse_kernel", "K6"),
-                       ("fine_kernel", "K5w"), ("window_sums", "segsum_window"), ("add_rows", "segsum")):
+                       ("fine_kernel", "K5w"), ("window_sums", "segsum_window"), ("add_rows", "segsum"),
+                       ("duchi_sortscan_kernel", "simplex")):
         if re.search(rf"\b{sym}\b", name):
             return short
     return None
@@ -432,10 +438,11 @@ def nccl_records(by_name: dict) -> int:
 
 
 SINCE = [0]  # the store's last span id when the counts were last reset
+TORCH_ROWS = "dualip.projections.duchi.torch_rows"  # the rows duchi_project leaves to torch's ops on the card
 
 
 def reset_counts() -> None:
-    for name in _counted().values():
+    for name in (*_counted().values(), TORCH_ROWS):
         profiling.STORE.counters.pop(name, None)
     SINCE[0] = profiling.STORE.ids
 
@@ -689,6 +696,112 @@ def phase_segsum(dev) -> float:
     say("segsum", cases=len(cases), max_abs_err_vs_float64=worst, tolerance="1e-5*max(1, max row sum of |v|)",
         repeat="bit-identical", padding="NaN, never read")
     return worst
+
+
+# the benchmark's canonical configuration, whose column lengths give the tiles phase simplex times
+CANONICAL_CONFIG = ROOT / "gpubench" / "configs" / "matching-canonical-25m.json"
+CANONICAL_TILE_SEED = 2_147_491_104  # the source side's seed (the destination side is the configuration's)
+
+
+def canonical_simplex_tiles(dev) -> list:
+    """The (L, lengths) of each column tile that the default csc path projects
+    at the canonical shape: the benchmark generator's matrix (the
+    configuration's data, ``CANONICAL_TILE_SEED``) on the card, its column
+    lengths bucketed as ``build_blockcsc`` buckets them (``_pow2_thresholds``
+    of the row count, empty columns dropped, L the bucket's longest column).
+    ``lengths`` is each tile's column lengths on the card, in column order."""
+    from gpubench.generators import upstream_synthetic
+    from dualip_tpu_torch.sparse.bcsc import _pow2_thresholds
+
+    data = json.loads(CANONICAL_CONFIG.read_text())["data"]
+    indptr = upstream_synthetic.generate(data, CANONICAL_TILE_SEED, dev)["indptr"]
+    torch.cuda.empty_cache()
+    lengths = torch.diff(indptr)
+    del indptr
+    th = torch.as_tensor(_pow2_thresholds(int(data["num_destinations"])), device=dev)
+    bucket = torch.searchsorted(th, lengths, side="left")
+    tiles = []
+    for j in range(1, th.numel()):
+        sel = lengths[(bucket == j) & (lengths > 0)]
+        if sel.numel():
+            tiles.append((int(sel.max()), sel))
+    return tiles
+
+
+def phase_simplex(dev) -> dict:
+    """The sort-and-scan simplex kernel (``ops/simplex_project.py``): bit for
+    bit against its plain version at every L from 1 to 64, both kinds, three
+    radii, on aligned, strided (copied first) and unaligned rows, and within
+    fp32 of the torch ops; then each tile the default csc path projects at
+    the canonical shape (``canonical_simplex_tiles``: its K, its L, its
+    padding lanes zero), timed beside its plain version, the torch ops and
+    its bound (8 B a slot), and held bit for bit to the plain version."""
+    from dualip_tpu_torch.ops.simplex_project import simplex_project, simplex_project_reference
+    from dualip_tpu_torch.projections.simplex import _duchi_torch
+
+    rng = np.random.default_rng(16)
+    n, worst = 0, 0.0
+    for L in range(1, 65):
+        x = torch.from_numpy((rng.normal(size=(4099, L)) * rng.uniform(0.05, 4.0, size=(4099, 1)))
+                             .astype(np.float32)).to(dev)
+        x[0] = 0.0
+        x[1, 0] = 50.0  # the vertex
+        x[2] = torch.round(x[2] * 2) / 2  # ties
+        views = (x, x.T.contiguous().T, x.reshape(-1)[1:1 + (x.numel() - L) // L * L].view(-1, L))
+        for v in views:
+            for z in (1.0, 0.37, 3.0):
+                for inequality in (False, True):
+                    got = simplex_project(v, z, inequality)
+                    check(torch.equal(got, simplex_project_reference(v, z, inequality)),
+                          f"simplex L={L} z={z} inequality={inequality}: the kernel differs from its plain version")
+                    e = float((got - _duchi_torch(v, z, inequality, 1e-6)).abs().max())
+                    scale = 1.0 + float(torch.clamp_min(v, 0).sum(-1).max())
+                    check(e <= 2e-6 * scale, f"simplex L={L}: {e} from the torch ops")
+                    worst = max(worst, e / scale)
+                    n += 1
+    say("simplex", cases=n, widths="1..64", vs_plain_version="bit for bit in every case",
+        max_err_vs_torch_ops_over_row_sum=f"{worst:.3e}", tolerance="2e-6*(1+max row sum)")
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    tiles = canonical_simplex_tiles(dev)
+    say("simplex", canonical_tiles=[(L, lengths.numel()) for L, lengths in tiles], seed=CANONICAL_TILE_SEED,
+        note="(L, K) of each tile, from the benchmark generator's column lengths bucketed as build_blockcsc does")
+    for L, lengths in tiles:
+        K = lengths.numel()
+        x = torch.randn(K, L, device=dev) * 3.0
+        x.masked_fill_(torch.arange(L, device=dev) >= lengths[:, None], 0.0)  # the padding lanes' zeros
+        del lengths
+        check(torch.equal(simplex_project(x, 1.0, True), simplex_project_reference(x, 1.0, True)),
+              f"simplex canonical tile L={L} K={K}: the kernel differs from its plain version")
+        t_k = cuda_ms(lambda: simplex_project(x, 1.0, True), reps=20, graph=True)
+        t_p = cuda_ms(lambda: simplex_project_reference(x, 1.0, True), reps=3, warmup=1)
+        t_l = cuda_ms(lambda: _duchi_torch(x, 1.0, True, 1e-6), reps=3, warmup=1)
+        bound = K * L * 8 / PEAK_BYTES_PER_S * 1e3
+        for key, v in (("ms", t_k.ms), ("plain_ms", t_p.ms), ("library_ms", t_l.ms), ("bound_ms", bound)):
+            total[key] += v
+        say("timing", kernel="'duchi_sortscan_kernel'", K=K, L=L, ms=f"{t_k.ms:.4f}", bound_ms=f"{bound:.4f}",
+            share_of_bound=f"{bound / t_k.ms:.3f}", plain_ms=f"{t_p.ms:.3f}", torch_ops_ms=f"{t_l.ms:.3f}",
+            **timing_kv(t_k))
+        del x
+    del tiles
+    torch.cuda.empty_cache()
+    say("timing", kernel="'duchi_sortscan_kernel, canonical tiles'", ms=f"{total['ms']:.4f}",
+        bound_ms=f"{total['bound_ms']:.4f}", share_of_bound=f"{total['bound_ms'] / total['ms']:.3f}",
+        plain_ms=f"{total['plain_ms']:.3f}", torch_ops_ms=f"{total['library_ms']:.3f}")
+    return {"name": "simplex_project", "route": "cuda", "source": "dualip_tpu_torch/csrc/simplex_project.cu",
+            "replaces": "none: XLA's sort and cumsum (dualip_tpu/projections/simplex.py::duchi_project)",
+            "bound_by": "bytes", "max_err_vs_torch_ops": worst, **total}
+
+
+def simplex_counts(bcsc) -> tuple:
+    """(simplex tiles the kernel projects, rows left to torch's ops) in one
+    evaluation of the registry csc path on ``bcsc``: a Duchi simplex tile of
+    at most ``KERNEL_MAX_L`` lanes is one launch, a wider one its K rows in
+    ``TORCH_ROWS``."""
+    from dualip_tpu_torch.ops.simplex_project import KERNEL_MAX_L
+
+    duchi = [s for s in bcsc.specs if s.proj_type in ("simplex", "simplex_eq")
+             and dict(s.proj_params).get("method", "duchi") == "duchi"]
+    return sum(s.L <= KERNEL_MAX_L for s in duchi), sum(s.K for s in duchi if s.L > KERNEL_MAX_L)
 
 
 def plain_blocked(bf, p, v, reverse=False):
@@ -1333,7 +1446,7 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk, gra
         reset_counts()
         out = pv.run_ours(fairness, pv.MAX_ITER, "cuda", layout, tmp, input_args=lps[fairness], objective=timed)
         torch.cuda.synchronize()
-        n = counts()
+        n = {**counts(), "torch_rows": profiling.counter(TORCH_ROWS)}
         first_ms = timed.events[0][0].elapsed_time(timed.events[0][1])  # iteration 1, eager
         ms_it = replay_ms(timed, zeros(timed), kw=pv_kw)
         s = pv.summarize(refs[fairness], pv.parse_log(out["log_path"]), fairness,
@@ -1416,7 +1529,9 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk, gra
 
     # ---- fairness: the segment-sum kernel, the fixed order
     obj, out, n = run("fairness", True, "csc")
-    want = {"segsum": graph_calls(1, 1), "K1g": 0, "K3": 0}
+    tiles, wide_rows = simplex_counts(obj.bcsc)  # the simplex kernel, and torch's ops on the tiles above 64 lanes
+    want = {"segsum": graph_calls(1, 1), "K1g": 0, "K3": 0, "simplex": graph_calls(tiles, 1),
+            "torch_rows": graph_calls(wide_rows, 1)}
     check(all(n[k] == v for k, v in want.items()), f"examples fairness: wrapper calls {n}, expected {want}")
     again = first_iterations(obj, FAIR_REPEAT_ITERS, eager=False)
     rep = rel_dev(again, out["trace"][:FAIR_REPEAT_ITERS])
@@ -1955,6 +2070,13 @@ def phase_dist(dt, args, inp, card, dev, refs, solve, captured, replay_ms, graph
                 res, _, _ = solve(inp, iters, False, profiled=False, mesh=mesh, **kw)
             obj = captured["obj"]
             check(cap.call_count == 1, f"dist (a) {path}: run_solver captured {cap.call_count} graphs")
+            if path == "csc plain":  # iteration 1 and the capture: the simplex kernel a tile each
+                tiles, wide_rows = simplex_counts(obj.bcsc)
+                calls, rows = captured["calls"]["simplex"], profiling.counter(TORCH_ROWS)
+                say("dist", step="a", path=repr(path), simplex_tiles=tiles, simplex_wrapper_calls=calls,
+                    torch_rows=rows)
+                check(tiles > 0 and calls == graph_calls(tiles) and rows == graph_calls(wide_rows),
+                      f"dist (a) {path}: simplex calls {calls}, torch rows {rows} for {tiles} tiles")
             if path == "butterfly":
                 ref, ref_from = refs["butterfly"], "run_solver without a mesh"
             else:
@@ -2189,6 +2311,7 @@ def main(argv=None) -> int:
         check_err = phase_kernels(sorted({1, 2, 8, 16, 32, 65, 100, 128, 394, 1000, 2100, l_max}), dev)
     if "segsum" in phases:
         segsum_err = phase_segsum(dev)
+    simplex_row = phase_simplex(dev) if "simplex" in phases else None
     if "benes" in phases:
         phase_benes(dev)
     if "panel" in phases:
@@ -2371,6 +2494,18 @@ def main(argv=None) -> int:
             agd.maximize(objective, x0)
         return event_ms(lambda: agd.maximize(objective, x0)) / agd.max_iter
 
+    def check_simplex(what, bcsc, n_launch, calls, torch_rows, iters):
+        """A graph-replayed registry csc solve of ``iters`` evaluations (no
+        save_primal): the simplex kernel ran once a tile an evaluation on the
+        card, its wrapper was called in iteration 1 and the capture, and no
+        row it could take was left to torch's ops."""
+        tiles, wide_rows = simplex_counts(bcsc)
+        say("slice", option=repr(what), simplex_tiles=tiles, simplex_launches=n_launch["simplex"],
+            simplex_wrapper_calls=calls["simplex"], torch_rows=torch_rows, expected_torch_rows=graph_calls(wide_rows))
+        check(tiles > 0 and n_launch["simplex"] == tiles * iters and calls["simplex"] == graph_calls(tiles),
+              f"{what}: simplex launches {n_launch['simplex']}, calls {calls['simplex']} for {tiles} tiles")
+        check(torch_rows == graph_calls(wide_rows), f"{what}: {torch_rows} rows left to torch's ops")
+
     def check_solution(res, obj, data, iters, what):
         log = res.dual_objective_log
         check(len(log) == iters and all(np.isfinite(log)), f"{what}: non-finite dual objective log")
@@ -2495,13 +2630,17 @@ def main(argv=None) -> int:
     certs, cert_dual = {}, None
 
     def certify(what, objective, dual):
-        """The exact certificate at ``dual``: its numbers and its time."""
+        """The exact certificate at ``dual``: its numbers, its time, and the
+        simplex kernel's calls and the rows left to torch's ops in it."""
         torch.cuda.synchronize()
+        before = profiling.counter(_counted()["simplex"]), profiling.counter(TORCH_ROWS)
         t0 = time.perf_counter()
         c = objective.exact_certificate(dual)
         ms = (time.perf_counter() - t0) * 1e3
         say("cert", layout=what, primal_ub=c["primal_ub"], dual_lb=c["dual_lb"], gap_rel=c["gap_rel"],
-            max_row_violation=c["max_row_violation"], ms=f"{ms:.1f}", card=card)
+            max_row_violation=c["max_row_violation"], ms=f"{ms:.1f}",
+            simplex_calls=profiling.counter(_counted()["simplex"]) - before[0],
+            torch_rows=profiling.counter(TORCH_ROWS) - before[1], card=card)
         check(c["dual_lb"] <= c["primal_ub"], f"cert {what}: dual_lb {c['dual_lb']} > primal_ub {c['primal_ub']}")
         check(all(np.isfinite(v) for v in c.values()), f"cert {what}: not finite: {c}")
         return c
@@ -2773,6 +2912,7 @@ def main(argv=None) -> int:
         # for bit.
         r16, n_launch, _ = solve(inp, n_chk, False, dtype="bfloat16")
         obj16 = captured["obj"]
+        calls16, rows16 = captured["calls"], profiling.counter(TORCH_ROWS)
         check(obj16.bcsc.tiles[0].a.dtype == torch.bfloat16, "csc bf16 tiles: the tiles are not bf16")
         log16 = np.asarray(r16.dual_objective_log)
 
@@ -2791,12 +2931,17 @@ def main(argv=None) -> int:
         check(plain16.max() == 0.0, f"csc bf16 tiles: kernel vs plain versions differ by {plain16.max()} relative")
         check(vs32.max() <= 4e-2, f"csc bf16 tiles drift {vs32.max()} relative from the fp32 tiles")
         check(n_launch["segsum"] == n_chk and n_launch["K1g"] == 0, f"csc bf16 tiles: launches {n_launch}")
+        check_simplex("csc bf16 tiles", obj16.bcsc, n_launch, calls16, rows16, n_chk)
         graph_check("csc bf16 tiles", obj16, torch.zeros(obj16.bcsc.m, device=dev))
         del obj16, r16, captured["obj"]
         torch.cuda.empty_cache()
         if "graph" in phases:  # the plain csc path on fp32 tiles (registry projections, the segment-sum kernel)
             r_p, n_launch, _ = solve(inp, n_chk, False)
             obj_p = captured["obj"]
+            calls_p = captured["calls"]
+            check_simplex("csc plain", obj_p.bcsc, n_launch, calls_p, profiling.counter(TORCH_ROWS), n_chk)
+            if simplex_row is not None:  # the kernel table's counts: the main path's own solve
+                simplex_row.update(launches=n_launch["simplex"], wrapper_calls=calls_p["simplex"])
             say("slice", option="'use_pallas=False (fp32 tiles)'", iterations=n_chk,
                 ms_per_iteration=f"{replay_ms(obj_p, torch.zeros(obj_p.bcsc.m, device=dev)):.4f}",
                 max_rel_dev_vs_fused=float(rel_dev(r_p.dual_objective_log, csc_log[:n_chk]).max()), launches=n_launch)
@@ -3111,7 +3256,9 @@ def main(argv=None) -> int:
     if not full:
         say("done", phases=phases, note="a partial run prints no result lines")
         return 0
-    order = {n: i for i, n in enumerate(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "segment_sum_rows"))}
+    kernels.append(simplex_row)
+    order = {n: i for i, n in enumerate(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "segment_sum_rows",
+                                         "simplex_project"))}
     kernels.sort(key=lambda k: order[k["name"].split()[0]])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name, "count": torch.cuda.device_count()}}))

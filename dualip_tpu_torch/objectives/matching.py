@@ -10,7 +10,9 @@ then ``calc_grad`` subtracts ``b`` and adds ``reg + lambda . grad`` to the
 objective.  Three layouts compute it:
 
 * ``layout="csc"``: column tiles.  ``use_pallas=False`` runs the registry
-  projections as torch ops on ``(K, L)`` tiles; ``use_pallas=True`` (the name
+  projections on ``(K, L)`` tiles (the simplex on CUDA through the
+  sort-and-scan kernel of ``ops/simplex_project.py``, the z formation and
+  the sums as torch ops); ``use_pallas=True`` (the name
   is the JAX package's) runs the hand-written fused tile kernel
   ``ops/fused_matching.py`` (K1/K2) on ``(L, K)``-transposed tiles, in its
   gather form (``scaled[rows]`` inside the kernel; the registry path gathers

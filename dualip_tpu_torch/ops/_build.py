@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 )
 
 # every kernel source of the port, for ``build(KERNEL_SOURCES)``
-KERNEL_SOURCES = ("fused_matching", "panel_matching", "benes", "segment_sum", "marks")
+KERNEL_SOURCES = ("fused_matching", "panel_matching", "benes", "segment_sum", "marks", "simplex_project")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

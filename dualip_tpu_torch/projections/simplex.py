@@ -3,6 +3,8 @@
 Two algorithms, both branch-free over the last axis of ``(..., L)`` blocks:
 
 * ``duchi`` (default): sort, cumsum, rho threshold, theta (Duchi et al. 2008);
+  float32 CUDA rows of at most 64 lanes go to one hand-written kernel
+  (``ops/simplex_project.py``), everything else to torch's ops;
 * ``bisection_search``: 50 fixed bisection steps on the shift ``nu``.
 
 Both pre-clamp to ``x >= 0`` and keep the top-2 vertex shortcut
@@ -14,7 +16,9 @@ from __future__ import annotations
 
 import torch
 
+from dualip_tpu_torch.ops import simplex_project as _sortscan
 from dualip_tpu_torch.projections.base import ProjectionOperator, register
+from dualip_tpu_torch.utils import profiling
 
 
 def _lane(x: torch.Tensor) -> torch.Tensor:
@@ -36,7 +40,21 @@ def _one_hot_vertex(x: torch.Tensor, i0: torch.Tensor, z) -> torch.Tensor:
 
 
 def duchi_project(x: torch.Tensor, z: float = 1.0, inequality: bool = False, tol: float = 1e-6) -> torch.Tensor:
-    """Project each last-axis vector onto ``{w >= 0, sum w (<=|=) z}``."""
+    """Project each last-axis vector onto ``{w >= 0, sum w (<=|=) z}``.
+
+    Rows the sort-and-scan kernel takes (``ops/simplex_project.py::takes_kernel``:
+    CUDA, float32, at most 64 lanes) go to it; the rest run torch's ops, and
+    off the CPU count their rows in ``dualip.projections.duchi.torch_rows``
+    (how often the kernel does not engage on the card)."""
+    if _sortscan.takes_kernel(x.device, x.dtype, x.shape[-1]):
+        return _sortscan.simplex_project(x, z, inequality, tol)
+    if x.device.type != "cpu":
+        profiling.count("dualip.projections.duchi.torch_rows", x.numel() // max(x.shape[-1], 1))
+    return _duchi_torch(x, z, inequality, tol)
+
+
+def _duchi_torch(x: torch.Tensor, z: float, inequality: bool, tol: float) -> torch.Tensor:
+    """``duchi_project`` in torch's batched ops (sort, cumsum, sum)."""
     dtype, dev = x.dtype, x.device
     L = x.shape[-1]
     zt = torch.full((), z, dtype=dtype, device=dev)

@@ -14,7 +14,9 @@
   host timeline, the clock it aligns the card's records to, shows the
   program's layers.
 * ``count(name, n=1)``: a counter, always on (the kernels' wrappers count
-  what they enqueue on the card: ``dualip.ops.<wrapper>.enqueued``).
+  what they enqueue on the card: ``dualip.ops.<wrapper>.enqueued``;
+  ``duchi_project`` counts the rows it leaves to torch's ops off the CPU,
+  where its kernel does not engage: ``dualip.projections.duchi.torch_rows``).
 * ``IterationMarks``: four device marks of each AGD iteration on the card
   (``start``, ``columns``, ``rows``, ``end``), each a one-thread kernel that
   stores the card's timer into a table (a kernel node of the CUDA graph);
