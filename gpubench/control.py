@@ -11,16 +11,16 @@ bfloat16.  ``--sides`` also takes ``fault:<name>`` (the program with a fault
 of ``faults.py`` planted) and ``reference:<dtype>`` (the plain reference in
 that dtype in the program's place, a second witness beside the program), and
 ``--iterations`` sets the calls' length in place of the cell's.  Prints one
-JSON line per seed and side.  The benchmark's own runs never run any of this.
+JSON line per seed and side.  A multi-card cell runs each side on its ranks,
+the fault planted and the control built in every rank.  The benchmark's own
+runs never run any of this.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import sys
-import time
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
@@ -39,48 +39,30 @@ def controls(cell) -> list:
     return list(cell.traffic["controls"])
 
 
-def control_factory(spec: dict):
-    """``runner_factory`` for ``core.run`` that puts the control ``spec`` in
-    the program's place."""
-
-    def factory(cell, inputs, device):
-        t0 = time.perf_counter()
-        if spec["kind"] == "program":
-            objective, solver, build_s = core.build_program(cell, inputs, device, spec["objective_kwargs"])
-            return core.ProgramRunner(objective, solver), build_s
-        if spec["kind"] == "reference":
-            reference = core.reference_for(cell, inputs, device, dtype=getattr(torch, spec["dtype"]))
-            return core.ReferenceRunner(reference, cell), time.perf_counter() - t0
-        raise ValueError(f"unknown control kind {spec['kind']!r}")
-
-    return factory
-
-
 def sides(cell, names: str) -> list:
-    """(label, runner_factory or None, fault or None) for each of ``names``."""
+    """(label, control spec or None, fault or None) for each of ``names``."""
     out = []
     for side in names.split(","):
         if side == "program":
             out.append(("program", None, None))
         elif side == "control":
-            out += [(spec["name"], control_factory(spec), None) for spec in controls(cell)]
+            out += [(spec["name"], spec, None) for spec in controls(cell)]
         elif side.startswith("fault:"):
             fault = side.split(":", 1)[1]
-            if fault not in faults.FAULTS:
-                raise ValueError(f"no fault {fault!r} (has {sorted(faults.FAULTS)})")
+            if fault not in faults.ALL:
+                raise ValueError(f"no fault {fault!r} (has {sorted(faults.ALL)})")
             out.append((side, None, fault))
         elif side.startswith("reference:"):
-            out.append((side, control_factory({"kind": "reference", "dtype": side.split(":", 1)[1]}), None))
+            out.append((side, {"kind": "reference", "dtype": side.split(":", 1)[1]}, None))
         else:
             raise ValueError(f"unknown side {side!r}")
     return out
 
 
-def readings(name: str, seed: int, calls: int, label: str, factory=None, fault=None, iterations=None,
+def readings(name: str, seed: int, calls: int, label: str, control=None, fault=None, iterations=None,
              device="cuda", root=core.ROOT) -> dict:
-    with faults.planted(fault) if fault else contextlib.nullcontext():
-        res = core.run(name, seed, 0.0, False, device=device, root=root, runner_factory=factory, calls=calls,
-                       iterations=iterations)
+    res = core.run(name, seed, 0.0, False, device=device, root=root, control=control, fault=fault, calls=calls,
+                   iterations=iterations)
     return {"workload": name, "seed": seed, "side": label, "iterations_per_call": iterations,
             "correct": res["correct"], "calls": res["attempted"],
             "compared": {k: v["value"] for k, v in res["compared"].items()},
@@ -101,8 +83,8 @@ def main(argv=None) -> int:
         return 2
     plan = sides(core.Cell(args.workload), args.sides)
     for seed in (int(s) for s in args.seeds.split(",")):
-        for label, factory, fault in plan:
-            print(json.dumps(readings(args.workload, seed, args.calls, label, factory, fault, args.iterations)),
+        for label, control, fault in plan:
+            print(json.dumps(readings(args.workload, seed, args.calls, label, control, fault, args.iterations)),
                   flush=True)
     return 0
 

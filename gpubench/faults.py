@@ -10,7 +10,13 @@ Each fault takes ``setattr(target, name, value)`` (pytest's
   mean over the rest (csc: the segment-sum's input; butterfly: a*x carried
   back to rows);
 * ``altered_answer``: one entry of each returned dual altered where
-  ``maximize`` produces it.
+  ``maximize`` produces it;
+* ``lost_rank_part`` (``RANK_FAULTS``: a sharded run's only): rank 0's
+  part (grad, obj, reg) zeroed before ``reduce_parts`` sums the ranks'
+  parts, so the exchange leaves one rank's columns out (rank 0's: the last
+  rank's slice of a tiny problem can be all padding).
+
+A multi-card run plants the fault in every rank.
 """
 
 from __future__ import annotations
@@ -61,7 +67,22 @@ def altered_answer(setattr):
     setattr(agd.AcceleratedGradientDescent, "maximize", altered)
 
 
-FAULTS = {f.__name__: f for f in (unchanged_state, half_the_batch, altered_answer)}
+def lost_rank_part(setattr):
+    import dualip_tpu_torch.objectives.matching as matching
+
+    reduce_parts = matching.reduce_parts
+
+    def lost(mesh, grad, dual_obj, reg):
+        if mesh.rank == 0:
+            grad, dual_obj, reg = torch.zeros_like(grad), torch.zeros_like(dual_obj), torch.zeros_like(reg)
+        return reduce_parts(mesh, grad, dual_obj, reg)
+
+    setattr(matching, "reduce_parts", lost)
+
+
+FAULTS = {f.__name__: f for f in (unchanged_state, half_the_batch, altered_answer)}  # every cell's
+RANK_FAULTS = {f.__name__: f for f in (lost_rank_part,)}  # a multi-card cell's
+ALL = {**FAULTS, **RANK_FAULTS}
 
 
 @contextlib.contextmanager
@@ -74,7 +95,7 @@ def planted(name: str):
         setattr(target, attr, value)
 
     try:
-        FAULTS[name](patch)
+        ALL[name](patch)
         yield
     finally:
         for target, attr, old in reversed(undo):

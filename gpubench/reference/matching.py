@@ -33,7 +33,7 @@ control that the benchmark's limits must reject.
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -75,10 +75,16 @@ def project_simplex_ineq(z: torch.Tensor, radius: float, tol: float) -> torch.Te
 
 class MatchingReference:
     """The matching LP on ``device`` in ``dtype``, built from host CSC arrays
-    (``indptr`` (n+1,), ``rows`` (nnz,), ``a`` and ``c`` (nnz,), ``b`` (m,))."""
+    (``indptr`` (n+1,), ``rows`` (nnz,), ``a`` and ``c`` (nnz,), ``b`` (m,)).
 
-    def __init__(self, indptr, rows, a, c, b, gamma: float, radius: float, tol: float, dtype, device):
-        self.dtype, self.device = dtype, torch.device(device)
+    Sharded: built from a range of the columns (and the whole ``b``), with
+    ``reduce`` summing the flat buffer ``(A x, c.x, x.x)`` of every shard's
+    columns, once an evaluation, so each shard follows the whole problem's
+    AGD.  Without ``reduce`` the columns given are the whole problem."""
+
+    def __init__(self, indptr, rows, a, c, b, gamma: float, radius: float, tol: float, dtype, device,
+                 reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+        self.dtype, self.device, self.reduce = dtype, torch.device(device), reduce
         self.gamma, self.radius, self.tol = gamma, radius, tol
         self.m = int(np.asarray(b).shape[0])
         indptr = torch.as_tensor(np.asarray(indptr), dtype=torch.int64, device=self.device)
@@ -125,6 +131,9 @@ class MatchingReference:
             cx = cx + torch.sum(g.c * x)
             xx = xx + torch.sum(x * x)
         ax = torch.segment_reduce(torch.cat(ax)[self.order], "sum", lengths=self.row_counts)
+        if self.reduce is not None:  # a shard's sums, summed over the shards
+            sums = self.reduce(torch.cat([ax, cx.reshape(1), xx.reshape(1)]))
+            ax, cx, xx = sums[:self.m], sums[self.m], sums[self.m + 1]
         grad = ax - self.b
         return cx + (self.gamma / 2) * xx + torch.dot(lam, grad), grad
 

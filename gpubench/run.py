@@ -8,7 +8,9 @@ for.  Prints, as the last line of standard output, one JSON object with
 ``breakdown`` with ``--trace 1``), and last ``compared``: each number the
 correctness check compared, beside its limit; those also end standard error.
 Exits non-zero, printing no result, without a CUDA device (or with fewer than
-the cell asks for), or when a module of JAX or of the JAX package is loaded.
+the cell asks for), when a rank of a multi-card cell fails or hangs (its
+traceback ends standard error), or when a module of JAX or of the JAX package
+is loaded (in any rank).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"refused: the program is not importable: {e}", file=sys.stderr)
         return 2
-    from gpubench import core
+    from gpubench import core, ranks
 
     try:
         result = core.run(args.workload, args.seed, args.seconds, bool(args.trace), device="cuda",
@@ -45,6 +47,9 @@ def main(argv=None) -> int:
     except core.Refused as e:
         print(f"refused: {e}", file=sys.stderr)
         return 2
+    except ranks.RankFailed as e:
+        print(f"failed: {e}", file=sys.stderr)
+        return 1
     loaded = core.forbidden_modules()
     if loaded:
         print(f"refused: modules of JAX or the JAX package are loaded: {', '.join(loaded)}", file=sys.stderr)

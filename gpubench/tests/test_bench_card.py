@@ -5,7 +5,7 @@ import pytest
 import torch
 
 from gpubench import core
-from gpubench.control import control_factory, controls
+from gpubench.control import controls
 
 CELLS = ["canon25m-csc-fused", "canon25m-csc-default", "ml20m-csc-fused", "ml20m-butterfly"]
 
@@ -18,7 +18,7 @@ def test_tiny_on_the_card(tiny_root, cell):
     assert core.run(cell, 17, 0.0, False, device="cuda", root=tiny_root, calls=2)["correct"]
     for spec in controls(core.Cell(cell, tiny_root)):
         assert not core.run(cell, 17, 0.0, False, device="cuda", root=tiny_root, calls=2,
-                            runner_factory=control_factory(spec))["correct"], spec["name"]
+                            control=spec)["correct"], spec["name"]
 
 
 @pytest.mark.card

@@ -1,13 +1,14 @@
 """The check: sound runs pass, and each of the traffic's controls (the
 reference in bfloat16, or the program on its own lower-precision path, in the
 program's place) and each fault the cells can have (``gpubench/faults.py``)
-fail, under the real cells' limits, at a tiny size on the CPU.  A fault
-between cards has no place here: every cell runs on one card."""
+fail, under the real cells' limits, at a tiny size on the CPU.  The fault
+between cards (``lost_rank_part``) is a multi-card cell's:
+``test_bench_ranks.py`` plants it in two ranks."""
 
 import pytest
 
 from gpubench import core, faults
-from gpubench.control import control_factory, controls
+from gpubench.control import controls
 
 CELLS = ["canon25m-csc-fused", "canon25m-csc-default", "ml20m-csc-fused", "ml20m-butterfly"]
 SEED = 2**31 + 99
@@ -18,7 +19,7 @@ def test_sound_and_control(tiny_root, cell):
     assert core.run(cell, SEED, 0.0, False, device="cpu", root=tiny_root, calls=2)["correct"]
     for spec in controls(core.Cell(cell, tiny_root)):
         res = core.run(cell, SEED, 0.0, False, device="cpu", root=tiny_root, calls=2,
-                       runner_factory=control_factory(spec))
+                       control=spec)
         assert not res["correct"] and res["failed"] >= 1, spec["name"]
 
 

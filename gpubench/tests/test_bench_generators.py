@@ -66,3 +66,39 @@ def test_movielens_degrees_at_full_size():
     deg = movielens_proxy.user_degrees(138_493, 20_000_263, 20, 1.0)
     assert int(deg.sum()) == 20_000_263 and int(deg.min()) >= 20 and int(deg.max()) < 26_744
     assert torch.all(deg[1:] >= deg[:-1])
+
+
+@pytest.mark.parametrize("parts", [2, 3])
+def test_parts_keep_the_law(parts):
+    """``generate_part``: the parts split each destination's ``K_j`` of
+    ``generate`` exactly, each part's columns are a CSC in its range with at
+    most its share of each destination's edges (duplicates merged within the
+    part), and ``b`` is the budget of the summed fixed-point loads."""
+    gen = upstream_synthetic
+    m, n = CANON["num_destinations"], CANON["num_sources"]
+    _, _, counts, _, _ = gen.destination_side(CANON, "cpu")
+    split = gen.part_counts(CANON, "cpu", parts)
+    assert split.shape == (parts, m) and torch.equal(split.sum(0), counts) and bool((split >= 0).all())
+    made = [gen.generate_part(CANON, BIG_SEED, "cpu", p, parts) for p in range(parts)]
+    again = gen.generate_part(CANON, BIG_SEED, "cpu", parts - 1, parts)
+    assert all(torch.equal(again[k], made[-1][k]) for k in again)
+    for p, part in enumerate(made):
+        lo, hi = gen.part_bounds(n, p, parts)
+        d = host({k: v for k, v in part.items() if k != "load"} | {"b": torch.zeros(m)})
+        check_csc(d, m, hi - lo)
+        assert np.all(np.bincount(d["rows"], minlength=m) <= split[p].numpy())
+        assert part["load"].dtype == torch.int64 and part["load"].shape == (m,)
+    load = sum(part["load"] for part in made)
+    _, _, _, rho, _ = gen.destination_side(CANON, "cpu")
+    want = (rho * (load.to(torch.float64) / 2**32 + 1e-8)).to(torch.float32)
+    assert torch.equal(gen.budget(CANON, load, "cpu"), want)
+    other = gen.generate_part(CANON, BIG_SEED + 1, "cpu", 0, parts)
+    assert not torch.equal(other["rows"], made[0]["rows"]) or not torch.equal(other["a"], made[0]["a"])
+
+
+def test_whole_counts_are_the_split_total():
+    """``generate`` draws the ``K_j`` that the parts split: its merged edges
+    per destination are at most ``K_j``."""
+    _, _, counts, _, _ = upstream_synthetic.destination_side(CANON, "cpu")
+    d = host(upstream_synthetic.generate(CANON, BIG_SEED, "cpu"))
+    assert np.all(np.bincount(d["rows"], minlength=CANON["num_destinations"]) <= counts.numpy())

@@ -112,3 +112,50 @@ def test_bfloat16_control_departs():
     low = reference(torch.bfloat16).agd_call(lam0, 30, STEP0, MAX_STEP)
     gap = max(abs(a - b) / abs(b) for a, b in zip(low.objectives, exact.objectives))
     assert gap > 1e-4
+
+
+def test_sharded_equals_whole():
+    """Shards of the columns, each summing ``(A x, c.x, x.x)`` over the
+    shards once an evaluation, follow the whole problem's AGD to 1e-12."""
+    import threading
+
+    from gpubench.generators import upstream_synthetic
+
+    params = {"num_sources": 4000, "num_destinations": 30, "target_sparsity": 0.1, "destination_seed": 42}
+    d = {k: v.numpy() for k, v in upstream_synthetic.generate(params, 2**31 + 3, "cpu").items()}
+    n, shards = d["indptr"].shape[0] - 1, 3
+    lam0 = np.linspace(0.0, 0.2, 30)
+    kw = dict(gamma=1e-3, radius=1.0, tol=1e-6, dtype=torch.float64, device="cpu")
+    whole = MatchingReference(d["indptr"], d["rows"], d["a"], d["c"], d["b"], **kw).agd_call(lam0, 20, 1e-3, 0.1)
+
+    meet, slots = threading.Barrier(shards), [None] * shards
+
+    def reduce_of(r):
+        def reduce(buf):  # every shard sums all shards' buffers in shard order: the same bits
+            slots[r] = buf
+            meet.wait()
+            out = sum(slots[1:], slots[0].clone())
+            meet.wait()
+            return out
+
+        return reduce
+
+    got = [None] * shards
+
+    def shard(r):
+        lo, hi = r * n // shards, (r + 1) * n // shards
+        s, e = int(d["indptr"][lo]), int(d["indptr"][hi])
+        ref = MatchingReference(d["indptr"][lo:hi + 1] - s, d["rows"][s:e], d["a"][s:e], d["c"][s:e], d["b"],
+                                reduce=reduce_of(r), **kw)
+        got[r] = ref.agd_call(lam0, 20, 1e-3, 0.1)
+
+    threads = [threading.Thread(target=shard, args=(r,)) for r in range(shards)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads)
+    for res in got:
+        assert np.allclose(res.objectives, whole.objectives, rtol=1e-12, atol=0)
+        assert torch.allclose(res.dual, whole.dual, rtol=1e-12, atol=1e-15)
+        assert torch.allclose(res.gradient, whole.gradient, rtol=1e-12, atol=1e-15)

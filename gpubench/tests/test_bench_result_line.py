@@ -24,10 +24,15 @@ def test_untraced_line(tiny_root):
 
 def test_traced_line(tiny_root, monkeypatch):
     """The traced window's profiler needs the card; here it is replaced by one
-    that runs the calls and returns made-up records."""
+    that runs the calls with the program's store on, as a running profiler
+    switches it on, and returns made-up records.  The CPU has no device
+    marks, so the three ``layer_*_ms`` read nothing here."""
+    from dualip_tpu_torch.utils import profiling
 
-    def fake(run, device):
+    def fake(run, device, again=None):
+        monkeypatch.setattr(profiling.STORE, "on", True)
         out = run()
+        monkeypatch.setattr(profiling.STORE, "on", False)
         records = [("void column_kernel<true, false>(float*)", 0.0, 40.0), ("void add_rows(float*)", 40.0, 60.0),
                    ("elementwise_kernel", 70.0, 90.0)]
         return out, tracing.reduce(records, [("cudaGraphLaunch", 60.0, 70.0)], (0.0, 100.0))
@@ -40,7 +45,8 @@ def test_traced_line(tiny_root, monkeypatch):
     assert res["device"]["busy_s"] > 0 and res["device"]["window_s"] > 0
     spec = json.loads((tiny_root / "BENCHMARK.json").read_text())
     want = {m["name"] for m in spec["per_layer"] if "canon25m-csc-fused" in m["workloads"]}
-    assert set(res["metrics"]) == want
+    assert set(res["metrics"]) == want - {"layer_columns_ms", "layer_rows_ms", "layer_step_ms"}
+    assert res["metrics"]["call_host_ms"]["value"] > 0
     assert res["metrics"]["idle_pct"]["value"] == 100.0 * (1 - 80 / 100)
 
 

@@ -101,9 +101,11 @@ def reduce(device: List[Tuple[str, float, float]], host: List[Tuple[str, float, 
                            attempts=1, lost_records=0)
 
 
-def traced_window(run, device):
+def traced_window(run, device, again=None):
     """``run()`` (the window's calls) under the profiler; returns what it
-    returned and the reduced trace."""
+    returned and the reduced trace.  ``again(bool)``, when given, hears
+    after each attempt whether another follows (the other ranks of a
+    multi-card run make the same calls)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     if torch.device(device).type != "cuda":
@@ -116,7 +118,10 @@ def traced_window(run, device):
                 out = run()
                 torch.cuda.synchronize()
         lost = lost_records(prof, since)
-        if not lost:
+        repeat = bool(lost) and attempt < len(LEAD_KERNELS)
+        if again is not None:
+            again(repeat)
+        if not repeat:
             break
     cuda = torch.autograd.DeviceType.CUDA
     device_records, host_records, window = [], [], None
