@@ -11,10 +11,15 @@ result lines at the end are printed only by a run of every default phase):
    per source, all started together) and the native Benes router (``g++``);
 3. kernels: the fused tile kernel (K1/K2) against its plain PyTorch version on
    the card, for every projection kind, at L in {1, 2, 8, 16, 29, 32, 65, 100,
-   128, 394, 1000, 2100} (above 64 one warp a column: in registers to 512,
-   shared memory to 2048, re-read from device memory above), its gather form against its
-   lam_g form bit for bit at m = 64, 10,000 and 70,000, and a second launch
-   bit for bit against the first;
+   128, 394, 513, 1000, 1024, 2048, 2100, 4096, 8192, 9254, 20000, 60000}
+   (above 64 one warp a column, in registers, to 512; above, one block a
+   column of 128 to 1024 threads, its lanes in registers to 16,384, in shared
+   memory to 57,856, re-read above), its gather form against its lam_g form bit for bit at
+   m = 64, 10,000 and 70,000, and a second launch bit for bit against the
+   first; ml20m: K1 on each csc tile of the benchmark's ml20m-csc-fused cell
+   (``gpubench/``'s movielens-20m stand-in, built as the cell builds it),
+   each tile's launch timed alone by graph replays beside its bound, and held
+   to the plain version;
 4. segsum: the windowed fixed-order row segment-sum over several tiles at
    once against a float64 ``index_add_``, and two launches bit for bit;
    simplex: the sort-and-scan simplex kernel of the default csc path against
@@ -200,7 +205,7 @@ NON_FMA_OPS_PER_S = 132 * 128 * 1.98e9
 BISECTION_ITERS = 30
 
 SMALL_SOURCES = 250_000  # the second butterfly solve: few enough blocks for one single-axis group a side
-ALL_PHASES = ("kernels", "segsum", "simplex", "benes", "panel", "golden", "slice", "butterfly", "cert", "lp",
+ALL_PHASES = ("kernels", "ml20m", "segsum", "simplex", "benes", "panel", "golden", "slice", "butterfly", "cert", "lp",
               "examples", "graph", "io", "obs", "dist")
 # the single-device paths phase graph holds to the eager loop (each checked in the phase that builds it)
 GRAPH_PATHS = ("csc use_pallas", "csc plain", "csc bf16 tiles", "butterfly", "butterfly compact",
@@ -584,7 +589,9 @@ def phase_kernels(widths, dev):
     """K1/K2: every (kind, params) case at each width and both want_x, kernel
     vs plain, and the gather form against the lam_g form bit for bit, at
     m = 64, 10,000 and 70,000 (a 280 KB table, more than L1 holds), the last
-    with K = 4102 (4 B copies and a ragged last slab)."""
+    with K = 4102 (4 B copies and a ragged last slab).  Above 512 lanes (a
+    block a column) two shapes: m = 10,000 with K = 1024, and m = 70,000 with
+    K = 1026, whose padding holds a whole group of 8 columns and a ragged one."""
     from dualip_tpu_torch.ops.fused_matching import (
         fused_tile_eval_T,
         fused_tile_eval_T_reference,
@@ -594,22 +601,21 @@ def phase_kernels(widths, dev):
     rng = np.random.default_rng(0)
     err = {False: 0.0, True: 0.0}
     n = 0
-    for kind, params in CASES:
-        for L in widths:
-            # above 512 lanes, one shape (host generation time): the wide kernel's columns in shared
-            # memory (L <= 2048, scaled's copy beside them) or re-read from device memory
-            shapes = ((64, 4 * 1024, 1024), (10_000, 4 * 1024, 1024), (70_000, 4102, 2051)) if L <= 512 else \
-                ((10_000, 1024, 1024),)
-            for m, K, block_k in shapes:
-                a = np.abs(rng.normal(size=(L, K))).astype(np.float32)
-                c = -np.abs(rng.normal(size=(L, K))).astype(np.float32)
-                length = rng.integers(1, L + 1, size=K).astype(np.int32)
-                length[-5:] = 0
-                mask = np.arange(L)[:, None] < length[None, :]
-                a, c = np.where(mask, a, 0).astype(np.float32), np.where(mask, c, 0).astype(np.float32)
-                lam = np.abs(rng.normal(size=m)).astype(np.float32)
-                rows = torch.from_numpy(rng.integers(0, m, size=(L, K)).astype(np.int32)).to(dev)
-                t = [torch.from_numpy(v).to(dev) for v in (a, c, length)]
+    for L in widths:
+        shapes = ((64, 4 * 1024, 1024), (10_000, 4 * 1024, 1024), (70_000, 4102, 2051)) if L <= 512 else \
+            ((10_000, 1024, 1024), (70_000, 1026, 513))
+        for m, K, block_k in shapes:
+            a = np.abs(rng.normal(size=(L, K))).astype(np.float32)
+            c = -np.abs(rng.normal(size=(L, K))).astype(np.float32)
+            length = rng.integers(1, L + 1, size=K).astype(np.int32)
+            length[-13:] = 0
+            mask = np.arange(L)[:, None] < length[None, :]
+            a, c = np.where(mask, a, 0).astype(np.float32), np.where(mask, c, 0).astype(np.float32)
+            lam = np.abs(rng.normal(size=m)).astype(np.float32)
+            rows = torch.from_numpy(rng.integers(0, m, size=(L, K)).astype(np.int32)).to(dev)
+            t = [torch.from_numpy(v).to(dev) for v in (a, c, length)]
+            del a, c, mask
+            for kind, params in CASES:
                 for scale in (-100.0, -2.0):
                     scaled = torch.from_numpy(np.float32(scale) * lam).to(dev)
                     lam_g = scaled[rows.long()]
@@ -638,13 +644,111 @@ def phase_kernels(widths, dev):
                             check(abs(g - r) <= 1e-3 + 1e-4 * abs(r), f"{name}: {nm} {g} vs {r}")
                         err[want_x] = max(err[want_x], e)
                         n += 1
+            del t, rows
     say("kernels", cases=n, widths=list(widths), m_K=[(64, 4096), (10_000, 4096), (70_000, 4102)],
-        m_K_above_512_lanes=[(10_000, 1024)],
+        m_K_above_512_lanes=[(10_000, 1024), (70_000, 1026)],
         max_abs_err_K1=err[False], max_abs_err_K2=err[True],
         tolerance="ax,x: 5e-5*max(1,max|x|); obj,reg: 1e-3+1e-4*|ref|",
         gather_vs_lam_g_form="bit for bit in every case", repeat="bit for bit in every case",
-        wide="L > 64 one warp a column: registers to 512, shared memory to 2048, device memory above")
+        wide="L > 64: a warp a column, lanes in registers, to 512; above, a block a column of 128-1024 threads, "
+             "8 lanes a thread in registers to 8192, 16 to 16,384, then shared memory, then device memory")
     return err
+
+
+ML20M_CELL = "ml20m-csc-fused"  # the benchmark cell whose csc tiles phase ml20m times
+ML20M_SEED = 2147483911
+TILE_CALLS, TILE_REPLAYS = 20, 20  # a tile's launch: a CUDA graph of TILE_CALLS launches, replayed TILE_REPLAYS times
+
+
+def graph_replay_ms(fn) -> float:
+    """Device ms of one call of ``fn``: a CUDA graph of ``TILE_CALLS`` calls,
+    replayed ``TILE_REPLAYS`` times (``tools/wide_column_probe.py``'s timing),
+    so that a launch's time holds neither the host's gaps nor a neighbour's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(TILE_CALLS):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(TILE_REPLAYS):
+        g.replay()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / (TILE_CALLS * TILE_REPLAYS)
+
+
+def phase_ml20m(dev, card) -> list:
+    """K1 (gather form) on each csc tile of the benchmark's ml20m-csc-fused
+    cell: the movielens-20m stand-in generated and built as the cell builds it
+    (``gpubench/core.py``), each tile's launch timed alone by graph replays,
+    beside its bound, and held to the plain version at a seeded dual.  The
+    path follows from the launch's partial count: one a slab of 256 columns
+    (a thread a column), one a group of 8 (a warp a column) or one a column
+    (a block a column).  Then one evaluation's launches are counted and a
+    call of the cell's length from zero is solved twice, bit for bit."""
+    import dualip_tpu_torch.ops.fused_matching as fm
+    from gpubench.core import Cell, build_program, make_inputs
+
+    t0 = time.perf_counter()
+    cell = Cell(ML20M_CELL, ROOT)
+    inputs = make_inputs(cell, ML20M_SEED, dev)
+    obj, solver, build_s = build_program(cell, inputs, dev, cell.traffic["objective_kwargs"])
+    bcsc = obj.bcsc
+    g = torch.Generator(device=dev).manual_seed(ML20M_SEED)
+    nig = torch.full((), -1.0 / float(cell.config["solver"]["gamma"]), dtype=torch.float32, device=dev)
+    scaled = nig * torch.rand(bcsc.m, generator=g, device=dev)
+    rows = []
+    for t, s in zip(bcsc.tiles, bcsc.specs):
+        def k1(fn=fm.fused_tile_gather_eval_T, t=t, s=s):
+            kw = {"block_k": s.K} if fn is fm.fused_tile_gather_eval_T else {}
+            return fn(scaled, t.rows, t.a, t.c, t.length, nig, s.proj_type, s.proj_params, **kw)
+
+        got, ref = k1(), k1(fm.fused_tile_gather_eval_T_reference)
+        e = float((got[0] - ref[0]).abs().max())
+        check(e <= tol_x(ref[0]), f"ml20m K1 on the L={s.L} tile: err {e}")
+        for i in (1, 2):
+            check(abs(float(got[i]) - float(ref[i])) <= 1e-3 + 1e-4 * abs(float(ref[i])),
+                  f"ml20m K1 sums on the L={s.L} tile")
+        check(all(torch.equal(u, v) for u, v in zip(got, k1())), f"ml20m K1 on the L={s.L} tile: two launches differ")
+        ms = graph_replay_ms(k1)
+        nb = fm.num_partial_blocks(s.proj_type, s.L, s.K)
+        path = {-(-s.K // 256): "thread", -(-s.K // 8): "warp", s.K: "block"}.get(nb, "?")
+        real, pad = column_slots(s.L, t.length)
+        nnz = int(t.length.sum())
+        nbytes = real * 16 + pad * 4 + s.K * 4
+        bound = max(nbytes / PEAK_BYTES_PER_S, real * ops_per_slot(s.proj_type) / PEAK_FP32_FLOP_PER_S) * 1e3
+        rows.append((s.L, s.K, int((t.length > 0).sum()), nnz, path, nb, round(ms, 4), round(bound, 4),
+                     round(bound / ms, 4), e))
+    # one evaluation of the cell's objective: a launch a tile, the block path's counted
+    counted = {k: f"dualip.ops.fused_tile_gather_eval_T.{k}" for k in ("enqueued", "block_columns")}
+    before = {k: profiling.counter(c) for k, c in counted.items()}
+    obj.calculate(torch.zeros(bcsc.m, device=dev))
+    torch.cuda.synchronize()
+    calls = {k: profiling.counter(c) - before[k] for k, c in counted.items()}
+    want = {"enqueued": len(bcsc.tiles), "block_columns": sum(r[4] == "block" for r in rows)}
+    check(calls == want, f"ml20m: one evaluation counted {calls}, expected {want}")
+    # a call of the cell's length from zero, twice on one objective and maximizer: the same bits
+    solves = [solver.maximize(obj, torch.zeros(bcsc.m, device=dev)) for _ in range(2)]
+    check(torch.equal(solves[0].dual_val, solves[1].dual_val)
+          and solves[0].dual_objective_log == solves[1].dual_objective_log, "ml20m: two solves differ")
+    total = sum(r[6] for r in rows)
+    say("ml20m", cell=ML20M_CELL, seed=ML20M_SEED, m=bcsc.m, n=bcsc.n, nnz=bcsc.nnz, build_s=f"{build_s:.2f}",
+        wrapper_calls_an_evaluation=calls,
+        repeat=f"two solves of {len(solves[0].dual_objective_log)} iterations bit for bit",
+        L_K_columns_nnz_path_partials_ms_bound_share_err=rows, sum_ms=f"{total:.4f}",
+        above_512_ms=f"{sum(r[6] for r in rows if r[0] > 512):.4f}", timing="graph of 20 launches, 20 replays",
+        tolerance="ax: 5e-5*max(1,max|x|); obj,reg: 1e-3+1e-4*|ref|; a second launch bit for bit",
+        package=str(Path(fm.__file__).parents[1]), card=card, seconds=f"{time.perf_counter() - t0:.1f}")
+    del obj, solver, solves, bcsc, inputs, scaled
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_segsum(dev) -> float:
@@ -1479,7 +1583,7 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk, gra
     say("examples", run="csc", plain_check_iterations=n_chk, max_rel_dev_vs_plain=float(plain_dev.max()),
         tolerance=1e-4)
     check(plain_dev.max() <= 1e-4, f"examples csc: kernels vs plain versions differ by {plain_dev.max()}")
-    # K1 tile by tile at the solve's final dual, the wide tiles (one block a column) among them
+    # K1 tile by tile at the solve's final dual, the wide tiles (one warp a column) among them
     nig = torch.full((), -1.0 / pv.GAMMA, dtype=torch.float32, device=dev)
     scaled = nig * out["result"].dual_val
     rows = []
@@ -1499,7 +1603,7 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk, gra
         real, pad = column_slots(s.L, t.length)  # a real slot: rows, a, c read, a*x written; padding: a*x
         nbytes = real * 16 + pad * 4 + s.K * 4 + obj.bcsc.m * 4
         bound = max(nbytes / PEAK_BYTES_PER_S, real * ops_per_slot(s.proj_type) / PEAK_FP32_FLOP_PER_S) * 1e3
-        rows.append((s.L, s.K, int((t.length > 0).sum()), "warp a column" if s.L > 64 else "thread a column", e,
+        rows.append((s.L, s.K, int((t.length > 0).sum()), f"{fm.k1_path(s.proj_type, s.L).path} a column", e,
                      round(ms, 4), round(bound, 4), round(bound / ms, 4), round(plain_ms, 3)))
     say("timing", path="examples csc", kernel="'K1 fused_tile_gather_eval_T, each tile'",
         L_K_columns_path_err_ms_bound_share_plain_ms=rows, sum_ms=f"{sum(r[5] for r in rows):.4f}",
@@ -2308,7 +2412,10 @@ def main(argv=None) -> int:
     panel_err = {}
     segsum_err = 0.0
     if "kernels" in phases:
-        check_err = phase_kernels(sorted({1, 2, 8, 16, 32, 65, 100, 128, 394, 1000, 2100, l_max}), dev)
+        check_err = phase_kernels(sorted({1, 2, 8, 16, 32, 65, 100, 128, 394, 513, 1000, 1024, 2048, 2100, 4096,
+                                          8192, 9254, 20000, 60000, l_max}), dev)
+    if "ml20m" in phases:
+        phase_ml20m(dev, card)
     if "segsum" in phases:
         segsum_err = phase_segsum(dev)
     simplex_row = phase_simplex(dev) if "simplex" in phases else None

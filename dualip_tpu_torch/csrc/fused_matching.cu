@@ -36,26 +36,37 @@
 //  * One slab in shared memory per block, not two: on an H100 a second buffer
 //    cut the blocks per SM and measured slower; the two blocks of an SM
 //    overlap one's copy with the other's bisection.
-//  * One warp per column above L = 64 (wide_kernel): persistent blocks of 8
-//    warps walk groups of 8 adjacent columns, one a warp (so each 32 B sector
-//    of a lane row read from device memory serves the whole block), with
-//    the gather form and the scaled copy of the column kernel. The warp
-//    forms z once and keeps it, with a and c, in registers up to L = 512
-//    (the bisection then reads no memory, and the emit only stores), z alone
-//    in its stretch of shared memory up to L = 2048, and re-reads it from
-//    device memory (in parallel, the warp's 32 threads at once) above;
-//    every reduction is a warp shuffle, with no block barrier inside a step
-//    (project_column_warp, project_block.cuh). One column's chain of
-//    dependent steps, not the bytes, sets the time of a tile with few real
-//    columns. A column of length 0 (padding) is not projected or read: its
-//    lanes take x = 0 and a*x = 0, as the mask gives them (a padding slot's
-//    a is 0), and a group of 8 such columns is written by whole sectors.
-//    The block-a-column design this replaces spent two barriers on each of
-//    the 30 bisection steps, and half its threads held no lane at L = 128.
-//  * One launch per tile: every slab (column group, above L = 64) writes its
-//    partial (obj, reg) to a scratch; the last block to finish adds them in a
-//    fixed order, so two runs give the same bits (no float atomics), whatever
-//    the number of blocks.
+//  * One warp per column for 64 < L <= 512 (wide_kernel<32, ...>):
+//    persistent blocks of 8 warps walk groups of 8 adjacent columns, one a
+//    warp (so each 32 B sector of a lane row read from device memory serves
+//    the whole block), with the gather form and the scaled copy of the
+//    column kernel. The warp forms z once and keeps it, with a and c, in
+//    registers (the bisection then reads no memory, and the emit only
+//    stores); every reduction is a warp shuffle, with no block barrier
+//    inside a step (project_column_warp, project_block.cuh).
+//  * One block per column above L = 512 (wide_kernel<T, KEEP, ...>, T = 128
+//    to 1024 threads, 8 lanes a thread: 128 at L = 1024, 1024 at 8192):
+//    persistent blocks walk the tile's columns. These tiles hold few real
+//    columns, some thousands of lanes wide: a warp a column left the card
+//    nearly empty while the widest columns' warps walked their lanes 33
+//    times from device memory. The block keeps z, a and c in registers (at
+//    T = 1024 16 lanes a thread up to 16,384 lanes, z alone; then z in
+//    shared memory; then nowhere, z formed again on every pass: one kernel
+//    instance each, so that one keep's registers do not spill another's),
+//    and each reduction costs one barrier (project_column_block). scaled is
+//    read through the caches: a column reads at most L of its m values. The
+//    8 columns that share a sector go to 8 blocks: one block of 8 teams of
+//    128 threads, a team a column, measured no faster on an H100 (a tile of
+//    thousands of real columns takes the time its uncoalesced lane accesses
+//    take, whichever threads issue them).
+//  * A column of length 0 (padding) is not projected or read: its lanes take
+//    x = 0 and a*x = 0, as the mask gives them (a padding slot's a is 0), and
+//    a group of 8 such columns is written by whole sectors (in the block
+//    form each of the 8 columns' blocks writes an eighth of its lane rows).
+//  * One launch per tile: every slab (column group above L = 64, column
+//    above L = 512) writes its partial (obj, reg) to a scratch; the last
+//    block to finish adds them in a fixed order, so two runs give the same
+//    bits (no float atomics), whatever the number of blocks.
 //  * The projection itself is the device function of project_block.cuh, which
 //    the panel kernel (panel_matching.cu) shares.
 //  * Exact numerics of _project_block: 30 bisection steps on [-1, 0] of the
@@ -73,6 +84,8 @@
 // C interface: dualip_fused_tile_eval(...) launches on the given stream and
 // returns cudaGetLastError(); it allocates nothing and does not synchronise.
 
+#include <type_traits>
+
 #include "project_block.cuh"
 
 namespace {
@@ -81,19 +94,41 @@ using namespace dualip;
 
 constexpr int THREADS = 256;       // columns per slab = threads per block, per-column kernels
 constexpr int REG_L_CAP = 64;      // largest L kept in registers
-constexpr int WIDE_WARPS = 8;      // columns per group (one a warp) = warps per block, wide kernel
+constexpr int WIDE_WARPS = 8;      // columns per group (one a warp) = warps per block, wide kernel's warp form
 constexpr int WIDE_REGS = 4;       // a wide column in registers, 4 lanes a thread, up to 128 lanes
-constexpr int WIDE_REGS_LONG = 16; // ... 16 lanes a thread up to 512
-constexpr int STRETCH_L = 2048;    // ... in its warp's stretch of shared memory up to 2048 lanes
+constexpr int WIDE_REGS_LONG = 16; // ... 16 lanes a thread up to 512; above, a block a column
+constexpr int BLOCK_REGS = 8;      // a block's column in registers, 8 lanes a thread (128-1024 threads)
+constexpr int BLOCK_REGS_LONG = 16;  // ... 16 lanes a thread of the largest block, up to 16,384 lanes
+constexpr int BLOCK_MAX = 1024;    // threads of the largest block
 constexpr int SLAB_ARRAYS = 3;     // lam_g or rows, a, c
 constexpr int SCALED_SMEM_BYTES = 48 * 1024;  // largest scaled (m,) copied into shared memory
 constexpr int SMEM_LIMIT = 226 * 1024;  // dynamic shared memory of one block (227 KB less the static part)
 
-// The wide kernel's stretches of shared memory: WIDE_WARPS of L floats where
-// its columns are kept there (32 * WIDE_REGS_LONG < L <= STRETCH_L), else none.
-__host__ __device__ __forceinline__ size_t wide_bytes(int L) {
-  return L > 32 * WIDE_REGS_LONG && L <= STRETCH_L ? (size_t)WIDE_WARPS * L * sizeof(float) : 0;
+// Threads a column of the wide kernel (L > REG_L_CAP): a warp up to
+// 32 * WIDE_REGS_LONG lanes, else the fewest (a power of two) that hold the
+// lanes in registers at BLOCK_REGS a thread, at most BLOCK_MAX.
+// ops/fused_matching.py::k1_path mirrors this rule and keep_of's.
+int wide_threads(int L) {
+  if (L <= 32 * WIDE_REGS_LONG) return 32;
+  int t = 32;
+  while (t < BLOCK_MAX && t * BLOCK_REGS < L) t *= 2;
+  return t;
 }
+
+// Where the largest block keeps its column's lanes (the block form's Keep;
+// every smaller block keeps them in registers, BLOCK_REGS a thread).
+enum BlockKeep { REGS = 0, REGS_LONG = 1, SHARED = 2, NONE = 3 };
+
+int keep_of(int L) {
+  if (L <= BLOCK_MAX * BLOCK_REGS) return REGS;
+  if (L <= BLOCK_MAX * BLOCK_REGS_LONG) return REGS_LONG;
+  return (size_t)L * sizeof(float) <= SMEM_LIMIT ? SHARED : NONE;
+}
+
+template <int KEEP>
+using KeepOf = std::conditional_t<KEEP == REGS, KeepRegs<BLOCK_REGS>,
+                                  std::conditional_t<KEEP == REGS_LONG, KeepRegs<BLOCK_REGS_LONG>,
+                                                     std::conditional_t<KEEP == SHARED, KeepShared, KeepNone>>>;
 
 __device__ unsigned int g_blocks_done = 0;  // blocks of the running launch that have finished
 
@@ -309,21 +344,19 @@ __global__ void __launch_bounds__(THREADS) column_kernel(Args p) {
   finish(p);
 }
 
-// The same kinds above L = 64, one warp per column (project_column_warp):
+// The same kinds for 64 < L <= 512, one warp per column (project_column_warp):
 // persistent blocks of WIDE_WARPS warps over groups of WIDE_WARPS adjacent
 // columns; warp w of a block takes column group * WIDE_WARPS + w.
 template <int KIND, bool WANT_X, bool GATHER>
-__global__ void __launch_bounds__(WIDE_WARPS * 32) wide_kernel(Args p) {
+__device__ __forceinline__ void wide_warps(const Args& p) {
   extern __shared__ __align__(16) float smem[];
   const int L = p.L, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* const stretch = smem + (size_t)warp * L;  // this warp's, when the lanes are kept in shared memory
   const float* table = p.scaled;  // GATHER: scaled, here or in shared memory
   if (GATHER && p.scaled_smem) {
-    float* copy = smem + wide_bytes(L) / sizeof(float);
-    start_scaled_copy(p, copy);
+    start_scaled_copy(p, smem);
     cp_async_wait_all();
     __syncthreads();
-    table = copy;
+    table = smem;
   }
   const float nig = *p.neg_inv_gamma;
   const Proj proj{p.inequality, p.lo, p.hi, p.has_lo, p.has_hi, p.radius};
@@ -348,7 +381,7 @@ __global__ void __launch_bounds__(WIDE_WARPS * 32) wide_kernel(Args p) {
           p.ax[idx] = 0.f;
           if (WANT_X) p.x[idx] = 0.f;
         }
-      } else if (L <= 32 * WIDE_REGS_LONG) {
+      } else {
         // a and c of the thread's lanes kept in registers from the first pass, so that the
         // emit only stores (a read there waits for the previous lane's store)
         float av[WIDE_REGS_LONG], cv[WIDE_REGS_LONG];
@@ -361,19 +394,8 @@ __global__ void __launch_bounds__(WIDE_WARPS * 32) wide_kernel(Args p) {
         const auto emit = [&](int j, int l, float w) {
           emit_lane<WANT_X>(p, (size_t)l * p.K + k, l, len, w, av[j], cv[j], cx, xx);
         };
-        if (L <= 32 * WIDE_REGS) project_column_warp<KIND, KeepRegs<WIDE_REGS>>(L, proj, stretch, z, emit);
-        else project_column_warp<KIND, KeepRegs<WIDE_REGS_LONG>>(L, proj, stretch, z, emit);
-      } else {
-        const auto z = [&](int, int l) {
-          const size_t idx = (size_t)l * p.K + k;
-          return zform(p.a[idx], lam_at<GATHER>(p.g, idx, table), p.c[idx], nig);
-        };
-        const auto emit = [&](int, int l, float w) {
-          const size_t idx = (size_t)l * p.K + k;
-          emit_lane<WANT_X>(p, idx, l, len, w, p.a[idx], p.c[idx], cx, xx);
-        };
-        if (L <= STRETCH_L) project_column_warp<KIND, KeepShared>(L, proj, stretch, z, emit);
-        else project_column_warp<KIND, KeepNone>(L, proj, stretch, z, emit);
+        if (L <= 32 * WIDE_REGS) project_column_warp<KIND, KeepRegs<WIDE_REGS>>(L, proj, nullptr, z, emit);
+        else project_column_warp<KIND, KeepRegs<WIDE_REGS_LONG>>(L, proj, nullptr, z, emit);
       }
     }
     block_sum2(cx, xx);
@@ -382,6 +404,79 @@ __global__ void __launch_bounds__(WIDE_WARPS * 32) wide_kernel(Args p) {
       p.partials[2 * grp + 1] = xx;
     }
   }
+}
+
+// One real column k of the block form, its lanes kept as ``Keep`` says; with
+// BLOCK_REGS lanes a thread or fewer a and c are kept beside them, so that
+// the emit only stores.
+template <int T, int KIND, class Keep, bool WANT_X, bool GATHER, class Reduce>
+__device__ __forceinline__ void block_column(const Args& p, long long k, int len, float nig, const Proj& proj,
+                                             Reduce& red, float* stretch, float& cx, float& xx) {
+  constexpr int N = Keep::n;
+  constexpr bool KEEP_AC = N > 0 && N <= BLOCK_REGS;
+  [[maybe_unused]] float av[KEEP_AC ? N : 1], cv[KEEP_AC ? N : 1];
+  const auto z = [&](int j, int l) {
+    const size_t idx = (size_t)l * p.K + k;
+    const float a = p.a[idx], c = p.c[idx];
+    if constexpr (KEEP_AC) {
+      av[j] = a;
+      cv[j] = c;
+    }
+    return zform(a, lam_at<GATHER>(p.g, idx, p.scaled), c, nig);
+  };
+  const auto emit = [&](int j, int l, float w) {
+    const size_t idx = (size_t)l * p.K + k;
+    if constexpr (KEEP_AC) emit_lane<WANT_X>(p, idx, l, len, w, av[j], cv[j], cx, xx);
+    else emit_lane<WANT_X>(p, idx, l, len, w, p.a[idx], p.c[idx], cx, xx);
+  };
+  project_column_block<KIND, T, Keep>(p.L, proj, red, stretch, z, emit);
+}
+
+// The same kinds above L = 512, one block of T threads per column
+// (project_column_block): persistent blocks walk the tile's columns, one
+// partial a column.
+template <int T, int KEEP, int KIND, bool WANT_X, bool GATHER>
+__device__ __forceinline__ void wide_block(const Args& p) {
+  extern __shared__ __align__(16) float smem[];  // the column's lanes, where kept in shared memory
+  __shared__ BlockTotals totals;
+  BlockReduce<T> red(totals);
+  const int L = p.L, t = threadIdx.x;
+  const float nig = *p.neg_inv_gamma;
+  const Proj proj{p.inequality, p.lo, p.hi, p.has_lo, p.has_hi, p.radius};
+  for (long long k = blockIdx.x; k < p.K; k += gridDim.x) {
+    const int len = p.length[k];
+    float cx = 0.f, xx = 0.f;
+    if (len == 0) {  // padding: x = 0 and a*x = 0 on every lane; nothing read
+      // in a whole group of 8 padding columns each column's block writes an eighth of the group's lane
+      // rows by whole sectors (4 lane rows of the 8 columns a warp instruction)
+      const long long k0 = k - k % WIDE_WARPS;
+      bool group = k0 + WIDE_WARPS <= p.K;
+#pragma unroll
+      for (int i = 0; i < WIDE_WARPS; ++i) group = group && p.length[k0 + i] == 0;
+      const long long col = group ? k0 + t % WIDE_WARPS : k;
+      const int first = group ? (int)(k % WIDE_WARPS) + WIDE_WARPS * (t / WIDE_WARPS) : t;
+      for (int l = first; l < L; l += T) {
+        const size_t idx = (size_t)l * p.K + col;
+        p.ax[idx] = 0.f;
+        if (WANT_X) p.x[idx] = 0.f;
+      }
+    } else {
+      block_column<T, KIND, KeepOf<KEEP>, WANT_X, GATHER>(p, k, len, nig, proj, red, smem, cx, xx);
+      red.sum2(cx, xx);
+    }
+    if (t == 0) {
+      p.partials[2 * k] = cx;
+      p.partials[2 * k + 1] = xx;
+    }
+  }
+}
+
+// Simplex and box_cut above L = 64: a warp a column (T = 32, up to 512 lanes),
+// or a block of T threads a column (above), its lanes kept as KEEP says.
+template <int T, int KEEP, int KIND, bool WANT_X, bool GATHER>
+__global__ void __launch_bounds__(T == 32 ? WIDE_WARPS * 32 : T, T == 32 ? 1 : BLOCK_MAX / T) wide_kernel(Args p) {
+  if constexpr (T == 32) wide_warps<KIND, WANT_X, GATHER>(p);
+  else wide_block<T, KEEP, KIND, WANT_X, GATHER>(p);
   finish(p);
 }
 
@@ -405,7 +500,7 @@ int sm_count() {
 }
 
 // A persistent kernel: as many blocks as the SMs hold at once, at most one
-// per slab.
+// per unit of work (slab, column group or column).
 template <class Kernel>
 cudaError_t launch_persistent(Kernel kernel, int threads, size_t smem, const Args& p, cudaStream_t s) {
   cudaError_t e = allow_smem(kernel, smem);
@@ -427,12 +522,30 @@ cudaError_t launch_column(const Args& p, cudaStream_t s) {
                            s);
 }
 
+template <int T, int KEEP, int KIND, bool WANT_X, bool GATHER>
+cudaError_t launch_block(const Args& p, cudaStream_t s) {
+  const size_t smem = KEEP == SHARED ? (size_t)p.L * sizeof(float) : 0;
+  return launch_persistent(wide_kernel<T, KEEP, KIND, WANT_X, GATHER>, T, smem, p, s);
+}
+
 template <int KIND, bool WANT_X, bool GATHER>
 cudaError_t launch_projection(const Args& p, cudaStream_t s) {
   const int L = p.L;
   if (L > REG_L_CAP) {
-    return launch_persistent(wide_kernel<KIND, WANT_X, GATHER>, WIDE_WARPS * 32, wide_bytes(L) + scaled_bytes(p),
-                             p, s);
+    switch (wide_threads(L)) {
+      case 32:
+        return launch_persistent(wide_kernel<32, REGS, KIND, WANT_X, GATHER>, WIDE_WARPS * 32, scaled_bytes(p), p,
+                                 s);
+      case 128: return launch_block<128, REGS, KIND, WANT_X, GATHER>(p, s);
+      case 256: return launch_block<256, REGS, KIND, WANT_X, GATHER>(p, s);
+      case 512: return launch_block<512, REGS, KIND, WANT_X, GATHER>(p, s);
+    }
+    switch (keep_of(L)) {
+      case REGS: return launch_block<BLOCK_MAX, REGS, KIND, WANT_X, GATHER>(p, s);
+      case REGS_LONG: return launch_block<BLOCK_MAX, REGS_LONG, KIND, WANT_X, GATHER>(p, s);
+      case SHARED: return launch_block<BLOCK_MAX, SHARED, KIND, WANT_X, GATHER>(p, s);
+      default: return launch_block<BLOCK_MAX, NONE, KIND, WANT_X, GATHER>(p, s);
+    }
   }
   if (L <= 1) return launch_column<KIND, 1, WANT_X, GATHER>(p, s);
   if (L <= 2) return launch_column<KIND, 2, WANT_X, GATHER>(p, s);
@@ -468,14 +581,15 @@ extern "C" int dualip_fused_tile_eval(
       (gather && (scaled == nullptr || m < 1))) {
     return (int)cudaErrorInvalidValue;
   }
-  const bool wide = kind != CLAMP && L > REG_L_CAP;  // any L: the wide kernel keeps at most 64 KB of lanes
-  const int expected_nb = wide ? (K + WIDE_WARPS - 1) / WIDE_WARPS : (K + THREADS - 1) / THREADS;
+  const bool wide = kind != CLAMP && L > REG_L_CAP;  // any L: past SMEM_LIMIT the block form keeps no lanes
+  const bool block = wide && wide_threads(L) > 32;
+  const int expected_nb = block ? K : wide ? (K + WIDE_WARPS - 1) / WIDE_WARPS : (K + THREADS - 1) / THREADS;
   if (nb != expected_nb) return (int)cudaErrorInvalidValue;
 
   const int vec16 = K % 4 == 0 && aligned16(g) && aligned16(a) && aligned16(c) && aligned16(length) &&
                     (!gather || aligned16(scaled));
-  const int scaled_smem = gather && (size_t)m * sizeof(float) <= SCALED_SMEM_BYTES &&
-                          (wide ? wide_bytes(L) : slab_bytes(L)) + (size_t)m * sizeof(float) <= SMEM_LIMIT;
+  const int scaled_smem = gather && !block && (size_t)m * sizeof(float) <= SCALED_SMEM_BYTES &&
+                          (wide ? 0 : slab_bytes(L)) + (size_t)m * sizeof(float) <= SMEM_LIMIT;
   Args p{static_cast<const float*>(g), scaled, m, a, c, length, neg_inv_gamma, ax, x, partials, out,
          L, (long long)K, nb, inequality, lo, hi, has_lo, has_hi, radius, vec16, scaled_smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,13 +1,14 @@
 // Device functions shared by the fused tile kernel (fused_matching.cu, K1/K2)
 // and the panel kernel (panel_matching.cu, K3/K4): the per-column projection
 // of dualip_tpu/ops/pallas_matching.py::_project_block, by one thread
-// (project_column, project_column_stream) or by one warp (project_column_warp,
-// the kernels' wide columns), and the block-wide sum of the per-thread
-// (sum c*x, sum x*x) pairs.
+// (project_column, project_column_stream), by one warp (project_column_warp,
+// the kernels' wide columns) or by one block (project_column_block, K1's
+// widest columns), and the block-wide sum of the per-thread (sum c*x,
+// sum x*x) pairs.
 //
 // Exact numerics of _project_block, the same in every kernel that includes
-// this header (only the order of the lane sums differs in the warp's form,
-// see project_column_warp): z is formed by the caller as two rounded
+// this header (only the order of the lane sums differs in the warp's and the
+// block's forms, see project_column_warp): z is formed by the caller as two rounded
 // products and a rounded sum (no FMA contraction); simplex runs 30 bisection
 // steps on [-1, 0] of the max-shifted, radius-normalised, pre-clamped values
 // with the "s > 1" test, the top-2 vertex shortcut with argmax taking the
@@ -444,6 +445,274 @@ __device__ __forceinline__ void project_column_warp(int L, const Proj& p, float*
     const float nu = (lo + hi) * 0.5f;
     const bool feasible = p.inequality && sumclip <= zcut + 1e-6f;
     warp_lanes<N>(L, [&](int j, int l) {
+      const float z = z_of(j, l);
+      emit(j, l, feasible ? clip(z, lt, ut) : clip(z - nu, lt, ut));
+    });
+  }
+}
+
+// ---------------------------------------------------------------------------
+// One column of any L, projected by a whole block of T threads (K1's columns
+// wider than a warp holds in registers). Thread t holds lanes t, t + T, ...;
+// z is formed once by ``z_at`` and kept as ``Keep`` says (KeepRegs<N>:
+// L <= T N; KeepShared: the block's stretch of L floats, lane l at s[l];
+// KeepNone). Every reduction runs in two stages: a warp butterfly
+// (__shfl_xor_sync), then the warps' totals, which lane 0 of each warp
+// stores in shared memory; after one barrier every warp reduces them by the
+// same butterfly (lane w holds warp w's total), so every thread of the block
+// receives the same bits and takes the same branch. Two slots alternate, so
+// each reduction, and so each bisection step, takes one barrier: a slot is
+// written again two reductions later, once every thread has passed the
+// barrier of the reduction between, after its last read of the slot.
+//
+// The tests, products and branches are project_column_warp's; only the
+// order of the lane sums changes again (each thread in lane order, then a
+// butterfly across the warp, then one across the warps), under the argument
+// made above for the warp's form.
+
+// f(j, l) for the thread's lanes l = t + T j < L of a block of T threads:
+// unrolled over N, or a loop when N = 0.
+template <int N, int T, class F>
+__device__ __forceinline__ void block_lanes(int L, F f) {
+  const int t = threadIdx.x;
+  if constexpr (N > 0) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (T * j + t < L) f(j, T * j + t);
+    }
+  } else {
+    for (int j = 0, l = t; l < L; ++j, l += T) f(j, l);
+  }
+}
+
+// f(j, l, z_at(j, l)) for the thread's lanes, warp_lanes_z's batches at a stride of T.
+template <int N, int T, class ZAt, class F>
+__device__ __forceinline__ void block_lanes_z(int L, ZAt z_at, F f) {
+  const int t = threadIdx.x;
+  constexpr int B = N > 0 ? N : Z_BATCH;
+  const auto batch = [&](int j0) {
+    float z[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int l = T * (j0 + b) + t;
+      z[b] = l < L ? z_at(j0 + b, l) : 0.f;
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int l = T * (j0 + b) + t;
+      if (l < L) f(j0 + b, l, z[b]);
+    }
+  };
+  if constexpr (N > 0) {
+    static_assert(N % B == 0, "whole batches");
+#pragma unroll
+    for (int j0 = 0; j0 < N; j0 += B) batch(j0);
+  } else {
+    for (int j0 = 0; T * j0 < L; j0 += B) batch(j0);
+  }
+}
+
+// The warps' totals of a block's reductions: two alternating slots of up to
+// three floats and an int a warp.
+struct BlockTotals {
+  float f[2][3][32];
+  int i[2][32];
+};
+
+// Reductions across a block of T threads. The whole block calls each, with
+// the same column; every thread receives the same bits. One object a block,
+// kept across its columns: the slots alternate from one reduction to the
+// next, whichever column it belongs to.
+template <int T>
+class BlockReduce {
+ public:
+  static constexpr int WARPS = T / 32;
+  static_assert(T % 32 == 0 && WARPS >= 2 && WARPS <= 32 && (WARPS & (WARPS - 1)) == 0,
+                "a block of 2 to 32 warps, a power of two");
+
+  __device__ __forceinline__ explicit BlockReduce(BlockTotals& s)
+      : s_(s), lane_(threadIdx.x & 31), warp_(threadIdx.x >> 5) {}
+
+  __device__ __forceinline__ float sum(float v) {
+    v = warp_all_sum(v);
+    put(0, v);
+    __syncthreads();
+    v = get(0, 0.f);
+    slot_ ^= 1;
+    return across_sum(v);
+  }
+
+  // two sums at once
+  __device__ __forceinline__ void sum2(float& u, float& v) {
+    u = warp_all_sum(u);
+    v = warp_all_sum(v);
+    put(0, u);
+    put(1, v);
+    __syncthreads();
+    u = get(0, 0.f);
+    v = get(1, 0.f);
+    slot_ ^= 1;
+    u = across_sum(u);
+    v = across_sum(v);
+  }
+
+  __device__ __forceinline__ float max(float v) {
+    v = warp_all_max(v);
+    put(0, v);
+    __syncthreads();
+    v = get(0, -CUDART_INF_F);
+    slot_ ^= 1;
+    return across_max(v);
+  }
+
+  // (max with its FIRST lane, sum); a thread without lanes holds (-inf, INT_MAX, 0)
+  __device__ __forceinline__ void argmax_sum(float& v, int& i, float& u) {
+    warp_all_argmax(v, i);
+    u = warp_all_sum(u);
+    put(0, v);
+    put(1, u);
+    if (lane_ == 0) s_.i[slot_][warp_] = i;
+    __syncthreads();
+    v = get(0, -CUDART_INF_F);
+    u = get(1, 0.f);
+    i = lane_ < WARPS ? s_.i[slot_][lane_] : INT_MAX;
+    slot_ ^= 1;
+#pragma unroll
+    for (int off = 1; off < WARPS; off <<= 1) {
+      const float v2 = __shfl_xor_sync(FULL, v, off);
+      const int i2 = __shfl_xor_sync(FULL, i, off);
+      if (v2 > v || (v2 == v && i2 < i)) {
+        v = v2;
+        i = i2;
+      }
+    }
+    v = __shfl_sync(FULL, v, 0);
+    i = __shfl_sync(FULL, i, 0);
+    u = across_sum(u);
+  }
+
+  // (min, max, sum)
+  __device__ __forceinline__ void min_max_sum(float& a, float& b, float& u) {
+    a = warp_all_min(a);
+    b = warp_all_max(b);
+    u = warp_all_sum(u);
+    put(0, a);
+    put(1, b);
+    put(2, u);
+    __syncthreads();
+    a = get(0, CUDART_INF_F);
+    b = get(1, -CUDART_INF_F);
+    u = get(2, 0.f);
+    slot_ ^= 1;
+#pragma unroll
+    for (int off = 1; off < WARPS; off <<= 1) a = fminf(a, __shfl_xor_sync(FULL, a, off));
+    a = __shfl_sync(FULL, a, 0);
+    b = across_max(b);
+    u = across_sum(u);
+  }
+
+ private:
+  BlockTotals& s_;
+  const int lane_, warp_;
+  int slot_ = 0;
+
+  __device__ __forceinline__ void put(int q, float v) {
+    if (lane_ == 0) s_.f[slot_][q][warp_] = v;
+  }
+  // lane w: warp w's total; lanes past the block's warps: ``none``
+  __device__ __forceinline__ float get(int q, float none) const {
+    return lane_ < WARPS ? s_.f[slot_][q][lane_] : none;
+  }
+  // the butterfly over the warps' totals in lanes 0 .. WARPS - 1, then lane 0's to every lane
+  static __device__ __forceinline__ float across_sum(float v) {
+#pragma unroll
+    for (int off = 1; off < WARPS; off <<= 1) v += __shfl_xor_sync(FULL, v, off);
+    return __shfl_sync(FULL, v, 0);
+  }
+  static __device__ __forceinline__ float across_max(float v) {
+#pragma unroll
+    for (int off = 1; off < WARPS; off <<= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
+    return __shfl_sync(FULL, v, 0);
+  }
+};
+
+// One column, one block of T threads (the whole block calls, with the same
+// column), its reductions by ``red`` (the block's BlockReduce<T>).
+// ``stretch`` is the block's shared memory for KeepShared (L floats), ignored
+// otherwise; ``z_at`` and ``emit`` as for project_column_warp.
+template <int KIND, int T, class Keep, class Reduce, class ZAt, class Emit>
+__device__ __forceinline__ void project_column_block(int L, const Proj& p, Reduce& red, float* stretch, ZAt z_at,
+                                                     Emit emit) {
+  constexpr int N = Keep::n;
+  Keep keep(stretch);
+  if (KIND == SIMPLEX) {
+    const float radius = p.radius;
+    float vmax = -CUDART_INF_F, sumv = 0.f;
+    int i0 = INT_MAX;
+    block_lanes_z<N, T>(L, z_at, [&](int j, int l, float z) {
+      const float v = fmaxf(z, 0.f);
+      sumv += v;
+      const float vn = div_radius(v, radius);
+      keep.set(j, l, vn);
+      if (vn > vmax) {  // strict: the thread's first maximum
+        vmax = vn;
+        i0 = l;
+      }
+    });
+    red.argmax_sum(vmax, i0, sumv);
+    const auto vn_at = [&](int j, int l) {
+      return Keep::kept ? keep.get(j, l) : div_radius(fmaxf(z_at(j, l), 0.f), radius);
+    };
+    float v1 = -CUDART_INF_F;
+    block_lanes<N, T>(L, [&](int j, int l) {
+      const float vn = vn_at(j, l);
+      if (l != i0) v1 = fmaxf(v1, vn);
+      keep.set(j, l, vn - vmax);
+    });
+    v1 = red.max(v1);
+    const auto r_at = [&](int j, int l) { return Keep::kept ? keep.get(j, l) : vn_at(j, l) - vmax; };
+    float lo = -1.f, hi = 0.f;
+#pragma unroll 1
+    for (int it = 0; it < BISECTION_ITERS; ++it) {
+      const float mid = (lo + hi) * 0.5f;
+      float s = 0.f;
+      block_lanes<N, T>(L, [&](int j, int l) { s += fmaxf(r_at(j, l) - mid, 0.f); });
+      s = red.sum(s);
+      if (s > 1.0f) lo = mid; else hi = mid;
+    }
+    const float nu = (lo + hi) * 0.5f;
+    const bool shortcut = L > 1 && (vmax - v1) > 1.0f;
+    const bool feasible = p.inequality && sumv <= radius + 1e-6f;
+    block_lanes<N, T>(L, [&](int j, int l) {
+      float w;
+      if (feasible) w = fmaxf(z_at(j, l), 0.f);
+      else if (shortcut) w = (l == i0) ? radius : 0.f;
+      else w = __fmul_rn(fmaxf(r_at(j, l) - nu, 0.f), radius);
+      emit(j, l, w);
+    });
+  } else {  // BOXCUT
+    const float lt = p.lo, ut = p.hi, zcut = p.radius;
+    float zmin = CUDART_INF_F, zmax = -CUDART_INF_F, sumclip = 0.f;
+    block_lanes_z<N, T>(L, z_at, [&](int j, int l, float z) {
+      keep.set(j, l, z);
+      zmin = fminf(zmin, z);
+      zmax = fmaxf(zmax, z);
+      sumclip += clip(z, lt, ut);
+    });
+    red.min_max_sum(zmin, zmax, sumclip);
+    const auto z_of = [&](int j, int l) { return Keep::kept ? keep.get(j, l) : z_at(j, l); };
+    float lo = zmin - ut, hi = zmax - lt;
+#pragma unroll 1
+    for (int it = 0; it < BISECTION_ITERS; ++it) {
+      const float mid = (lo + hi) * 0.5f;
+      float s = 0.f;
+      block_lanes<N, T>(L, [&](int j, int l) { s += clip(z_of(j, l) - mid, lt, ut); });
+      s = red.sum(s);
+      if (s > zcut) lo = mid; else hi = mid;
+    }
+    const float nu = (lo + hi) * 0.5f;
+    const bool feasible = p.inequality && sumclip <= zcut + 1e-6f;
+    block_lanes<N, T>(L, [&](int j, int l) {
       const float z = z_of(j, l);
       emit(j, l, feasible ? clip(z, lt, ut) : clip(z - nu, lt, ut));
     });

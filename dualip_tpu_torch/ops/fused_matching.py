@@ -55,7 +55,39 @@ BISECTION_ITERS = 30
 _THREADS = 256  # columns per slab (one partial each) of the per-column kernels
 REG_L_CAP = 64  # largest L whose column the per-column kernel keeps in registers
 _WIDE_WARPS = 8  # columns per group (one partial each, one warp a column) above REG_L_CAP
+_WARP_L_CAP = 512  # largest L a warp projects (16 lanes a thread in registers); above, a block a column
+_BLOCK_REGS, _BLOCK_REGS_LONG, _BLOCK_MAX = 8, 16, 1024  # a block's lanes a thread in registers; its threads
+_SMEM_LIMIT = 226 * 1024  # bytes of shared memory a block may keep a column's lanes in
 _KIND_CODE = {"identity": 0, "box": 0, "cone": 0, "simplex": 1, "simplex_eq": 1, "box_cut": 2, "box_cut_eq": 2}
+
+
+class K1Path(NamedTuple):
+    """How the tile kernel projects a column of a tile of L lanes."""
+
+    path: str  # "thread", "warp" or "block": what projects one column
+    threads: int  # threads a column
+    keep: str  # where a column's lanes stay between passes: "registers", "shared memory" or "device memory"
+
+
+def k1_path(kind: str, L: int) -> K1Path:
+    """The rule of ``csrc/fused_matching.cu`` (``launch_projection``,
+    ``wide_threads``, ``keep_of``): the elementwise kinds and L <= 64 a
+    thread a column; simplex and box_cut to L = 512 a warp; above, a block of
+    the fewest threads (a power of two, at most 1024) that hold the lanes at
+    8 a thread, then at 16 a thread of 1024 threads, then in the block's
+    shared memory, then nowhere (every pass forms z again)."""
+    if _KIND_CODE[kind] == 0 or L <= REG_L_CAP:
+        return K1Path("thread", 1, "registers")
+    if L <= _WARP_L_CAP:
+        return K1Path("warp", 32, "registers")
+    threads = 32
+    while threads < _BLOCK_MAX and threads * _BLOCK_REGS < L:
+        threads *= 2
+    if L <= threads * _BLOCK_REGS_LONG:
+        keep = "registers"
+    else:
+        keep = "shared memory" if 4 * L <= _SMEM_LIMIT else "device memory"
+    return K1Path("block", threads, keep)
 
 
 def _project_block_reference(
@@ -172,8 +204,12 @@ def _kernel_params(kind: str, params: dict):
 
 def num_partial_blocks(kind: str, L: int, K: int) -> int:
     """Partial (obj, reg) pairs of the kernel's launch: one per ``_THREADS``
-    columns, or one per ``_WIDE_WARPS`` columns above ``REG_L_CAP``."""
-    if _KIND_CODE[kind] != 0 and L > REG_L_CAP:
+    columns (a thread a column), one per ``_WIDE_WARPS`` columns (a warp a
+    column), or one a column (a block a column; ``k1_path``)."""
+    path = k1_path(kind, L).path
+    if path == "block":
+        return K
+    if path == "warp":
         return -(-K // _WIDE_WARPS)
     return -(-K // _THREADS)
 
@@ -243,6 +279,15 @@ def _launch(g, scaled, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want
     return (out_ax, sums[0], sums[1], x) if want_x else (out_ax, sums[0], sums[1])
 
 
+def _count(wrapper: str, kind: str, L: int, want_x: bool) -> None:
+    """A launch of the tile kernel in the store's counters: ``.enqueued``
+    (K1) or ``.enqueued_x`` (K2), and ``.block_columns`` where a block
+    projects each column (``k1_path``)."""
+    profiling.count(f"dualip.ops.{wrapper}.enqueued_x" if want_x else f"dualip.ops.{wrapper}.enqueued")
+    if k1_path(kind, L).path == "block":
+        profiling.count(f"dualip.ops.{wrapper}.block_columns")
+
+
 def fused_tile_eval_T(
     lam_g_T: torch.Tensor,
     a_T: torch.Tensor,
@@ -262,8 +307,10 @@ def fused_tile_eval_T(
 
     Counts launches of the kernel in the counters
     ``dualip.ops.fused_tile_eval_T.enqueued`` (K1) and ``.enqueued_x`` (K2,
-    ``want_x``) of ``utils/profiling.py``: a CUDA graph's capture enqueues
-    once, and a replay calls no wrapper; CPU calls count nothing.
+    ``want_x``) of ``utils/profiling.py``, and in ``.block_columns`` those
+    that project a column by a block (L > 512, ``k1_path``): a CUDA graph's
+    capture enqueues once, and a replay calls no wrapper; CPU calls count
+    nothing.
     """
     _check_tile(a_T, (("lam_g_T", lam_g_T), ("c_T", c_T)), length, block_k)
     if any(t.device != a_T.device for t in (lam_g_T, c_T, length)):
@@ -273,10 +320,7 @@ def fused_tile_eval_T(
     if lam_g_T.dtype != torch.float32:
         raise TypeError("the fused kernel takes a float32 lam_g_T")
     res = _launch(lam_g_T, None, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want_x, None)
-    if want_x:
-        profiling.count("dualip.ops.fused_tile_eval_T.enqueued_x")
-    else:
-        profiling.count("dualip.ops.fused_tile_eval_T.enqueued")
+    _count("fused_tile_eval_T", kind, a_T.shape[0], want_x)
     return res
 
 
@@ -322,8 +366,9 @@ def fused_tile_gather_eval_T(
     given, receives ``a*x`` (a view into a larger buffer serves).
 
     Counts launches in the counters ``dualip.ops.fused_tile_gather_eval_T.enqueued``
-    (K1) and ``.enqueued_x`` (K2): a CUDA graph's capture enqueues once, and
-    a replay calls no wrapper; CPU calls count nothing."""
+    (K1) and ``.enqueued_x`` (K2), and in ``.block_columns`` those that
+    project a column by a block: a CUDA graph's capture enqueues once, and a
+    replay calls no wrapper; CPU calls count nothing."""
     _check_tile(a_T, (("rows_T", rows_T), ("c_T", c_T)), length, block_k)
     if scaled.dim() != 1:
         raise ValueError(f"scaled must be (m,), got shape {tuple(scaled.shape)}")
@@ -335,10 +380,7 @@ def fused_tile_gather_eval_T(
     if scaled.dtype != torch.float32 or rows_T.dtype != torch.int32:
         raise TypeError("the gather form takes a float32 scaled and int32 rows_T")
     res = _launch(rows_T, scaled, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want_x, out)
-    if want_x:
-        profiling.count("dualip.ops.fused_tile_gather_eval_T.enqueued_x")
-    else:
-        profiling.count("dualip.ops.fused_tile_gather_eval_T.enqueued")
+    _count("fused_tile_gather_eval_T", kind, a_T.shape[0], want_x)
     return res
 
 

@@ -18,6 +18,7 @@ from dualip_tpu_torch.ops.fused_matching import (
     fused_tile_eval_T,
     fused_tile_gather_eval_T,
     fused_tile_gather_eval_T_reference,
+    k1_path,
     num_partial_blocks,
 )
 
@@ -97,12 +98,13 @@ def test_plain_kernel_matches_pallas_other_widths(L):
 @pytest.mark.parametrize("want_x", [False, True], ids=["K1", "K2"])
 @pytest.mark.parametrize("kind,params", [CASES[0], CASES[2], CASES[10], CASES[11]],
                          ids=["simplex", "simplex_eq", "box_cut", "box_cut_eq"])
-@pytest.mark.parametrize("L", [65, 130])
+@pytest.mark.parametrize("L", [65, 130, 600])
 def test_plain_kernel_matches_pallas_wide_columns(L, kind, params, want_x):
     """Above REG_L_CAP = 64, where the card's kernel projects one warp a
-    column: the plain version against the Pallas kernel at the tolerances
-    above (the plain version adds the lane sums as at any width; the
-    kernel's warp order is held to the plain version on the card)."""
+    column (one block a column above 512): the plain version against the
+    Pallas kernel at the tolerances above (the plain version adds the lane
+    sums as at any width; the kernel's warp and block orders are held to the
+    plain version on the card)."""
     _compare(kind, params, L=L, K=256, want_x=want_x, scale=10.0)
 
 
@@ -160,5 +162,28 @@ def test_wrapper_rejects_bad_shapes():
 def test_partial_block_count_follows_kernel_variant():
     assert num_partial_blocks("simplex", 64, 1000) == 4  # 256 columns a slab
     assert num_partial_blocks("simplex", 65, 1000) == 125  # 8 columns a block, one a warp
-    assert num_partial_blocks("box_cut", 5000, 1001) == 126
+    assert num_partial_blocks("box_cut", 512, 1001) == 126
+    assert num_partial_blocks("box_cut", 5000, 1001) == 1001  # a block a column above 512
+    assert num_partial_blocks("simplex_eq", 513, 1000) == 1000
     assert num_partial_blocks("box", 500, 1000) == 4
+    assert num_partial_blocks("box", 5000, 1000) == 4  # the elementwise kinds: a thread a column at any L
+
+
+@pytest.mark.parametrize("L,path,threads,keep", [
+    (64, "thread", 1, "registers"),
+    (65, "warp", 32, "registers"),
+    (512, "warp", 32, "registers"),
+    (513, "block", 128, "registers"),  # 8 lanes a thread
+    (1024, "block", 128, "registers"),
+    (8192, "block", 1024, "registers"),
+    (8193, "block", 1024, "registers"),  # 16 lanes a thread
+    (20000, "block", 1024, "shared memory"),
+    (60000, "block", 1024, "device memory"),  # past a block's shared memory
+])
+def test_k1_path_follows_the_column_width(L, path, threads, keep):
+    """The host's copy of the kernel's rule: what projects a column of L
+    lanes, with how many threads, and where its lanes stay between passes."""
+    for kind in ("simplex", "simplex_eq", "box_cut", "box_cut_eq"):
+        assert tuple(k1_path(kind, L)) == (path, threads, keep)
+    assert tuple(k1_path("box", L)) == ("thread", 1, "registers")
+    assert num_partial_blocks("simplex", L, 4096) == {"thread": 16, "warp": 512, "block": 4096}[path]
