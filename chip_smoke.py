@@ -14,9 +14,8 @@ result lines at the end are printed only by a run of every default phase):
    128, 394, 513, 1000, 1024, 2048, 2100, 4096, 8192, 9254, 20000, 60000}
    (above 64 one warp a column, in registers, to 512; above, one block a
    column of 128 to 1024 threads, its lanes in registers to 16,384, in shared
-   memory to 57,856, re-read above), its gather form against its lam_g form bit for bit at
-   m = 64, 10,000 and 70,000, and a second launch bit for bit against the
-   first; ml20m: K1 on each csc tile of the benchmark's ml20m-csc-fused cell
+   memory to 57,856, re-read above), at m = 64, 10,000 and 70,000, and a
+   second launch bit for bit against the first; ml20m: K1 on each csc tile of the benchmark's ml20m-csc-fused cell
    (``gpubench/``'s movielens-20m stand-in, built as the cell builds it),
    each tile's launch timed alone by graph replays beside its bound, and held
    to the plain version;
@@ -51,8 +50,7 @@ result lines at the end are printed only by a run of every default phase):
    sparsity 1e-3, seed 42) through ``run_solver`` on the csc layout with the
    fused kernel in its gather form, its launches counted, its first 20
    iterations repeated with the plain version and compared, a repeat that must
-   be bit-identical, the gather form held against the lam_g form bit for bit
-   and the segment-sum against a float64 ``index_add_`` and against its plain
+   be bit-identical, and the segment-sum against a float64 ``index_add_`` and against its plain
    version (bit for bit) on the tiles' own a*x,
    each kernel timed on the slice's tiles beside its plain version and bound,
    and a ``torch.profiler`` window over 10 iterations (device busy share,
@@ -345,7 +343,6 @@ def _counted():
     replays then launch the kernel without calling the wrapper;
     ``device_launches`` counts those on the card)."""
     wrappers = {"K1g": "fused_tile_gather_eval_T", "K2g": "fused_tile_gather_eval_T.x",
-                "K1": "fused_tile_eval_T", "K2": "fused_tile_eval_T.x",
                 "K3": "fused_panel_project_tiles", "K4": "fused_panel_project_tiles.x",
                 "K3t": "fused_panel_project", "K4t": "fused_panel_project.x",
                 "K5": "benes_fine", "K6": "benes_coarse", "K7": "benes_coarse2", "K5w": "benes_fine_window",
@@ -357,7 +354,7 @@ def _counted():
 def port_kernel(name: str):
     """The short name of the count a CUDA kernel's profiler record belongs
     to, or None for a kernel that is not the port's.  K1's forms are told
-    apart by the template flags (WANT_X, GATHER) of ``clamp_kernel``,
+    apart by the template flag WANT_X (the last) of ``clamp_kernel``,
     ``column_kernel`` and ``wide_kernel``, K3's by ``panel_tiles_kernel``'s
     WANT_X (its third template argument; the fourth is WIDE); the segment-sum's two kernels are ``segsum_window`` and
     ``segsum``.  ``panel_tiles_kernel`` is also K3t/K4t's and
@@ -365,8 +362,7 @@ def port_kernel(name: str):
     (``device_launches`` sorts them out)."""
     m = re.search(r"\b(?:clamp|column|wide)_kernel<([^>]*)>", name)
     if m:
-        want_x, gather = (f.strip() == "true" for f in m.group(1).split(",")[-2:])
-        return ("K2" if want_x else "K1") + ("g" if gather else "")
+        return "K2g" if m.group(1).split(",")[-1].strip() == "true" else "K1g"
     m = re.search(r"\bpanel_tiles_kernel<([^>]*)>", name)
     if m:
         return "K4" if m.group(1).split(",")[2].strip() == "true" else "K3"
@@ -587,13 +583,11 @@ def rel_dev(got, want):
 
 def phase_kernels(widths, dev):
     """K1/K2: every (kind, params) case at each width and both want_x, kernel
-    vs plain, and the gather form against the lam_g form bit for bit, at
-    m = 64, 10,000 and 70,000 (a 280 KB table, more than L1 holds), the last
+    vs plain, and a second launch bit for bit, at m = 64, 10,000 and 70,000 (a 280 KB table, more than L1 holds), the last
     with K = 4102 (4 B copies and a ragged last slab).  Above 512 lanes (a
     block a column) two shapes: m = 10,000 with K = 1024, and m = 70,000 with
     K = 1026, whose padding holds a whole group of 8 columns and a ragged one."""
     from dualip_tpu_torch.ops.fused_matching import (
-        fused_tile_eval_T,
         fused_tile_eval_T_reference,
         fused_tile_gather_eval_T,
     )
@@ -621,16 +615,13 @@ def phase_kernels(widths, dev):
                     lam_g = scaled[rows.long()]
                     for want_x in (False, True):
                         name = f"{kind}{params} L={L} m={m} K={K} want_x={want_x}"
-                        got = fused_tile_eval_T(lam_g, *t, scale, kind, params, block_k=block_k, want_x=want_x)
-                        gat = fused_tile_gather_eval_T(scaled, rows, *t, scale, kind, params, block_k=block_k,
+                        got = fused_tile_gather_eval_T(scaled, rows, *t, scale, kind, params, block_k=block_k,
                                                        want_x=want_x)
                         again = fused_tile_gather_eval_T(scaled, rows, *t, scale, kind, params, block_k=block_k,
                                                          want_x=want_x)
                         ref = fused_tile_eval_T_reference(lam_g, *t, scale, kind, params, want_x=want_x)
                         torch.cuda.synchronize()
-                        check(all(torch.equal(u, v) for u, v in zip(got, gat)),
-                              f"{name}: the gather form differs from the lam_g form")
-                        check(all(torch.equal(u, v) for u, v in zip(gat, again)), f"{name}: two launches differ")
+                        check(all(torch.equal(u, v) for u, v in zip(got, again)), f"{name}: two launches differ")
                         tol = tol_x(ref[3] if want_x else ref[0])
                         e_ax = float((got[0] - ref[0]).abs().max())
                         e = e_ax
@@ -649,7 +640,7 @@ def phase_kernels(widths, dev):
         m_K_above_512_lanes=[(10_000, 1024), (70_000, 1026)],
         max_abs_err_K1=err[False], max_abs_err_K2=err[True],
         tolerance="ax,x: 5e-5*max(1,max|x|); obj,reg: 1e-3+1e-4*|ref|",
-        gather_vs_lam_g_form="bit for bit in every case", repeat="bit for bit in every case",
+        repeat="bit for bit in every case",
         wide="L > 64: a warp a column, lanes in registers, to 512; above, a block a column of 128-1024 threads, "
              "8 lanes a thread in registers to 8192, 16 to 16,384, then shared memory, then device memory")
     return err
@@ -1576,7 +1567,7 @@ def examples_in(tmp, dev, card, counts, reset_counts, variant, Timed, n_chk, gra
     # ---- csc, use_pallas=True: K1 in its gather form and the segment-sum
     obj, out, n = run("csc", False, "csc")
     tiles, specs = obj.bcsc.tiles, obj.bcsc.specs
-    want = {"K1g": graph_calls(len(tiles), 1), "K2g": 0, "K1": 0, "segsum": graph_calls(1, 1)}
+    want = {"K1g": graph_calls(len(tiles), 1), "K2g": 0, "segsum": graph_calls(1, 1)}
     check(all(n[k] == v for k, v in want.items()), f"examples csc: wrapper calls {n}, expected {want}")
 
     plain_dev = rel_dev(first_iterations(variant(obj, plain_csc_class()), n_chk), out["trace"][:n_chk])
@@ -2360,8 +2351,6 @@ def main(argv=None) -> int:
     from dualip_tpu_torch.ops.fused_matching import (
         fused_panel_project,
         fused_panel_project_tiles,
-        fused_tile_eval_T,
-        fused_tile_eval_T_reference,
         fused_tile_gather_eval_T,
         fused_tile_gather_eval_T_reference,
     )
@@ -2780,11 +2769,11 @@ def main(argv=None) -> int:
             iterations_per_s=f"{1e3 / ms_per_iter:.2f}",
             window="a second maximize of as many iterations on one solver: replays of its cached graph",
             final_dual_objective=res.dual_objective, peak_device_bytes=peak)
-        want = {"K1g": n_tiles * args.iters, "K2g": n_tiles, "K1": 0, "K2": 0, "segsum": args.iters + 1}
-        want_calls = {"K1g": graph_calls(n_tiles), "K2g": n_tiles, "K1": 0, "K2": 0, "segsum": graph_calls(1, 1)}
+        want = {"K1g": n_tiles * args.iters, "K2g": n_tiles, "segsum": args.iters + 1}
+        want_calls = {"K1g": graph_calls(n_tiles), "K2g": n_tiles, "segsum": graph_calls(1, 1)}
         say("slice", launches=n_launch, expected=want, wrapper_calls=csc_calls, expected_calls=want_calls,
-            note="launches: the profiler's records on the card; K1g/K2g: the gather form; K1/K2: the lam_g form, "
-                 "off the main path; segsum: one call (two CUDA launches) per evaluation, all tiles at once; "
+            note="launches: the profiler's records on the card; K1g/K2g: the tile kernel; "
+                 "segsum: one call (two CUDA launches) per evaluation, all tiles at once; "
                  "wrapper calls: iteration 1 and the graph's capture, then save_primal's evaluation")
         check_solution(res, obj, inp, args.iters, "csc slice")
         for k, v in want.items():
@@ -2863,7 +2852,6 @@ def main(argv=None) -> int:
         ax_all = torch.empty(plan.slots, device=dev)
         views = [ax_all[off:off + t.a.numel()].view(t.a.shape) for off, t in zip(plan.offsets, tiles)]
         rows = [t.rows.reshape(-1) for t in tiles]
-        lam_g = [scaled.index_select(0, r).view(t.a.shape) for r, t in zip(rows, tiles)]
 
         def run_gather(want_x, fn=None):
             fn = fn or fused_tile_gather_eval_T
@@ -2871,10 +2859,6 @@ def main(argv=None) -> int:
             return [fn(scaled, t.rows, t.a, t.c, t.length, nig, s.proj_type, s.proj_params, want_x=want_x,
                        out=views[i] if fn is fused_tile_gather_eval_T else None, **kw)
                     for i, (t, s) in enumerate(zip(tiles, specs))]
-
-        def run_lam_g(want_x):
-            return [fused_tile_eval_T(lam_g[i], t.a, t.c, t.length, nig, s.proj_type, s.proj_params, block_k=1024,
-                                      want_x=want_x) for i, (t, s) in enumerate(zip(tiles, specs))]
 
         real_pad = [column_slots(s.L, t.length) for t, s in zip(tiles, specs)]
 
@@ -2887,7 +2871,6 @@ def main(argv=None) -> int:
             return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, nops
 
         biggest = specs[max(range(n_tiles), key=lambda i: specs[i].L * specs[i].K)]
-        k1 = {}
         for name, want_x, replaces in (
             ("K1 fused_tile_gather_eval_T", False,
              "dualip_tpu/ops/pallas_matching.py:141, with the lambda gather XLA ran before it"),
@@ -2895,11 +2878,9 @@ def main(argv=None) -> int:
         ):
             got = [tuple(v.clone() for v in g) for g in run_gather(want_x)]
             ref = run_gather(want_x, fn=fused_tile_gather_eval_T_reference)
-            same = run_lam_g(want_x)
             torch.cuda.synchronize()
             err = check_err[want_x]
-            for g, r, l_ in zip(got, ref, same):
-                check(all(torch.equal(u, v) for u, v in zip(g, l_)), f"{name}: gather form != lam_g form on a slice tile")
+            for g, r in zip(got, ref):
                 tol = tol_x(r[3] if want_x else r[0])
                 e = float((g[0] - r[0]).abs().max())
                 if want_x:
@@ -2908,14 +2889,12 @@ def main(argv=None) -> int:
                 for i in (1, 2):
                     check(abs(float(g[i]) - float(r[i])) <= 1e-3 + 1e-4 * abs(float(r[i])), f"{name} sums on slice tile")
                 err = max(err, e)
-            del got, ref, same
+            del got, ref
             t_k = cuda_ms(lambda: run_gather(want_x), reps=20, graph=True)
-            t_lam = cuda_ms(lambda: run_lam_g(want_x), reps=20, graph=True)
             t_plain = cuda_ms(lambda: run_gather(want_x, fn=fused_tile_gather_eval_T_reference), reps=3, warmup=1)
             b_ms, b_by, nbytes, nops = bound(want_x)
             say("timing", kernel=repr(name), per_iteration_ms=f"{t_k.ms:.4f}", plain_ms=f"{t_plain.ms:.3f}",
                 bound_ms=f"{b_ms:.4f}", share_of_bound=f"{b_ms / t_k.ms:.3f}", bytes=nbytes, ops=nops,
-                lam_g_form_ms=f"{t_lam.ms:.4f}",
                 largest_tile=(biggest.L, biggest.K), **timing_kv(t_k))
             kernels.append({
                 "name": name, "route": "cuda", "source": "dualip_tpu_torch/csrc/fused_matching.cu",
@@ -2924,24 +2903,6 @@ def main(argv=None) -> int:
                 "ms": t_k.ms, "plain_ms": t_plain.ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None,  # no single PyTorch call computes the projection
             })
-            k1[want_x] = (t_lam, err)
-        # the lam_g form (the TPU kernel's contract), off the main path since the gather moved in
-        t_lam, err = k1[False]
-        t_plain = cuda_ms(lambda: [fused_tile_eval_T_reference(lam_g[i], t.a, t.c, t.length, nig, s.proj_type,
-                                                                s.proj_params) for i, (t, s) in enumerate(zip(tiles, specs))],
-                          reps=3, warmup=1)
-        gather_t = cuda_ms(lambda: [scaled.index_select(0, r) for r in rows], reps=20, graph=True)
-        b_ms, b_by, _, _ = bound(False)
-        say("timing", kernel="'K1 fused_tile_eval_T (lam_g form)'", per_iteration_ms=f"{t_lam.ms:.4f}",
-            gather_index_select_ms=f"{gather_t.ms:.4f}", lam_g_form_plus_gather_ms=f"{t_lam.ms + gather_t.ms:.4f}",
-            gather_form_ms=f"{kernels[-2]['ms']:.4f}", **timing_kv(t_lam))
-        kernels.append({
-            "name": "K1 fused_tile_eval_T (lam_g form)", "route": "cuda",
-            "source": "dualip_tpu_torch/csrc/fused_matching.cu", "replaces": "dualip_tpu/ops/pallas_matching.py:141",
-            "launches": csc_launches["K1"], "wrapper_calls": csc_calls["K1"], "max_abs_err": err, "ms": t_lam.ms,
-            "plain_ms": t_plain.ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        })
 
         # The segment-sum on the tiles' own a*x (the gather form's output at
         # the final dual): all tiles, then each tile alone (the others zero),
@@ -2988,7 +2949,7 @@ def main(argv=None) -> int:
         one_t = cuda_ms(lambda: segment_sum_rows(grad, ax_all, one), reps=20, graph=True)
         del one
         seg_bound = nnz * 8 / PEAK_BYTES_PER_S * 1e3
-        k1_ms = kernels[-3]["ms"]
+        k1_ms = kernels[-2]["ms"]
         say("timing", segment_sum_kernel_ms=f"{seg_t.ms:.4f}", segment_sum_bound_ms=f"{seg_bound:.4f}",
             share_of_bound=f"{seg_bound / seg_t.ms:.3f}", plain_ms=f"{seg_plain.ms:.3f}",
             one_window_ms=f"{one_t.ms:.4f}", window_bytes=WINDOW_BYTES,
@@ -3001,7 +2962,7 @@ def main(argv=None) -> int:
             "ms": seg_t.ms, "plain_ms": seg_plain.ms,
             "bound_ms": seg_bound, "bound_by": "bytes", "library_ms": atomic_t.ms,
         })
-        del lam_g, ax_all, views, rows_all, plain, r_f, r_p, res2
+        del ax_all, views, rows_all, plain, r_f, r_p, res2
         torch.cuda.empty_cache()
         names = profile_window("csc", obj, res.dual_val)
         if names is not None:
@@ -3098,7 +3059,7 @@ def main(argv=None) -> int:
             for k, v in want.items():
                 check(n_launch[k] == v, f"{what}: {k} launches {n_launch[k]} != {v}")
                 check(calls[k] == want_calls[k], f"{what}: {k} wrapper calls {calls[k]} != {want_calls[k]}")
-            check(n_launch["K1g"] == n_launch["K1"] == n_launch["segsum"] == 0, f"{what}: the csc kernels ran: {n_launch}")
+            check(n_launch["K1g"] == n_launch["K2g"] == n_launch["segsum"] == 0, f"{what}: the csc kernels ran: {n_launch}")
             log = np.asarray(res.dual_objective_log)
             plain_dev = rel_dev(first_iterations(variant(obj, PlainButterfly), obj.bcsc.m), log[:n_chk])
             say(what, plain_check_iterations=n_chk, max_rel_dev_vs_plain=float(plain_dev.max()), tolerance=1e-5)

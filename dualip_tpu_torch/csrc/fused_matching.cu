@@ -1,20 +1,20 @@
 // Fused matching tile kernel (K1) and its x-emitting twin (K2) for Hopper.
 //
 // Replaces dualip_tpu/ops/pallas_matching.py::_fused_kernel (K1) and
-// ::_fused_kernel_x (K2), with their device function _project_block, and in
-// its gather form also the lambda gather that XLA ran before the TPU kernel.
-// Per (L, K)-transposed tile, for every entity column k:
+// ::_fused_kernel_x (K2), with their device function _project_block, and
+// also the lambda gather that XLA ran before the TPU kernel. Per
+// (L, K)-transposed tile, for every entity column k:
 //
-//     lam[l] = lam_g[l,k]                        (lam_g form, the TPU contract)
-//            = scaled[rows[l,k]]                 (gather form)
+//     lam[l] = scaled[rows[l,k]]
 //     z[l]  = a[l,k] * lam[l] + neg_inv_gamma * c[l,k]          l < L
 //     x[:,k] = Proj(z[:,k]) over the L lanes, then x[l,k] = 0 for l >= length[k]
 //     ax[l,k] = a[l,k] * x[l,k];  obj += c*x;  reg += x*x       (+ x with WANT_X)
 //
-// Both forms run the same code (template flag GATHER): z is formed from the
-// same rounded products, so they give the same bits.
+// The TPU kernel's contract, which takes lam_g = scaled[rows] gathered by the
+// caller, is this kernel on scaled = lam_g and rows = 0, 1, ..., L K - 1
+// (ops/fused_matching.py::fused_tile_eval_T): the same bits.
 //
-// What bounds it on an H100: device memory. It reads lam_g or rows, a, c
+// What bounds it on an H100: device memory. It reads rows, a, c
 // (12 B per slot) and writes a*x (4 B; 8 B with x), about 16 B per slot (20 B
 // for K2), against about 100 fp32 operations per slot for the 30 bisection
 // steps: about 6 per byte, below the card's fp32 ridge of 67 TFLOP/s /
@@ -23,13 +23,13 @@
 // Design:
 //  * One thread per column (L <= 64). Persistent blocks of 256 threads walk
 //    slabs of 256 columns. The (L, K) layout puts neighbouring columns at
-//    neighbouring addresses: a slab's (L x 256) lanes of lam_g or rows, a and
-//    c, and its 256 lengths, are copied into shared memory with cp.async
+//    neighbouring addresses: a slab's (L x 256) lanes of rows, a and c, and
+//    its 256 lengths, are copied into shared memory with cp.async
 //    (16 B pieces when K and the pointers allow), all in flight at once. The
 //    column's values stay in registers (template on a power-of-two cap of L)
 //    for all 30 bisection steps; pass 2 reads a and c from shared memory.
-//  * Gather form: each block copies scaled (m,) into shared memory once, when
-//    m * 4 B fits SCALED_SMEM_BYTES beside the slab (40 KB at m = 10,000), and
+//  * Each block copies scaled (m,) into shared memory once, when m * 4 B
+//    fits SCALED_SMEM_BYTES beside the slab (40 KB at m = 10,000), and
 //    gathers from there; otherwise it reads scaled through L1. Any m is taken.
 //    A random gather of 32 lanes costs a few shared-memory wavefronts (bank
 //    conflicts) but about one L1 pass per distinct line.
@@ -39,11 +39,11 @@
 //  * One warp per column for 64 < L <= 512 (wide_kernel<32, ...>):
 //    persistent blocks of 8 warps walk groups of 8 adjacent columns, one a
 //    warp (so each 32 B sector of a lane row read from device memory serves
-//    the whole block), with the gather form and the scaled copy of the
-//    column kernel. The warp forms z once and keeps it, with a and c, in
-//    registers (the bisection then reads no memory, and the emit only
-//    stores); every reduction is a warp shuffle, with no block barrier
-//    inside a step (project_column_warp, project_block.cuh).
+//    the whole block), with the scaled copy of the column kernel. The warp
+//    forms z once and keeps it, with a and c, in registers (the bisection
+//    then reads no memory, and the emit only stores); every reduction is a
+//    warp shuffle, with no block barrier inside a step
+//    (project_column_group with a WarpReduce, project_block.cuh).
 //  * One block per column above L = 512 (wide_kernel<T, KEEP, ...>, T = 128
 //    to 1024 threads, 8 lanes a thread: 128 at L = 1024, 1024 at 8192):
 //    persistent blocks walk the tile's columns. These tiles hold few real
@@ -53,8 +53,9 @@
 //    T = 1024 16 lanes a thread up to 16,384 lanes, z alone; then z in
 //    shared memory; then nowhere, z formed again on every pass: one kernel
 //    instance each, so that one keep's registers do not spill another's),
-//    and each reduction costs one barrier (project_column_block). scaled is
-//    read through the caches: a column reads at most L of its m values. The
+//    and each reduction costs one barrier (project_column_group with a
+//    BlockReduce). scaled is read through the caches: a column reads at most
+//    L of its m values. The
 //    8 columns that share a sector go to 8 blocks: one block of 8 teams of
 //    128 threads, a team a column, measured no faster on an H100 (a tile of
 //    thousands of real columns takes the time its uncoalesced lane accesses
@@ -100,7 +101,7 @@ constexpr int WIDE_REGS_LONG = 16; // ... 16 lanes a thread up to 512; above, a 
 constexpr int BLOCK_REGS = 8;      // a block's column in registers, 8 lanes a thread (128-1024 threads)
 constexpr int BLOCK_REGS_LONG = 16;  // ... 16 lanes a thread of the largest block, up to 16,384 lanes
 constexpr int BLOCK_MAX = 1024;    // threads of the largest block
-constexpr int SLAB_ARRAYS = 3;     // lam_g or rows, a, c
+constexpr int SLAB_ARRAYS = 3;     // rows, a, c
 constexpr int SCALED_SMEM_BYTES = 48 * 1024;  // largest scaled (m,) copied into shared memory
 constexpr int SMEM_LIMIT = 226 * 1024;  // dynamic shared memory of one block (227 KB less the static part)
 
@@ -133,8 +134,8 @@ using KeepOf = std::conditional_t<KEEP == REGS, KeepRegs<BLOCK_REGS>,
 __device__ unsigned int g_blocks_done = 0;  // blocks of the running launch that have finished
 
 struct Args {
-  const float* g;       // lam_g (L, K) fp32, or rows (L, K) int32 read as its bits (GATHER)
-  const float* scaled;  // (m,), GATHER only
+  const int* rows;      // (L, K)
+  const float* scaled;  // (m,)
   int m;
   const float* a;
   const float* c;
@@ -152,23 +153,16 @@ struct Args {
   int has_lo, has_hi;
   float radius;      // simplex radius or box-cut sum bound
   int vec16;         // slab copies in 16 B pieces
-  int scaled_smem;   // GATHER: scaled copied into shared memory
+  int scaled_smem;   // scaled copied into shared memory
 };
-
-template <bool GATHER>
-__device__ __forceinline__ float lam_at(const float* g, size_t idx, const float* scaled) {
-  if (GATHER) return scaled[reinterpret_cast<const int*>(g)[idx]];
-  return g[idx];
-}
 
 // a*lam + nig*c, rounded as two products and a sum (no contraction)
 __device__ __forceinline__ float zform(float a, float lam, float c, float nig) {
   return __fadd_rn(__fmul_rn(a, lam), __fmul_rn(nig, c));
 }
 
-template <bool GATHER>
 __device__ __forceinline__ float zval(const Args& p, size_t idx, float nig) {
-  return zform(p.a[idx], lam_at<GATHER>(p.g, idx, p.scaled), p.c[idx], nig);
+  return zform(p.a[idx], p.scaled[p.rows[idx]], p.c[idx], nig);
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -187,7 +181,7 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 __device__ __forceinline__ void start_slab_copy(const Args& p, float* dst, int slab) {
   const int L = p.L, t = threadIdx.x;
   const long long K = p.K, k0 = (long long)slab * THREADS;
-  const float* src[SLAB_ARRAYS] = {p.g, p.a, p.c};
+  const float* src[SLAB_ARRAYS] = {reinterpret_cast<const float*>(p.rows), p.a, p.c};
   float* dst_len = dst + (size_t)SLAB_ARRAYS * L * THREADS;
   const float* src_len = reinterpret_cast<const float*>(p.length);
   if (p.vec16) {  // a lane row is 32 pieces of 16 B; 4 lane rows per pass
@@ -275,7 +269,7 @@ __device__ void finish(const Args& p) {
 }
 
 // identity / box / cone: elementwise clamps, any L, a block per 128 columns.
-template <bool WANT_X, bool GATHER>
+template <bool WANT_X>
 __global__ void __launch_bounds__(THREADS) clamp_kernel(Args p) {
   const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   float cx = 0.f, xx = 0.f;
@@ -284,7 +278,7 @@ __global__ void __launch_bounds__(THREADS) clamp_kernel(Args p) {
     const int len = p.length[k];
     for (int l = 0; l < p.L; ++l) {
       const size_t idx = (size_t)l * p.K + k;
-      float w = zval<GATHER>(p, idx, nig);
+      float w = zval(p, idx, nig);
       if (p.has_lo) w = fmaxf(w, p.lo);
       if (p.has_hi) w = fminf(w, p.hi);
       emit_lane<WANT_X>(p, idx, l, len, w, p.a[idx], p.c[idx], cx, xx);
@@ -300,13 +294,13 @@ __global__ void __launch_bounds__(THREADS) clamp_kernel(Args p) {
 
 // simplex / simplex_eq / box_cut / box_cut_eq, one thread per column, L <= LCAP,
 // persistent blocks over slabs of THREADS columns in shared memory.
-template <int KIND, int LCAP, bool WANT_X, bool GATHER>
+template <int KIND, int LCAP, bool WANT_X>
 __global__ void __launch_bounds__(THREADS) column_kernel(Args p) {
   extern __shared__ __align__(16) float smem[];
   const int L = p.L, t = threadIdx.x;
   const size_t lanes = (size_t)L * THREADS;  // one array of a slab
-  const float* table = p.scaled;  // GATHER: scaled, here or in shared memory
-  if (GATHER && p.scaled_smem) {
+  const float* table = p.scaled;  // here or in shared memory
+  if (p.scaled_smem) {
     float* copy = smem + SLAB_ARRAYS * lanes + THREADS;
     start_scaled_copy(p, copy);
     table = copy;  // arrives with the first slab
@@ -317,8 +311,8 @@ __global__ void __launch_bounds__(THREADS) column_kernel(Args p) {
     start_slab_copy(p, smem, slab);
     cp_async_wait_all();
     __syncthreads();
-    const float* sg = smem;
-    const float* sa = sg + lanes;
+    const int* sr = reinterpret_cast<const int*>(smem);
+    const float* sa = smem + lanes;
     const float* sc = sa + lanes;
     const long long k = (long long)slab * THREADS + t;
     float cx = 0.f, xx = 0.f;
@@ -328,7 +322,7 @@ __global__ void __launch_bounds__(THREADS) column_kernel(Args p) {
           L, proj,
           [&](int l) {
             const int i = l * THREADS + t;
-            return zform(sa[i], lam_at<GATHER>(sg, i, table), sc[i], nig);
+            return zform(sa[i], table[sr[i]], sc[i], nig);
           },
           [&](int l, float w) {
             const int i = l * THREADS + t;
@@ -344,15 +338,15 @@ __global__ void __launch_bounds__(THREADS) column_kernel(Args p) {
   finish(p);
 }
 
-// The same kinds for 64 < L <= 512, one warp per column (project_column_warp):
-// persistent blocks of WIDE_WARPS warps over groups of WIDE_WARPS adjacent
-// columns; warp w of a block takes column group * WIDE_WARPS + w.
-template <int KIND, bool WANT_X, bool GATHER>
+// The same kinds for 64 < L <= 512, one warp per column: persistent blocks
+// of WIDE_WARPS warps over groups of WIDE_WARPS adjacent columns; warp w of a
+// block takes column group * WIDE_WARPS + w.
+template <int KIND, bool WANT_X>
 __device__ __forceinline__ void wide_warps(const Args& p) {
   extern __shared__ __align__(16) float smem[];
   const int L = p.L, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* table = p.scaled;  // GATHER: scaled, here or in shared memory
-  if (GATHER && p.scaled_smem) {
+  const float* table = p.scaled;  // here or in shared memory
+  if (p.scaled_smem) {
     start_scaled_copy(p, smem);
     cp_async_wait_all();
     __syncthreads();
@@ -360,6 +354,7 @@ __device__ __forceinline__ void wide_warps(const Args& p) {
   }
   const float nig = *p.neg_inv_gamma;
   const Proj proj{p.inequality, p.lo, p.hi, p.has_lo, p.has_hi, p.radius};
+  WarpReduce red;
   for (int grp = blockIdx.x; grp < p.nparts; grp += gridDim.x) {
     const long long k0 = (long long)grp * WIDE_WARPS, k = k0 + warp;
     float cx = 0.f, xx = 0.f;
@@ -389,13 +384,13 @@ __device__ __forceinline__ void wide_warps(const Args& p) {
           const size_t idx = (size_t)l * p.K + k;
           av[j] = p.a[idx];
           cv[j] = p.c[idx];
-          return zform(av[j], lam_at<GATHER>(p.g, idx, table), cv[j], nig);
+          return zform(av[j], table[p.rows[idx]], cv[j], nig);
         };
         const auto emit = [&](int j, int l, float w) {
           emit_lane<WANT_X>(p, (size_t)l * p.K + k, l, len, w, av[j], cv[j], cx, xx);
         };
-        if (L <= 32 * WIDE_REGS) project_column_warp<KIND, KeepRegs<WIDE_REGS>>(L, proj, nullptr, z, emit);
-        else project_column_warp<KIND, KeepRegs<WIDE_REGS_LONG>>(L, proj, nullptr, z, emit);
+        if (L <= 32 * WIDE_REGS) project_column_group<KIND, KeepRegs<WIDE_REGS>>(L, proj, red, nullptr, z, emit);
+        else project_column_group<KIND, KeepRegs<WIDE_REGS_LONG>>(L, proj, red, nullptr, z, emit);
       }
     }
     block_sum2(cx, xx);
@@ -409,7 +404,7 @@ __device__ __forceinline__ void wide_warps(const Args& p) {
 // One real column k of the block form, its lanes kept as ``Keep`` says; with
 // BLOCK_REGS lanes a thread or fewer a and c are kept beside them, so that
 // the emit only stores.
-template <int T, int KIND, class Keep, bool WANT_X, bool GATHER, class Reduce>
+template <int KIND, class Keep, bool WANT_X, class Reduce>
 __device__ __forceinline__ void block_column(const Args& p, long long k, int len, float nig, const Proj& proj,
                                              Reduce& red, float* stretch, float& cx, float& xx) {
   constexpr int N = Keep::n;
@@ -422,20 +417,19 @@ __device__ __forceinline__ void block_column(const Args& p, long long k, int len
       av[j] = a;
       cv[j] = c;
     }
-    return zform(a, lam_at<GATHER>(p.g, idx, p.scaled), c, nig);
+    return zform(a, p.scaled[p.rows[idx]], c, nig);
   };
   const auto emit = [&](int j, int l, float w) {
     const size_t idx = (size_t)l * p.K + k;
     if constexpr (KEEP_AC) emit_lane<WANT_X>(p, idx, l, len, w, av[j], cv[j], cx, xx);
     else emit_lane<WANT_X>(p, idx, l, len, w, p.a[idx], p.c[idx], cx, xx);
   };
-  project_column_block<KIND, T, Keep>(p.L, proj, red, stretch, z, emit);
+  project_column_group<KIND, Keep>(p.L, proj, red, stretch, z, emit);
 }
 
-// The same kinds above L = 512, one block of T threads per column
-// (project_column_block): persistent blocks walk the tile's columns, one
-// partial a column.
-template <int T, int KEEP, int KIND, bool WANT_X, bool GATHER>
+// The same kinds above L = 512, one block of T threads per column:
+// persistent blocks walk the tile's columns, one partial a column.
+template <int T, int KEEP, int KIND, bool WANT_X>
 __device__ __forceinline__ void wide_block(const Args& p) {
   extern __shared__ __align__(16) float smem[];  // the column's lanes, where kept in shared memory
   __shared__ BlockTotals totals;
@@ -461,7 +455,7 @@ __device__ __forceinline__ void wide_block(const Args& p) {
         if (WANT_X) p.x[idx] = 0.f;
       }
     } else {
-      block_column<T, KIND, KeepOf<KEEP>, WANT_X, GATHER>(p, k, len, nig, proj, red, smem, cx, xx);
+      block_column<KIND, KeepOf<KEEP>, WANT_X>(p, k, len, nig, proj, red, smem, cx, xx);
       red.sum2(cx, xx);
     }
     if (t == 0) {
@@ -473,10 +467,10 @@ __device__ __forceinline__ void wide_block(const Args& p) {
 
 // Simplex and box_cut above L = 64: a warp a column (T = 32, up to 512 lanes),
 // or a block of T threads a column (above), its lanes kept as KEEP says.
-template <int T, int KEEP, int KIND, bool WANT_X, bool GATHER>
+template <int T, int KEEP, int KIND, bool WANT_X>
 __global__ void __launch_bounds__(T == 32 ? WIDE_WARPS * 32 : T, T == 32 ? 1 : BLOCK_MAX / T) wide_kernel(Args p) {
-  if constexpr (T == 32) wide_warps<KIND, WANT_X, GATHER>(p);
-  else wide_block<T, KEEP, KIND, WANT_X, GATHER>(p);
+  if constexpr (T == 32) wide_warps<KIND, WANT_X>(p);
+  else wide_block<T, KEEP, KIND, WANT_X>(p);
   finish(p);
 }
 
@@ -487,7 +481,7 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// The column kernel's slab: lam_g or rows, a and c (L x THREADS each) and
+// The column kernel's slab: rows, a and c (L x THREADS each) and
 // THREADS lengths.
 size_t slab_bytes(int L) { return (size_t)(SLAB_ARRAYS * L + 1) * THREADS * sizeof(float); }
 
@@ -516,69 +510,67 @@ cudaError_t launch_persistent(Kernel kernel, int threads, size_t smem, const Arg
 
 size_t scaled_bytes(const Args& p) { return p.scaled_smem ? (size_t)p.m * sizeof(float) : 0; }
 
-template <int KIND, int LCAP, bool WANT_X, bool GATHER>
+template <int KIND, int LCAP, bool WANT_X>
 cudaError_t launch_column(const Args& p, cudaStream_t s) {
-  return launch_persistent(column_kernel<KIND, LCAP, WANT_X, GATHER>, THREADS, slab_bytes(p.L) + scaled_bytes(p), p,
+  return launch_persistent(column_kernel<KIND, LCAP, WANT_X>, THREADS, slab_bytes(p.L) + scaled_bytes(p), p,
                            s);
 }
 
-template <int T, int KEEP, int KIND, bool WANT_X, bool GATHER>
+template <int T, int KEEP, int KIND, bool WANT_X>
 cudaError_t launch_block(const Args& p, cudaStream_t s) {
   const size_t smem = KEEP == SHARED ? (size_t)p.L * sizeof(float) : 0;
-  return launch_persistent(wide_kernel<T, KEEP, KIND, WANT_X, GATHER>, T, smem, p, s);
+  return launch_persistent(wide_kernel<T, KEEP, KIND, WANT_X>, T, smem, p, s);
 }
 
-template <int KIND, bool WANT_X, bool GATHER>
+template <int KIND, bool WANT_X>
 cudaError_t launch_projection(const Args& p, cudaStream_t s) {
   const int L = p.L;
   if (L > REG_L_CAP) {
     switch (wide_threads(L)) {
       case 32:
-        return launch_persistent(wide_kernel<32, REGS, KIND, WANT_X, GATHER>, WIDE_WARPS * 32, scaled_bytes(p), p,
+        return launch_persistent(wide_kernel<32, REGS, KIND, WANT_X>, WIDE_WARPS * 32, scaled_bytes(p), p,
                                  s);
-      case 128: return launch_block<128, REGS, KIND, WANT_X, GATHER>(p, s);
-      case 256: return launch_block<256, REGS, KIND, WANT_X, GATHER>(p, s);
-      case 512: return launch_block<512, REGS, KIND, WANT_X, GATHER>(p, s);
+      case 128: return launch_block<128, REGS, KIND, WANT_X>(p, s);
+      case 256: return launch_block<256, REGS, KIND, WANT_X>(p, s);
+      case 512: return launch_block<512, REGS, KIND, WANT_X>(p, s);
     }
     switch (keep_of(L)) {
-      case REGS: return launch_block<BLOCK_MAX, REGS, KIND, WANT_X, GATHER>(p, s);
-      case REGS_LONG: return launch_block<BLOCK_MAX, REGS_LONG, KIND, WANT_X, GATHER>(p, s);
-      case SHARED: return launch_block<BLOCK_MAX, SHARED, KIND, WANT_X, GATHER>(p, s);
-      default: return launch_block<BLOCK_MAX, NONE, KIND, WANT_X, GATHER>(p, s);
+      case REGS: return launch_block<BLOCK_MAX, REGS, KIND, WANT_X>(p, s);
+      case REGS_LONG: return launch_block<BLOCK_MAX, REGS_LONG, KIND, WANT_X>(p, s);
+      case SHARED: return launch_block<BLOCK_MAX, SHARED, KIND, WANT_X>(p, s);
+      default: return launch_block<BLOCK_MAX, NONE, KIND, WANT_X>(p, s);
     }
   }
-  if (L <= 1) return launch_column<KIND, 1, WANT_X, GATHER>(p, s);
-  if (L <= 2) return launch_column<KIND, 2, WANT_X, GATHER>(p, s);
-  if (L <= 4) return launch_column<KIND, 4, WANT_X, GATHER>(p, s);
-  if (L <= 8) return launch_column<KIND, 8, WANT_X, GATHER>(p, s);
-  if (L <= 16) return launch_column<KIND, 16, WANT_X, GATHER>(p, s);
-  if (L <= 32) return launch_column<KIND, 32, WANT_X, GATHER>(p, s);
-  return launch_column<KIND, 64, WANT_X, GATHER>(p, s);
+  if (L <= 1) return launch_column<KIND, 1, WANT_X>(p, s);
+  if (L <= 2) return launch_column<KIND, 2, WANT_X>(p, s);
+  if (L <= 4) return launch_column<KIND, 4, WANT_X>(p, s);
+  if (L <= 8) return launch_column<KIND, 8, WANT_X>(p, s);
+  if (L <= 16) return launch_column<KIND, 16, WANT_X>(p, s);
+  if (L <= 32) return launch_column<KIND, 32, WANT_X>(p, s);
+  return launch_column<KIND, 64, WANT_X>(p, s);
 }
 
-template <bool WANT_X, bool GATHER>
+template <bool WANT_X>
 cudaError_t launch(int kind, const Args& p, cudaStream_t s) {
   if (kind == CLAMP) {
-    clamp_kernel<WANT_X, GATHER><<<p.nparts, THREADS, 0, s>>>(p);
+    clamp_kernel<WANT_X><<<p.nparts, THREADS, 0, s>>>(p);
     return cudaSuccess;
   }
-  if (kind == SIMPLEX) return launch_projection<SIMPLEX, WANT_X, GATHER>(p, s);
-  return launch_projection<BOXCUT, WANT_X, GATHER>(p, s);
+  if (kind == SIMPLEX) return launch_projection<SIMPLEX, WANT_X>(p, s);
+  return launch_projection<BOXCUT, WANT_X>(p, s);
 }
 
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
 }  // namespace
 
-// ``g`` is lam_g (L, K) float32, or with ``gather`` the tile's rows (L, K)
-// int32 and ``scaled`` (m,) float32.
+// ``rows`` (L, K) int32 indexes ``scaled`` (m,) float32.
 extern "C" int dualip_fused_tile_eval(
-    const void* g, const float* scaled, int m, const float* a, const float* c, const int* length,
+    const int* rows, const float* scaled, int m, const float* a, const float* c, const int* length,
     const float* neg_inv_gamma, float* ax, float* x, float* partials, float* out,
-    int L, int K, int nb, int kind, int want_x, int gather, int inequality,
+    int L, int K, int nb, int kind, int want_x, int inequality,
     float lo, float hi, int has_lo, int has_hi, float radius, void* stream) {
-  if (L < 1 || K < 1 || kind < CLAMP || kind > BOXCUT || (want_x && x == nullptr) ||
-      (gather && (scaled == nullptr || m < 1))) {
+  if (L < 1 || K < 1 || kind < CLAMP || kind > BOXCUT || (want_x && x == nullptr) || scaled == nullptr || m < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const bool wide = kind != CLAMP && L > REG_L_CAP;  // any L: past SMEM_LIMIT the block form keeps no lanes
@@ -586,16 +578,14 @@ extern "C" int dualip_fused_tile_eval(
   const int expected_nb = block ? K : wide ? (K + WIDE_WARPS - 1) / WIDE_WARPS : (K + THREADS - 1) / THREADS;
   if (nb != expected_nb) return (int)cudaErrorInvalidValue;
 
-  const int vec16 = K % 4 == 0 && aligned16(g) && aligned16(a) && aligned16(c) && aligned16(length) &&
-                    (!gather || aligned16(scaled));
-  const int scaled_smem = gather && !block && (size_t)m * sizeof(float) <= SCALED_SMEM_BYTES &&
+  const int vec16 = K % 4 == 0 && aligned16(rows) && aligned16(a) && aligned16(c) && aligned16(length) &&
+                    aligned16(scaled);
+  const int scaled_smem = !block && (size_t)m * sizeof(float) <= SCALED_SMEM_BYTES &&
                           (wide ? 0 : slab_bytes(L)) + (size_t)m * sizeof(float) <= SMEM_LIMIT;
-  Args p{static_cast<const float*>(g), scaled, m, a, c, length, neg_inv_gamma, ax, x, partials, out,
+  Args p{rows, scaled, m, a, c, length, neg_inv_gamma, ax, x, partials, out,
          L, (long long)K, nb, inequality, lo, hi, has_lo, has_hi, radius, vec16, scaled_smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (gather) e = want_x ? launch<true, true>(kind, p, s) : launch<false, true>(kind, p, s);
-  else e = want_x ? launch<true, false>(kind, p, s) : launch<false, false>(kind, p, s);
+  const cudaError_t e = want_x ? launch<true>(kind, p, s) : launch<false>(kind, p, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -63,7 +63,7 @@
 //    a*x (and x) go out as coalesced stores from registers.
 //  * L = 33 up to RING_L_CAP = 47, the largest item of fp32 carry and tiles
 //    the ring holds, go through the ring but re-read their lanes from shared
-//    memory on every pass (project_column_stream): a 64-lane column in
+//    memory on every pass (project_column_group, KeepNone): a 64-lane column in
 //    registers raised the whole kernel's register use and spills, and cost
 //    the common tiles more than it saved the rare wide ones. Items of a bf16
 //    carry or bf16 tiles are smaller but go through the ring up to the same
@@ -74,7 +74,7 @@
 //  * Wider tiles do not go through the ring (the producer passes their units
 //    with a bare arrival). A wide unit is 8 adjacent columns of one item, 2
 //    a consumer warp, one after the other, each projected by the whole warp
-//    (project_column_warp): z formed once from device memory, kept in
+//    (project_column_warp_any): z formed once from device memory, kept in
 //    registers up to L = 128, in the warp's 2 KB stretch of shared memory up
 //    to L = 512, re-read from device memory above; every reduction a warp
 //    shuffle. The 8 columns of a unit are one 32 B sector of each fp32 lane
@@ -373,10 +373,11 @@ template <typename T, typename TA, int KIND, bool WANT_X>
 __device__ __forceinline__ void project_any(const Tile& t, const Proj& pr, const Column<T, TA>& col, float& cx,
                                             float& xx) {
   const int L = t.L;
-  if (L > REG_L_CAP) {
-    project_column_stream<KIND>(
-        L, pr, [&](int l) { return col.z(l); },
-        [&](int l, float w) { col.template emit<WANT_X>(l, w, cx, xx); });
+  if (L > REG_L_CAP) {  // one thread, nothing kept: every pass reads the lanes again from the ring
+    ThreadReduce alone;
+    project_column_group<KIND, KeepNone>(
+        L, pr, alone, nullptr, [&](int, int l) { return col.z(l); },
+        [&](int, int l, float w) { col.template emit<WANT_X>(l, w, cx, xx); });
   } else if (L <= 1) {
     project<T, TA, KIND, 1, WANT_X>(t, pr, col, cx, xx);
   } else if (L <= 2) {

@@ -1,14 +1,14 @@
 // Device functions shared by the fused tile kernel (fused_matching.cu, K1/K2)
 // and the panel kernel (panel_matching.cu, K3/K4): the per-column projection
-// of dualip_tpu/ops/pallas_matching.py::_project_block, by one thread
-// (project_column, project_column_stream), by one warp (project_column_warp,
-// the kernels' wide columns) or by one block (project_column_block, K1's
-// widest columns), and the block-wide sum of the per-thread (sum c*x,
-// sum x*x) pairs.
+// of dualip_tpu/ops/pallas_matching.py::_project_block by a group of threads
+// (project_column_group: one thread, one warp for the kernels' wide columns,
+// one block for K1's widest), the same by one thread holding its column in
+// registers (project_column, the narrow columns), and the block-wide sum of
+// the per-thread (sum c*x, sum x*x) pairs.
 //
 // Exact numerics of _project_block, the same in every kernel that includes
-// this header (only the order of the lane sums differs in the warp's and the
-// block's forms, see project_column_warp): z is formed by the caller as two rounded
+// this header (only the order of the lane sums differs between the group
+// sizes, see project_column_group): z is formed by the caller as two rounded
 // products and a rounded sum (no FMA contraction); simplex runs 30 bisection
 // steps on [-1, 0] of the max-shifted, radius-normalised, pre-clamped values
 // with the "s > 1" test, the top-2 vertex shortcut with argmax taking the
@@ -76,9 +76,15 @@ __device__ inline void block_sum2(float& u, float& v) {
   __syncthreads();
 }
 
-// One column of L <= LCAP lanes kept in registers. ``z_at(l)`` returns z of
-// lane l (it may be called twice for a lane; it must return the same value);
-// ``emit(l, w)`` receives the projected, not yet length-masked value.
+// One column of L <= LCAP lanes kept in registers, one thread. ``z_at(l)``
+// returns z of lane l (it may be called twice for a lane; it must return the
+// same value); ``emit(l, w)`` receives the projected, not yet length-masked
+// value. The same tests, products and sums in the same order, and so the
+// same bits, as project_column_group with a ThreadReduce and KeepRegs<LCAP>;
+// written out on its own because the compiler allocates that instance worse
+// (-Xptxas -v, sm_90a): K1's column_kernel<SIMPLEX, 16> took 64 registers and
+// spilled 4 B against 80 and none here, and K3's panel_tiles_kernel spilled
+// 48-264 B more.
 template <int KIND, int LCAP, class ZAt, class Emit>
 __device__ __forceinline__ void project_column(int L, const Proj& p, ZAt z_at, Emit emit) {
   float r[LCAP];  // simplex: vn - max(vn); box_cut: z
@@ -165,102 +171,15 @@ __device__ __forceinline__ void project_column(int L, const Proj& p, ZAt z_at, E
   }
 }
 
-// The same column, any L, with nothing kept: every pass calls ``z_at`` again
-// (32 passes over the column, served by L1/L2). For the rare buckets wider
-// than the register cap. The sums run over the lanes in the same order as
-// above, so the result is the same bit for bit.
-template <int KIND, class ZAt, class Emit>
-__device__ __forceinline__ void project_column_stream(int L, const Proj& p, ZAt z_at, Emit emit) {
-  if (KIND == SIMPLEX) {
-    const float radius = p.radius;
-    float vmax = -CUDART_INF_F, sumv = 0.f;
-    int i0 = 0;
-    for (int l = 0; l < L; ++l) {
-      const float v = fmaxf(z_at(l), 0.f);
-      sumv += v;
-      const float vn = div_radius(v, radius);
-      if (vn > vmax) {
-        vmax = vn;
-        i0 = l;
-      }
-    }
-    float v1 = -CUDART_INF_F;
-    for (int l = 0; l < L; ++l) {
-      if (l != i0) v1 = fmaxf(v1, div_radius(fmaxf(z_at(l), 0.f), radius));
-    }
-    float lo = -1.f, hi = 0.f;
-    for (int it = 0; it < BISECTION_ITERS; ++it) {
-      const float mid = (lo + hi) * 0.5f;
-      float s = 0.f;
-      for (int l = 0; l < L; ++l) {
-        const float rl = div_radius(fmaxf(z_at(l), 0.f), radius) - vmax;
-        s += fmaxf(rl - mid, 0.f);
-      }
-      if (s > 1.0f) lo = mid; else hi = mid;
-    }
-    const float nu = (lo + hi) * 0.5f;
-    const bool shortcut = L > 1 && (vmax - v1) > 1.0f;
-    const bool feasible = p.inequality && sumv <= radius + 1e-6f;
-    for (int l = 0; l < L; ++l) {
-      const float v = fmaxf(z_at(l), 0.f);
-      float w;
-      if (feasible) w = v;
-      else if (shortcut) w = (l == i0) ? radius : 0.f;
-      else w = __fmul_rn(fmaxf((div_radius(v, radius) - vmax) - nu, 0.f), radius);
-      emit(l, w);
-    }
-  } else {  // BOXCUT
-    const float lt = p.lo, ut = p.hi, zcut = p.radius;
-    float zmin = CUDART_INF_F, zmax = -CUDART_INF_F, sumclip = 0.f;
-    for (int l = 0; l < L; ++l) {
-      const float z = z_at(l);
-      zmin = fminf(zmin, z);
-      zmax = fmaxf(zmax, z);
-      sumclip += clip(z, lt, ut);
-    }
-    float lo = zmin - ut, hi = zmax - lt;
-    for (int it = 0; it < BISECTION_ITERS; ++it) {
-      const float mid = (lo + hi) * 0.5f;
-      float s = 0.f;
-      for (int l = 0; l < L; ++l) s += clip(z_at(l) - mid, lt, ut);
-      if (s > zcut) lo = mid; else hi = mid;
-    }
-    const float nu = (lo + hi) * 0.5f;
-    const bool feasible = p.inequality && sumclip <= zcut + 1e-6f;
-    for (int l = 0; l < L; ++l) {
-      const float z = z_at(l);
-      emit(l, feasible ? clip(z, lt, ut) : clip(z - nu, lt, ut));
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// One column of any L, projected by one warp (the wide columns of both
-// kernels). Thread t of the warp holds lanes t, t + 32, ...; z is formed once
-// by ``z_at`` (the caller's rounding, as above) and what the passes need of a
-// lane is kept by the thread (``Keep``): in registers (KeepRegs<N>, L <= 32 N,
-// the passes unrolled over N), in the warp's own stretch of shared memory
-// (KeepShared, lane l at s[l], so the 32 threads hit 32 banks), or nowhere
-// (KeepNone: every pass calls z_at again, the warp's reads in parallel). The
-// max with its FIRST argmax, the second max, sum(v), each bisection sum, and
-// box_cut's min, max and clip sum are reduced across the warp by
-// __shfl_xor_sync: every thread receives the same bits (each step adds or
-// compares the same two values on both sides), so all take the same branch,
-// with no block barrier.
-//
-// The tests, products and branches are project_column's. Only the order of
-// the lane sums changes: each thread adds its lanes in order, then a
-// butterfly across the 32 threads, where project_column adds in lane order.
-// A sum of L terms then moves by at most about L * 2^-24 of its magnitude; a
-// bisection test "s > 1" flips only where mid already lies that close to the
-// root (s falls with slope <= -1 in mid wherever it crosses 1), so nu, x and
-// a*x move by about L * 2^-24 * radius (2.3e-5 at L = 394, radius 1), and the
-// inequality pass-through flips only for a column whose sum lies within that
-// of radius + 1e-6. Against the plain version (which adds in lane order) the
-// kernels are held to 5e-5 * max(1, max|x|) on a*x and x.
+// Where a group keeps what the passes need of a lane (z formed once by the
+// caller's ``z_at``): in registers (KeepRegs<N>, L <= T N, the passes
+// unrolled over N), in the group's own stretch of shared memory (KeepShared,
+// lane l at s[l], so a warp's 32 threads hit 32 banks), or nowhere
+// (KeepNone: every pass calls z_at again, the group's reads in parallel).
 
 template <int N>
-struct KeepRegs {  // lanes in registers: L <= 32 * N
+struct KeepRegs {  // lanes in registers: L <= T * N
   static constexpr int n = N;
   static constexpr bool kept = true;
   float r[N];
@@ -269,7 +188,7 @@ struct KeepRegs {  // lanes in registers: L <= 32 * N
   __device__ __forceinline__ void set(int j, int, float v) { r[j] = v; }
 };
 
-struct KeepShared {  // lanes in the warp's stretch of shared memory, L floats
+struct KeepShared {  // lanes in the group's stretch of shared memory, L floats
   static constexpr int n = 0;
   static constexpr bool kept = true;
   float* s;
@@ -286,42 +205,52 @@ struct KeepNone {  // nothing kept: z formed again on every pass
   __device__ __forceinline__ void set(int, int, float) {}
 };
 
-// f(j, l) for the thread's lanes l = t + 32 j < L: unrolled over N (compile
+// The calling thread's rank t in its group of T threads (threadIdx.x % T):
+// 0 alone, its lane in a warp, threadIdx.x in a block (the block is the group).
+template <int T>
+__device__ __forceinline__ int group_rank() {
+  if constexpr (T == 1) return 0;
+  else if constexpr (T == 32) return threadIdx.x & 31;
+  else return threadIdx.x;
+}
+
+// f(j, l) for the thread's lanes l = t + T j < L: unrolled over N (compile
 // time, so a register array stays in registers), or a loop when N = 0.
-template <int N, class F>
-__device__ __forceinline__ void warp_lanes(int L, F f) {
-  const int t = threadIdx.x & 31;
+template <int N, int T, class F>
+__device__ __forceinline__ void group_lanes(int L, F f) {
+  const int t = group_rank<T>();
   if constexpr (N > 0) {
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      if (32 * j + t < L) f(j, 32 * j + t);
+      if (T * j + t < L) f(j, T * j + t);
     }
   } else {
-    for (int j = 0, l = t; l < L; ++j, l += 32) f(j, l);
+    for (int j = 0, l = t; l < L; ++j, l += T) f(j, l);
   }
 }
 
-// f(j, l, z_at(j, l)) for the thread's lanes: the pass that forms z, all N
-// lanes (registers) or Z_BATCH lanes (a loop) at a time, their z formed
-// before f runs on any of them, so that their loads (for a gather, two
-// dependent ones a lane) are in flight together: f may store into shared
-// memory, which the compiler cannot tell apart from the loads' memory.
+// f(j, l, z_at(j, l)) for the thread's lanes: the pass that forms z. In a
+// group, all N lanes (registers) or Z_BATCH lanes (a loop) at a time, their
+// z formed before f runs on any of them, so that their loads (for a gather,
+// two dependent ones a lane) are in flight together: f may store into shared
+// memory, which the compiler cannot tell apart from the loads' memory. A
+// thread alone keeps nothing in memory and takes its lanes one at a time.
 constexpr int Z_BATCH = 8;
 
-template <int N, class ZAt, class F>
-__device__ __forceinline__ void warp_lanes_z(int L, ZAt z_at, F f) {
-  const int t = threadIdx.x & 31;
-  constexpr int B = N > 0 ? N : Z_BATCH;
+template <int N, int T, class ZAt, class F>
+__device__ __forceinline__ void group_lanes_z(int L, ZAt z_at, F f) {
+  const int t = group_rank<T>();
+  constexpr int B = T == 1 ? 1 : N > 0 ? N : Z_BATCH;
   const auto batch = [&](int j0) {
     float z[B];
 #pragma unroll
     for (int b = 0; b < B; ++b) {
-      const int l = 32 * (j0 + b) + t;
+      const int l = T * (j0 + b) + t;
       z[b] = l < L ? z_at(j0 + b, l) : 0.f;
     }
 #pragma unroll
     for (int b = 0; b < B; ++b) {
-      const int l = 32 * (j0 + b) + t;
+      const int l = T * (j0 + b) + t;
       if (l < L) f(j0 + b, l, z[b]);
     }
   };
@@ -330,9 +259,25 @@ __device__ __forceinline__ void warp_lanes_z(int L, ZAt z_at, F f) {
 #pragma unroll
     for (int j0 = 0; j0 < N; j0 += B) batch(j0);
   } else {
-    for (int j0 = 0; 32 * j0 < L; j0 += B) batch(j0);
+    for (int j0 = 0; T * j0 < L; j0 += B) batch(j0);
   }
 }
+
+// ---------------------------------------------------------------------------
+// Reductions across a group: the max with its FIRST lane and a sum
+// (argmax_sum), a max, a sum, and box_cut's (min, max, sum). Every thread of
+// the group calls each, with the same column, and receives the same bits
+// (each step adds or compares the same two values on both sides), so all
+// take the same branch.
+
+// A thread alone: its own values are the group's.
+struct ThreadReduce {
+  static constexpr int GROUP = 1;
+  __device__ __forceinline__ void argmax_sum(float&, int&, float&) {}
+  __device__ __forceinline__ float max(float v) { return v; }
+  __device__ __forceinline__ float sum(float v) { return v; }
+  __device__ __forceinline__ void min_max_sum(float&, float&, float&) {}
+};
 
 __device__ __forceinline__ float warp_all_sum(float v) {
 #pragma unroll
@@ -365,152 +310,21 @@ __device__ __forceinline__ void warp_all_argmax(float& v, int& i) {
   }
 }
 
-// One column, one warp (the whole warp calls, with the same column). ``stretch``
-// is the warp's shared memory for KeepShared (L floats), ignored otherwise.
-// ``z_at(j, l)`` and ``emit(j, l, w)`` take the lane l and its place j among
-// the thread's lanes (known at compile time where the passes are unrolled,
-// so a caller may keep what it read of a lane in registers of its own).
-template <int KIND, class Keep, class ZAt, class Emit>
-__device__ __forceinline__ void project_column_warp(int L, const Proj& p, float* stretch, ZAt z_at, Emit emit) {
-  constexpr int N = Keep::n;
-  Keep keep(stretch);
-  if (KIND == SIMPLEX) {
-    const float radius = p.radius;
-    float vmax = -CUDART_INF_F, sumv = 0.f;
-    int i0 = INT_MAX;
-    warp_lanes_z<N>(L, z_at, [&](int j, int l, float z) {
-      const float v = fmaxf(z, 0.f);
-      sumv += v;
-      const float vn = div_radius(v, radius);
-      keep.set(j, l, vn);
-      if (vn > vmax) {  // strict: the thread's first maximum
-        vmax = vn;
-        i0 = l;
-      }
-    });
-    warp_all_argmax(vmax, i0);
-    sumv = warp_all_sum(sumv);
-    const auto vn_at = [&](int j, int l) {
-      return Keep::kept ? keep.get(j, l) : div_radius(fmaxf(z_at(j, l), 0.f), radius);
-    };
-    float v1 = -CUDART_INF_F;
-    warp_lanes<N>(L, [&](int j, int l) {
-      const float vn = vn_at(j, l);
-      if (l != i0) v1 = fmaxf(v1, vn);
-      keep.set(j, l, vn - vmax);
-    });
-    v1 = warp_all_max(v1);
-    const auto r_at = [&](int j, int l) { return Keep::kept ? keep.get(j, l) : vn_at(j, l) - vmax; };
-    float lo = -1.f, hi = 0.f;
-#pragma unroll 1  // one warp runs a column's steps alone: a short loop stays in the instruction cache
-    for (int it = 0; it < BISECTION_ITERS; ++it) {
-      const float mid = (lo + hi) * 0.5f;
-      float s = 0.f;
-      warp_lanes<N>(L, [&](int j, int l) { s += fmaxf(r_at(j, l) - mid, 0.f); });
-      s = warp_all_sum(s);
-      if (s > 1.0f) lo = mid; else hi = mid;
-    }
-    const float nu = (lo + hi) * 0.5f;
-    const bool shortcut = L > 1 && (vmax - v1) > 1.0f;
-    const bool feasible = p.inequality && sumv <= radius + 1e-6f;
-    warp_lanes<N>(L, [&](int j, int l) {
-      float w;
-      if (feasible) w = fmaxf(z_at(j, l), 0.f);
-      else if (shortcut) w = (l == i0) ? radius : 0.f;
-      else w = __fmul_rn(fmaxf(r_at(j, l) - nu, 0.f), radius);
-      emit(j, l, w);
-    });
-  } else {  // BOXCUT
-    const float lt = p.lo, ut = p.hi, zcut = p.radius;
-    float zmin = CUDART_INF_F, zmax = -CUDART_INF_F, sumclip = 0.f;
-    warp_lanes_z<N>(L, z_at, [&](int j, int l, float z) {
-      keep.set(j, l, z);
-      zmin = fminf(zmin, z);
-      zmax = fmaxf(zmax, z);
-      sumclip += clip(z, lt, ut);
-    });
-    zmin = warp_all_min(zmin);
-    zmax = warp_all_max(zmax);
-    sumclip = warp_all_sum(sumclip);
-    const auto z_of = [&](int j, int l) { return Keep::kept ? keep.get(j, l) : z_at(j, l); };
-    float lo = zmin - ut, hi = zmax - lt;
-#pragma unroll 1
-    for (int it = 0; it < BISECTION_ITERS; ++it) {
-      const float mid = (lo + hi) * 0.5f;
-      float s = 0.f;
-      warp_lanes<N>(L, [&](int j, int l) { s += clip(z_of(j, l) - mid, lt, ut); });
-      s = warp_all_sum(s);
-      if (s > zcut) lo = mid; else hi = mid;
-    }
-    const float nu = (lo + hi) * 0.5f;
-    const bool feasible = p.inequality && sumclip <= zcut + 1e-6f;
-    warp_lanes<N>(L, [&](int j, int l) {
-      const float z = z_of(j, l);
-      emit(j, l, feasible ? clip(z, lt, ut) : clip(z - nu, lt, ut));
-    });
+// A warp: a butterfly of __shfl_xor_sync, with no block barrier.
+struct WarpReduce {
+  static constexpr int GROUP = 32;
+  __device__ __forceinline__ void argmax_sum(float& v, int& i, float& u) {
+    warp_all_argmax(v, i);
+    u = warp_all_sum(u);
   }
-}
-
-// ---------------------------------------------------------------------------
-// One column of any L, projected by a whole block of T threads (K1's columns
-// wider than a warp holds in registers). Thread t holds lanes t, t + T, ...;
-// z is formed once by ``z_at`` and kept as ``Keep`` says (KeepRegs<N>:
-// L <= T N; KeepShared: the block's stretch of L floats, lane l at s[l];
-// KeepNone). Every reduction runs in two stages: a warp butterfly
-// (__shfl_xor_sync), then the warps' totals, which lane 0 of each warp
-// stores in shared memory; after one barrier every warp reduces them by the
-// same butterfly (lane w holds warp w's total), so every thread of the block
-// receives the same bits and takes the same branch. Two slots alternate, so
-// each reduction, and so each bisection step, takes one barrier: a slot is
-// written again two reductions later, once every thread has passed the
-// barrier of the reduction between, after its last read of the slot.
-//
-// The tests, products and branches are project_column_warp's; only the
-// order of the lane sums changes again (each thread in lane order, then a
-// butterfly across the warp, then one across the warps), under the argument
-// made above for the warp's form.
-
-// f(j, l) for the thread's lanes l = t + T j < L of a block of T threads:
-// unrolled over N, or a loop when N = 0.
-template <int N, int T, class F>
-__device__ __forceinline__ void block_lanes(int L, F f) {
-  const int t = threadIdx.x;
-  if constexpr (N > 0) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      if (T * j + t < L) f(j, T * j + t);
-    }
-  } else {
-    for (int j = 0, l = t; l < L; ++j, l += T) f(j, l);
+  __device__ __forceinline__ float max(float v) { return warp_all_max(v); }
+  __device__ __forceinline__ float sum(float v) { return warp_all_sum(v); }
+  __device__ __forceinline__ void min_max_sum(float& a, float& b, float& u) {
+    a = warp_all_min(a);
+    b = warp_all_max(b);
+    u = warp_all_sum(u);
   }
-}
-
-// f(j, l, z_at(j, l)) for the thread's lanes, warp_lanes_z's batches at a stride of T.
-template <int N, int T, class ZAt, class F>
-__device__ __forceinline__ void block_lanes_z(int L, ZAt z_at, F f) {
-  const int t = threadIdx.x;
-  constexpr int B = N > 0 ? N : Z_BATCH;
-  const auto batch = [&](int j0) {
-    float z[B];
-#pragma unroll
-    for (int b = 0; b < B; ++b) {
-      const int l = T * (j0 + b) + t;
-      z[b] = l < L ? z_at(j0 + b, l) : 0.f;
-    }
-#pragma unroll
-    for (int b = 0; b < B; ++b) {
-      const int l = T * (j0 + b) + t;
-      if (l < L) f(j0 + b, l, z[b]);
-    }
-  };
-  if constexpr (N > 0) {
-    static_assert(N % B == 0, "whole batches");
-#pragma unroll
-    for (int j0 = 0; j0 < N; j0 += B) batch(j0);
-  } else {
-    for (int j0 = 0; T * j0 < L; j0 += B) batch(j0);
-  }
-}
+};
 
 // The warps' totals of a block's reductions: two alternating slots of up to
 // three floats and an int a warp.
@@ -519,13 +333,19 @@ struct BlockTotals {
   int i[2][32];
 };
 
-// Reductions across a block of T threads. The whole block calls each, with
-// the same column; every thread receives the same bits. One object a block,
-// kept across its columns: the slots alternate from one reduction to the
-// next, whichever column it belongs to.
+// A block of T threads, in two stages: a warp butterfly, then the warps'
+// totals, which lane 0 of each warp stores in shared memory; after one
+// barrier every warp reduces them by the same butterfly (lane w holds warp
+// w's total). Two slots alternate, so each reduction, and so each bisection
+// step, takes one barrier: a slot is written again two reductions later, once
+// every thread has passed the barrier of the reduction between, after its
+// last read of the slot. One object a block, kept across its columns: the
+// slots alternate from one reduction to the next, whichever column it
+// belongs to.
 template <int T>
 class BlockReduce {
  public:
+  static constexpr int GROUP = T;
   static constexpr int WARPS = T / 32;
   static_assert(T % 32 == 0 && WARPS >= 2 && WARPS <= 32 && (WARPS & (WARPS - 1)) == 0,
                 "a block of 2 to 32 warps, a power of two");
@@ -636,20 +456,60 @@ class BlockReduce {
   }
 };
 
-// One column, one block of T threads (the whole block calls, with the same
-// column), its reductions by ``red`` (the block's BlockReduce<T>).
-// ``stretch`` is the block's shared memory for KeepShared (L floats), ignored
-// otherwise; ``z_at`` and ``emit`` as for project_column_warp.
-template <int KIND, int T, class Keep, class Reduce, class ZAt, class Emit>
-__device__ __forceinline__ void project_column_block(int L, const Proj& p, Reduce& red, float* stretch, ZAt z_at,
+// ---------------------------------------------------------------------------
+// The BISECTION_ITERS halvings of [lo, hi], ``above(mid)`` true where the
+// root lies above mid; returns the last bracket's midpoint. ROLLED keeps the
+// loop rolled (a group runs a column's steps alone: a short loop stays in the
+// instruction cache); a thread's loop is left to the compiler.
+template <bool ROLLED, class Above>
+__device__ __forceinline__ float bisect(float lo, float hi, Above above) {
+  const auto step = [&] {
+    const float mid = (lo + hi) * 0.5f;
+    if (above(mid)) lo = mid; else hi = mid;
+  };
+  if constexpr (ROLLED) {
+#pragma unroll 1
+    for (int it = 0; it < BISECTION_ITERS; ++it) step();
+  } else {
+    for (int it = 0; it < BISECTION_ITERS; ++it) step();
+  }
+  return (lo + hi) * 0.5f;
+}
+
+// One column of any L, projected by the group of ``red`` (Reduce::GROUP = T
+// threads: ThreadReduce, WarpReduce or a block's BlockReduce<T>; the whole
+// group calls, with the same column). Thread t of the group holds lanes
+// t, t + T, ...; what the passes need of a lane stays as ``Keep`` says.
+// ``stretch`` is the group's shared memory for KeepShared (L floats), ignored
+// otherwise. ``z_at(j, l)`` returns z of lane l (it may be called again for a
+// lane; it must return the same value) and ``emit(j, l, w)`` receives the
+// projected, not yet length-masked value; both take the lane l and its place
+// j among the thread's lanes (known at compile time where the passes are
+// unrolled, so a caller may keep what it read of a lane in registers of its
+// own).
+//
+// The tests, products and branches are the same for every T. Only the order
+// of the lane sums follows the group: a thread adds its lanes in order (lane
+// order, for a thread alone), then the group's Reduce combines the threads'
+// sums (a butterfly across the warp; then one across the block's warps). A
+// sum of L terms then moves by at most about L * 2^-24 of its magnitude; a
+// bisection test "s > 1" flips only where mid already lies that close to the
+// root (s falls with slope <= -1 in mid wherever it crosses 1), so nu, x and
+// a*x move by about L * 2^-24 * radius (2.3e-5 at L = 394, radius 1), and the
+// inequality pass-through flips only for a column whose sum lies within that
+// of radius + 1e-6. Against the plain version (which adds in lane order) the
+// kernels' groups are held to 5e-5 * max(1, max|x|) on a*x and x.
+template <int KIND, class Keep, class Reduce, class ZAt, class Emit>
+__device__ __forceinline__ void project_column_group(int L, const Proj& p, Reduce& red, float* stretch, ZAt z_at,
                                                      Emit emit) {
-  constexpr int N = Keep::n;
+  constexpr int T = Reduce::GROUP, N = Keep::n;
+  constexpr bool ALONE = T == 1;
   Keep keep(stretch);
-  if (KIND == SIMPLEX) {
+  if constexpr (KIND == SIMPLEX) {
     const float radius = p.radius;
     float vmax = -CUDART_INF_F, sumv = 0.f;
-    int i0 = INT_MAX;
-    block_lanes_z<N, T>(L, z_at, [&](int j, int l, float z) {
+    int i0 = ALONE ? 0 : INT_MAX;  // in a group, a thread without lanes loses the argmax
+    group_lanes_z<N, T>(L, z_at, [&](int j, int l, float z) {
       const float v = fmaxf(z, 0.f);
       sumv += v;
       const float vn = div_radius(v, radius);
@@ -664,26 +524,21 @@ __device__ __forceinline__ void project_column_block(int L, const Proj& p, Reduc
       return Keep::kept ? keep.get(j, l) : div_radius(fmaxf(z_at(j, l), 0.f), radius);
     };
     float v1 = -CUDART_INF_F;
-    block_lanes<N, T>(L, [&](int j, int l) {
+    group_lanes<N, T>(L, [&](int j, int l) {
       const float vn = vn_at(j, l);
       if (l != i0) v1 = fmaxf(v1, vn);
       keep.set(j, l, vn - vmax);
     });
     v1 = red.max(v1);
     const auto r_at = [&](int j, int l) { return Keep::kept ? keep.get(j, l) : vn_at(j, l) - vmax; };
-    float lo = -1.f, hi = 0.f;
-#pragma unroll 1
-    for (int it = 0; it < BISECTION_ITERS; ++it) {
-      const float mid = (lo + hi) * 0.5f;
+    const float nu = bisect<!ALONE>(-1.f, 0.f, [&](float mid) {
       float s = 0.f;
-      block_lanes<N, T>(L, [&](int j, int l) { s += fmaxf(r_at(j, l) - mid, 0.f); });
-      s = red.sum(s);
-      if (s > 1.0f) lo = mid; else hi = mid;
-    }
-    const float nu = (lo + hi) * 0.5f;
+      group_lanes<N, T>(L, [&](int j, int l) { s += fmaxf(r_at(j, l) - mid, 0.f); });
+      return red.sum(s) > 1.0f;
+    });
     const bool shortcut = L > 1 && (vmax - v1) > 1.0f;
     const bool feasible = p.inequality && sumv <= radius + 1e-6f;
-    block_lanes<N, T>(L, [&](int j, int l) {
+    group_lanes<N, T>(L, [&](int j, int l) {
       float w;
       if (feasible) w = fmaxf(z_at(j, l), 0.f);
       else if (shortcut) w = (l == i0) ? radius : 0.f;
@@ -693,7 +548,7 @@ __device__ __forceinline__ void project_column_block(int L, const Proj& p, Reduc
   } else {  // BOXCUT
     const float lt = p.lo, ut = p.hi, zcut = p.radius;
     float zmin = CUDART_INF_F, zmax = -CUDART_INF_F, sumclip = 0.f;
-    block_lanes_z<N, T>(L, z_at, [&](int j, int l, float z) {
+    group_lanes_z<N, T>(L, z_at, [&](int j, int l, float z) {
       keep.set(j, l, z);
       zmin = fminf(zmin, z);
       zmax = fmaxf(zmax, z);
@@ -701,33 +556,29 @@ __device__ __forceinline__ void project_column_block(int L, const Proj& p, Reduc
     });
     red.min_max_sum(zmin, zmax, sumclip);
     const auto z_of = [&](int j, int l) { return Keep::kept ? keep.get(j, l) : z_at(j, l); };
-    float lo = zmin - ut, hi = zmax - lt;
-#pragma unroll 1
-    for (int it = 0; it < BISECTION_ITERS; ++it) {
-      const float mid = (lo + hi) * 0.5f;
+    const float nu = bisect<!ALONE>(zmin - ut, zmax - lt, [&](float mid) {
       float s = 0.f;
-      block_lanes<N, T>(L, [&](int j, int l) { s += clip(z_of(j, l) - mid, lt, ut); });
-      s = red.sum(s);
-      if (s > zcut) lo = mid; else hi = mid;
-    }
-    const float nu = (lo + hi) * 0.5f;
+      group_lanes<N, T>(L, [&](int j, int l) { s += clip(z_of(j, l) - mid, lt, ut); });
+      return red.sum(s) > zcut;
+    });
     const bool feasible = p.inequality && sumclip <= zcut + 1e-6f;
-    block_lanes<N, T>(L, [&](int j, int l) {
+    group_lanes<N, T>(L, [&](int j, int l) {
       const float z = z_of(j, l);
       emit(j, l, feasible ? clip(z, lt, ut) : clip(z - nu, lt, ut));
     });
   }
 }
 
-// project_column_warp with the lanes kept where they fit: in registers up to
-// 32 * NREG lanes, else in the warp's ``stretch`` of shared memory (room for
-// ``room`` lanes), else nowhere.
+// One column, one warp, with the lanes kept where they fit: in registers up
+// to 32 * NREG lanes, else in the warp's ``stretch`` of shared memory (room
+// for ``room`` lanes), else nowhere.
 template <int KIND, int NREG, class ZAt, class Emit>
 __device__ __forceinline__ void project_column_warp_any(int L, const Proj& p, float* stretch, int room, ZAt z_at,
                                                         Emit emit) {
-  if (L <= 32 * NREG) project_column_warp<KIND, KeepRegs<NREG>>(L, p, stretch, z_at, emit);
-  else if (L <= room) project_column_warp<KIND, KeepShared>(L, p, stretch, z_at, emit);
-  else project_column_warp<KIND, KeepNone>(L, p, stretch, z_at, emit);
+  WarpReduce warp;
+  if (L <= 32 * NREG) project_column_group<KIND, KeepRegs<NREG>>(L, p, warp, stretch, z_at, emit);
+  else if (L <= room) project_column_group<KIND, KeepShared>(L, p, warp, stretch, z_at, emit);
+  else project_column_group<KIND, KeepNone>(L, p, warp, stretch, z_at, emit);
 }
 
 }  // namespace dualip

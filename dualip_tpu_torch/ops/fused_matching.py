@@ -9,11 +9,13 @@ Port of ``dualip_tpu/ops/pallas_matching.py::fused_tile_eval_T``
     z = a * lam_g + neg_inv_gamma * c  ->  x = Proj(z) along L  ->  mask
     ->  a*x,  sum(c*x),  sum(x*x)   (and x itself with ``want_x``)
 
-In ``fused_tile_eval_T`` (the TPU kernel's contract) ``lam_g =
-(-lambda/gamma)[rows]`` is gathered by the caller, as the JAX package leaves it
-to XLA; ``fused_tile_gather_eval_T`` (the objective's) takes ``scaled =
--lambda/gamma`` and the tile's rows and gathers inside the kernel.  Both launch
-the same kernel and give the same bits.  The caller segment-sums ``a*x`` by row.
+``fused_tile_gather_eval_T`` (the objective's) takes ``scaled =
+-lambda/gamma`` and the tile's rows and gathers inside the kernel.
+``fused_tile_eval_T`` keeps the TPU kernel's contract, ``lam_g =
+(-lambda/gamma)[rows]`` gathered by the caller as the JAX package leaves it to
+XLA: it runs the gather form on ``scaled = lam_g`` and rows ``0 .. L*K - 1``,
+which gathers ``lam_g`` itself, so the two give the same bits.  The caller
+segment-sums ``a*x`` by row.
 
 On CUDA tensors the wrappers launch the hand-written kernel of
 ``csrc/fused_matching.cu`` or raise; on CPU tensors they run
@@ -218,7 +220,7 @@ def num_partial_blocks(kind: str, L: int, K: int) -> int:
 def _kernel():
     fn = _build.load("fused_matching").dualip_fused_tile_eval
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp, vp, ci] + [vp] * 8 + [ci] * 7 + [cf, cf, ci, ci, cf, vp]
+    fn.argtypes = [vp, vp, ci] + [vp] * 8 + [ci] * 6 + [cf, cf, ci, ci, cf, vp]
     fn.restype = ci
     return fn
 
@@ -236,9 +238,8 @@ def _check_tile(a_T, others, length, block_k):
         raise ValueError(f"K={K} not divisible by block_k={block_k}")
 
 
-def _launch(g, scaled, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want_x, out):
-    """Launch the tile kernel on CUDA tensors: the lam_g form (``scaled`` is
-    None, ``g`` is lam_g) or the gather form (``g`` is the tile's rows)."""
+def _launch(rows_T, scaled, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want_x, out):
+    """Launch the tile kernel on CUDA tensors."""
     dev = a_T.device
     L, K = a_T.shape
     if dev.type != "cuda":
@@ -247,7 +248,7 @@ def _launch(g, scaled, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want
         raise TypeError("the fused kernel takes float32 a_T and c_T")
     if length.dtype != torch.int32:
         raise TypeError("length must be int32")
-    if not all(t.is_contiguous() for t in (g, a_T, c_T, length) + ((scaled,) if scaled is not None else ())):
+    if not all(t.is_contiguous() for t in (rows_T, scaled, a_T, c_T, length)):
         raise ValueError("the fused kernel takes contiguous tensors")
     if out is None:
         out_ax = torch.empty_like(a_T)
@@ -265,27 +266,17 @@ def _launch(g, scaled, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want
     x = torch.empty_like(a_T) if want_x else None
     partials = torch.empty((nb, 2), dtype=torch.float32, device=dev)
     sums = torch.empty(2, dtype=torch.float32, device=dev)
-    gather = scaled is not None
     with torch.cuda.device(dev):
         rc = _kernel()(
-            g.data_ptr(), scaled.data_ptr() if gather else None, scaled.numel() if gather else 0,
+            rows_T.data_ptr(), scaled.data_ptr(), scaled.numel(),
             a_T.data_ptr(), c_T.data_ptr(), length.data_ptr(), nig.data_ptr(),
             out_ax.data_ptr(), x.data_ptr() if want_x else None, partials.data_ptr(), sums.data_ptr(),
-            L, K, nb, code, int(want_x), int(gather), ineq,
+            L, K, nb, code, int(want_x), ineq,
             lo, hi, int(has_lo), int(has_hi), radius, torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"fused tile kernel: CUDA error {rc} at launch (kind={kind}, L={L}, K={K}, gather={gather})")
+        raise RuntimeError(f"fused tile kernel: CUDA error {rc} at launch (kind={kind}, L={L}, K={K})")
     return (out_ax, sums[0], sums[1], x) if want_x else (out_ax, sums[0], sums[1])
-
-
-def _count(wrapper: str, kind: str, L: int, want_x: bool) -> None:
-    """A launch of the tile kernel in the store's counters: ``.enqueued``
-    (K1) or ``.enqueued_x`` (K2), and ``.block_columns`` where a block
-    projects each column (``k1_path``)."""
-    profiling.count(f"dualip.ops.{wrapper}.enqueued_x" if want_x else f"dualip.ops.{wrapper}.enqueued")
-    if k1_path(kind, L).path == "block":
-        profiling.count(f"dualip.ops.{wrapper}.block_columns")
 
 
 def fused_tile_eval_T(
@@ -305,23 +296,25 @@ def fused_tile_eval_T(
     tensor is read by the kernel on the card, with no host sync).  The TPU
     kernel's contract: ``lam_g_T`` is gathered by the caller.
 
-    Counts launches of the kernel in the counters
-    ``dualip.ops.fused_tile_eval_T.enqueued`` (K1) and ``.enqueued_x`` (K2,
-    ``want_x``) of ``utils/profiling.py``, and in ``.block_columns`` those
-    that project a column by a block (L > 512, ``k1_path``): a CUDA graph's
-    capture enqueues once, and a replay calls no wrapper; CPU calls count
-    nothing.
+    Runs ``fused_tile_gather_eval_T`` on ``scaled = lam_g_T`` flattened and
+    rows ``0 .. L*K - 1``, which gathers ``lam_g_T`` back bit for bit (the
+    kernel's gather index is an int32, so L*K must stay below 2**31); its
+    launches count in that wrapper's counters.
     """
     _check_tile(a_T, (("lam_g_T", lam_g_T), ("c_T", c_T)), length, block_k)
     if any(t.device != a_T.device for t in (lam_g_T, c_T, length)):
         raise ValueError("lam_g_T, a_T, c_T and length must be on one device")
-    if a_T.device.type == "cpu":
-        return fused_tile_eval_T_reference(lam_g_T, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want_x)
-    if lam_g_T.dtype != torch.float32:
-        raise TypeError("the fused kernel takes a float32 lam_g_T")
-    res = _launch(lam_g_T, None, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want_x, None)
-    _count("fused_tile_eval_T", kind, a_T.shape[0], want_x)
-    return res
+    L, K = a_T.shape
+    if L * K >= 2**31:
+        raise ValueError(f"a ({L}, {K}) tile has {L * K} slots: the kernel indexes lam_g_T by int32, below 2**31")
+    if a_T.device.type != "cpu":
+        if lam_g_T.dtype != torch.float32:
+            raise TypeError("the fused kernel takes a float32 lam_g_T")
+        if not lam_g_T.is_contiguous():
+            raise ValueError("the fused kernel takes contiguous tensors")
+    iota = torch.arange(L * K, dtype=torch.int32, device=a_T.device).view(L, K)
+    return fused_tile_gather_eval_T(lam_g_T.reshape(-1), iota, a_T, c_T, length, neg_inv_gamma, kind, params_tuple,
+                                    block_k=block_k, want_x=want_x)
 
 
 def fused_tile_gather_eval_T_reference(
@@ -360,8 +353,8 @@ def fused_tile_gather_eval_T(
 ) -> Tuple[torch.Tensor, ...]:
     """``fused_tile_eval_T`` with the lambda gather folded in: the kernel
     reads ``scaled`` (m,) float32 and the tile's ``rows_T`` (L, K) int32 and
-    forms ``lam_g = scaled[rows]`` itself, giving the same bits as the lam_g
-    form on ``scaled[rows]``.  ``rows_T`` must hold rows below m (the tile
+    forms ``lam_g = scaled[rows]`` itself, giving the same bits as the plain
+    version on ``scaled[rows]``.  ``rows_T`` must hold rows below m (the tile
     builder's do; the kernel does not check).  ``out`` (L, K) float32, when
     given, receives ``a*x`` (a view into a larger buffer serves).
 
@@ -380,7 +373,10 @@ def fused_tile_gather_eval_T(
     if scaled.dtype != torch.float32 or rows_T.dtype != torch.int32:
         raise TypeError("the gather form takes a float32 scaled and int32 rows_T")
     res = _launch(rows_T, scaled, a_T, c_T, length, neg_inv_gamma, kind, params_tuple, want_x, out)
-    _count("fused_tile_gather_eval_T", kind, a_T.shape[0], want_x)
+    profiling.count("dualip.ops.fused_tile_gather_eval_T.enqueued_x" if want_x
+                    else "dualip.ops.fused_tile_gather_eval_T.enqueued")
+    if k1_path(kind, a_T.shape[0]).path == "block":
+        profiling.count("dualip.ops.fused_tile_gather_eval_T.block_columns")
     return res
 
 

@@ -110,11 +110,14 @@ def test_plain_kernel_matches_pallas_wide_columns(L, kind, params, want_x):
 
 @pytest.mark.parametrize("want_x", [False, True], ids=["K1", "K2"])
 @pytest.mark.parametrize("kind,params", CASES)
-def test_gather_form_matches_pallas_and_the_lam_g_form(kind, params, want_x):
+@pytest.mark.parametrize("L", [8, 65, 600])
+def test_gather_form_matches_pallas_and_the_lam_g_form(L, kind, params, want_x):
     """The gather form on (scaled, rows) against the Pallas kernel on
-    lam_g = scaled[rows], and bit for bit against the lam_g wrapper."""
+    lam_g = scaled[rows], and bit for bit against the lam_g wrapper, which
+    runs the gather form on lam_g itself; at a thread's, a warp's and a
+    block's widths of the card's kernel."""
     rng = np.random.default_rng(1)
-    L, K, m = 8, 512, 300
+    K, m = 512, 300
     a, c, length, rows = _random_tile(rng, L, K, m)
     scaled = (np.float32(-50.0) * np.abs(rng.normal(size=m))).astype(np.float32)
     lam_g = scaled[rows]
@@ -187,3 +190,13 @@ def test_k1_path_follows_the_column_width(L, path, threads, keep):
         assert tuple(k1_path(kind, L)) == (path, threads, keep)
     assert tuple(k1_path("box", L)) == ("thread", 1, "registers")
     assert num_partial_blocks("simplex", L, 4096) == {"thread": 16, "warp": 512, "block": 4096}[path]
+
+
+def test_lam_g_wrapper_refuses_a_tile_past_int32():
+    """The lam_g wrapper gathers lam_g through int32 row indices: a tile of
+    2**31 slots is refused, on shapes alone (stride-0 views, nothing of that
+    size is made)."""
+    big = torch.zeros(1).expand(2**16, 2**15)
+    length = torch.zeros(1, dtype=torch.int32).expand(2**15)
+    with pytest.raises(ValueError, match=r"2\*\*31"):
+        fused_tile_eval_T(big, big, big, length, -1.0, "simplex", block_k=2**15)

@@ -39,7 +39,7 @@ def test_port_package_imports_without_cuda():
     from dualip_tpu_torch.utils import profiling
 
     assert dualip_tpu_torch.run_solver is not None and fm.fused_tile_eval_T is not None
-    assert profiling.counter("dualip.ops.fused_tile_eval_T.enqueued") >= 0
+    assert profiling.counter("dualip.ops.fused_tile_gather_eval_T.enqueued") >= 0
 
 
 def test_the_scan_covers_the_parallel_layer():
