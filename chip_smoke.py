@@ -18,7 +18,12 @@ result lines at the end are printed only by a run of every default phase):
    second launch bit for bit against the first; ml20m: K1 on each csc tile of the benchmark's ml20m-csc-fused cell
    (``gpubench/``'s movielens-20m stand-in, built as the cell builds it),
    each tile's launch timed alone by graph replays beside its bound, and held
-   to the plain version;
+   to the plain version; ml20m_panel: K3 the same way on each tile of the
+   ml20m-butterfly cell's layout (one tile a launch), then the all-tiles
+   call, and as tables of their own the tiles above L = 512 (the kernel's
+   block form) and the rest, the all-tiles call held to the plain version,
+   to one call a tile and to itself bit for bit, its calls to the block form
+   counted;
 4. segsum: the windowed fixed-order row segment-sum over several tiles at
    once against a float64 ``index_add_``, and two launches bit for bit;
    simplex: the sort-and-scan simplex kernel of the default csc path against
@@ -35,13 +40,14 @@ result lines at the end are printed only by a run of every default phase):
    version for every projection kind, q = 1 and q > 1, L a power of two and
    not, either side of the largest L the kernel's ring holds (47, for every
    carry and tile type) and above it, where a warp projects a column
-   (L = 96, 200, 394 with 64 buffer rows, over the whole grid, and 600, re-read
-   from device memory), in all four instances: fp32 and bf16 carry x
+   (L = 96, 200, 394 with 64 buffer rows, over the whole grid) and above 512,
+   where a block projects a column (L = 600, 2100: the kernel's block form, a
+   launch a tile), in all four instances: fp32 and bf16 carry x
    fp32 and bf16 a/c tiles, a bf16 tile's launch bit for bit with the fp32
    launch on the same values; the rest of the buffer unchanged, ghost lanes
    zero; then all tiles of a mixed table (L = 1, 2, 5, 16, 29, 48, 64, 96,
-   100, 200, 394 plain, 3, 29, 34 compact, the kinds mixed across tiles) in
-   one launch, in all four instances, against the plain version, against one
+   100, 200, 394, 600, 2100 plain, 3, 29, 34 compact, the kinds mixed across
+   tiles) in one call, in all four instances, against the plain version, against one
    launch per tile bit for bit on a*x and x, and repeated bit for bit on a*x,
    x, obj and reg;
 7. golden: the 5x5 matching golden trace through ``run_solver`` on the card,
@@ -203,7 +209,7 @@ NON_FMA_OPS_PER_S = 132 * 128 * 1.98e9
 BISECTION_ITERS = 30
 
 SMALL_SOURCES = 250_000  # the second butterfly solve: few enough blocks for one single-axis group a side
-ALL_PHASES = ("kernels", "ml20m", "segsum", "simplex", "benes", "panel", "golden", "slice", "butterfly", "cert", "lp",
+ALL_PHASES = ("kernels", "ml20m", "ml20m_panel", "segsum", "simplex", "benes", "panel", "golden", "slice", "butterfly", "cert", "lp",
               "examples", "graph", "io", "obs", "dist")
 # the single-device paths phase graph holds to the eager loop (each checked in the phase that builds it)
 GRAPH_PATHS = ("csc use_pallas", "csc plain", "csc bf16 tiles", "butterfly", "butterfly compact",
@@ -742,6 +748,120 @@ def phase_ml20m(dev, card) -> list:
     return rows
 
 
+ML20M_PANEL_CELL = "ml20m-butterfly"  # the benchmark cell whose panel tiles phase ml20m_panel times
+
+
+def phase_ml20m_panel(dev, card) -> list:
+    """K3 on each tile of the benchmark's ml20m-butterfly cell: the
+    movielens-20m stand-in generated and built as the cell builds it
+    (``gpubench/core.py``), each tile's launch (``fused_panel_project``, the
+    all-tiles call's code) timed alone by graph replays beside its bound and
+    held to the plain version on a seeded carry buffer; then the all-tiles
+    call, and the tiles above L = 512 (the block form's) and the rest each as
+    a table of their own, timed the same way; the all-tiles call against the
+    plain version, against one call a tile (a*x bit for bit) and against
+    itself (obj and reg too); and one evaluation of the cell's objective,
+    its calls to the block form counted."""
+    import dualip_tpu_torch.ops.fused_matching as fm
+    from dualip_tpu_torch.objectives.matching import _plan_size
+    from dualip_tpu_torch.sparse.rowmajor import PanelTile
+    from gpubench.core import Cell, build_program, make_inputs
+
+    t0 = time.perf_counter()
+    cell = Cell(ML20M_PANEL_CELL, ROOT)
+    inputs = make_inputs(cell, ML20M_SEED, dev)
+    obj, solver, build_s = build_program(cell, inputs, dev, cell.traffic["objective_kwargs"])
+    table = obj.panel_table
+    g = torch.Generator(device=dev).manual_seed(ML20M_SEED)
+    nig = torch.full((), -1.0 / float(cell.config["solver"]["gamma"]), dtype=torch.float32, device=dev)
+    srow0 = nig * torch.rand(_plan_size(obj.row_layout.plan), generator=g, device=dev)
+    warp_cap = getattr(fm, "PANEL_WARP_L_CAP", None)  # None: a tree without the block form
+
+    def path(L):
+        if L <= fm.PANEL_RING_L_CAP:
+            return "ring"
+        return "block" if warp_cap is not None and L > warp_cap else "warp"
+
+    def bound(tiles_):
+        real = pad = ghost = cols = nops = 0
+        for t in tiles_:
+            r, p_ = column_slots(t.L, t.length)
+            real, pad, cols = real + r, pad + p_, cols + t.length.numel()
+            ghost += t.KP * t.L2 * 128 - t.a.numel()
+            nops += r * ops_per_slot(t.kind)
+        nbytes = real * (2 * t.a.element_size() + 2 * srow0.element_size()) + (pad + ghost) * srow0.element_size()
+        return max((nbytes + 4 * cols) / PEAK_BYTES_PER_S, nops / PEAK_FP32_FLOP_PER_S) * 1e3
+
+    def sub_table(keep):
+        idx = [i for i, t in enumerate(table.tiles) if keep(t)]
+        ts = [table.tiles[i] for i in idx]
+        return fm.build_panel_table([PanelTile(t.a, t.c, t.length) for t in ts], [t.off for t in ts],
+                                    [t.pack for t in ts], [(t.kind, t.params) for t in ts]), ts
+
+    rows = []
+    for t in table.tiles:
+        def k3(b, fn=fm.fused_panel_project, t=t):
+            return fn(b, t.a, t.c, t.length, t.off, t.kind, t.params, False, nig, t.pack)
+
+        got, ref = k3(srow0.clone()), k3(srow0.clone(), fm.fused_panel_project_reference)
+        region = slice(t.off, t.off + t.KP * t.L2 * 128)
+        e = float((got[0][region] - ref[0][region]).abs().max())
+        check(e <= tol_x(ref[0][region]), f"ml20m_panel K3 on the L={t.L} tile: err {e}")
+        for i in (1, 2):
+            check(abs(float(got[i]) - float(ref[i])) <= 1e-3 + 1e-4 * abs(float(ref[i])),
+                  f"ml20m_panel K3 sums on the L={t.L} tile")
+        check(all(torch.equal(u, v) for u, v in zip(got, k3(srow0.clone()))),
+              f"ml20m_panel K3 on the L={t.L} tile: two launches differ")
+        buf = srow0.clone()
+        ms = graph_replay_ms(lambda: k3(buf))
+        b_ms = bound([t])
+        rows.append((t.L, t.q, t.KP, int((t.length > 0).sum()), int(t.length.sum()), path(t.L), round(ms, 4),
+                     round(b_ms, 4), round(b_ms / ms, 4), e))
+        del got, ref, buf
+    # the all-tiles call: the plain version, one call a tile, itself
+    got = fm.fused_panel_project_tiles(srow0.clone(), table, nig)
+    again = fm.fused_panel_project_tiles(srow0.clone(), table, nig)
+    ref = fm.fused_panel_project_tiles_reference(srow0.clone(), table, nig)
+    per = srow0.clone()
+    for t in table.tiles:
+        fm.fused_panel_project(per, t.a, t.c, t.length, t.off, t.kind, t.params, False, nig, t.pack)
+    check(torch.equal(got[0], per), "ml20m_panel: the all-tiles call differs from one call a tile")
+    check(all(torch.equal(u, v) for u, v in zip(got, again)), "ml20m_panel: two all-tiles calls differ")
+    e_all = float((got[0] - ref[0]).abs().max())
+    check(e_all <= tol_x(ref[0]), f"ml20m_panel: all tiles err {e_all}")
+    for i in (1, 2):
+        check(abs(float(got[i]) - float(ref[i])) <= 1e-3 + 1e-4 * abs(float(ref[i])), "ml20m_panel: all-tiles sums")
+    del got, again, ref, per
+    timed = {}
+    for name, keep in (("all", lambda t: True), ("above_512", lambda t: t.L > 512), ("to_512", lambda t: t.L <= 512)):
+        sub, ts = sub_table(keep) if name != "all" else (table, table.tiles)
+        buf = srow0.clone()
+        timed[name] = (round(graph_replay_ms(lambda: fm.fused_panel_project_tiles(buf, sub, nig)), 4),
+                       round(bound(ts), 4))
+        del buf
+    # one evaluation of the cell's objective: one all-tiles call, its tiles above 512 to the block form
+    counted = {k: f"dualip.ops.fused_panel_project_tiles.{k}" for k in ("enqueued", "block_tiles")}
+    before = {k: profiling.counter(c) for k, c in counted.items()}
+    obj.calculate(torch.zeros(obj.bcsc.m, device=dev))
+    torch.cuda.synchronize()
+    calls = {k: profiling.counter(c) - before[k] for k, c in counted.items()}
+    if warp_cap is not None:
+        want = {"enqueued": 1, "block_tiles": sum(t.L > warp_cap for t in table.tiles)}
+        check(calls == want, f"ml20m_panel: one evaluation counted {calls}, expected {want}")
+    say("ml20m_panel", cell=ML20M_PANEL_CELL, seed=ML20M_SEED, m=obj.bcsc.m, n=obj.bcsc.n, nnz=obj.bcsc.nnz,
+        build_s=f"{build_s:.2f}", wrapper_calls_an_evaluation=calls,
+        L_q_KP_columns_nnz_path_ms_bound_share_err=rows, sum_ms=f"{sum(r[6] for r in rows):.4f}",
+        above_512_alone_ms=f"{sum(r[6] for r in rows if r[0] > 512):.4f}",
+        tables_ms_bound={k: v for k, v in timed.items()}, all_tiles_err=e_all,
+        timing="graph of 20 calls, 20 replays", vs_one_call_a_tile="bit for bit on a*x",
+        repeat="bit for bit on a*x, obj and reg",
+        tolerance="ax: 5e-5*max(1,max|x|); obj,reg: 1e-3+1e-4*|ref|; a second launch bit for bit",
+        package=str(Path(fm.__file__).parents[1]), card=card, seconds=f"{time.perf_counter() - t0:.1f}")
+    del obj, solver, inputs, srow0, table
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_segsum(dev) -> float:
     """The windowed segment-sum against a float64 index_add_, two launches bit
     for bit; padding slots hold NaN, which the kernel must never read."""
@@ -1023,8 +1143,8 @@ def phase_panel(dev):
     n = 0
     # (L, compact): plain panels with L a power of two and not; compact packings with q > 1
     shapes = [(1, False), (2, False), (5, False), (16, False), (29, False), (48, False), (64, False),
-              (96, False), (100, False), (200, False), (394, False), (600, False), (3, True), (5, True), (29, True),
-              (34, True)]
+              (96, False), (100, False), (200, False), (394, False), (600, False), (2100, False), (3, True), (5, True),
+              (29, True), (34, True)]
     for kind, params in CASES:
         for L, compact in shapes:
             KP = TABLE_KP.get(L, 16)
@@ -1079,8 +1199,10 @@ def phase_panel(dev):
 
 
 TABLE_SHAPES = [(1, False), (2, False), (5, False), (16, False), (29, False), (48, False), (64, False),
-                (96, False), (100, False), (200, False), (394, False), (3, True), (29, True), (34, True)]
-TABLE_KP = {394: 64}  # buffer rows of a tile (16 otherwise): 1,024 wide units, more than the grid's blocks
+                (96, False), (100, False), (200, False), (394, False), (600, False), (2100, False), (3, True),
+                (29, True), (34, True)]
+# buffer rows of a tile (16 otherwise): at L = 394 1,024 wide units, more than the grid's blocks
+TABLE_KP = {394: 64, 2100: 4}
 
 
 def phase_panel_tiles(dev, err):
@@ -1105,7 +1227,7 @@ def phase_panel_tiles(dev, err):
         geo.append((L, L2, q))
     # regions as build_row_layout places them (descending L2), after an
     # untouched stretch, with another one after the last region
-    base = cum = 2 * 128 * 512
+    base = cum = 2 * 128 * max(L2 for _, L2, _ in geo)
     offsets = [0] * len(tiles)
     for i in sorted(range(len(tiles)), key=lambda i: -geo[i][1]):
         offsets[i] = cum
@@ -1254,7 +1376,7 @@ def time_panel(what, obj, dev, kernels, panel_err, launches=None, calls=None):
                 plain_t = cuda_ms(lambda: fused_panel_project_reference(
                     srow, t.a, t.c, t.length, t.off, t.kind, t.params, False, nig, t.pack), reps=2, warmup=1).ms
                 b_t = bound([t], False)[0]
-                how = ("warp a column" if t.L > cap else "ring, stream" if t.L > 32
+                how = ("block a column" if t.L > 512 else "warp a column" if t.L > cap else "ring, stream" if t.L > 32
                        else f"ring, LCAP {1 << max(t.L - 1, 0).bit_length()}")
                 tile_rows.append((t.L, t.q, how, t.a.numel(), int((t.length > 0).sum()), round(ms_t, 4),
                                   round(b_t, 4), round(b_t / ms_t, 4), round(plain_t, 3)))
@@ -2405,6 +2527,8 @@ def main(argv=None) -> int:
                                           8192, 9254, 20000, 60000, l_max}), dev)
     if "ml20m" in phases:
         phase_ml20m(dev, card)
+    if "ml20m_panel" in phases:
+        phase_ml20m_panel(dev, card)
     if "segsum" in phases:
         segsum_err = phase_segsum(dev)
     simplex_row = phase_simplex(dev) if "simplex" in phases else None

@@ -85,8 +85,6 @@
 // C interface: dualip_fused_tile_eval(...) launches on the given stream and
 // returns cudaGetLastError(); it allocates nothing and does not synchronise.
 
-#include <type_traits>
-
 #include "project_block.cuh"
 
 namespace {
@@ -98,38 +96,14 @@ constexpr int REG_L_CAP = 64;      // largest L kept in registers
 constexpr int WIDE_WARPS = 8;      // columns per group (one a warp) = warps per block, wide kernel's warp form
 constexpr int WIDE_REGS = 4;       // a wide column in registers, 4 lanes a thread, up to 128 lanes
 constexpr int WIDE_REGS_LONG = 16; // ... 16 lanes a thread up to 512; above, a block a column
-constexpr int BLOCK_REGS = 8;      // a block's column in registers, 8 lanes a thread (128-1024 threads)
-constexpr int BLOCK_REGS_LONG = 16;  // ... 16 lanes a thread of the largest block, up to 16,384 lanes
-constexpr int BLOCK_MAX = 1024;    // threads of the largest block
 constexpr int SLAB_ARRAYS = 3;     // rows, a, c
 constexpr int SCALED_SMEM_BYTES = 48 * 1024;  // largest scaled (m,) copied into shared memory
-constexpr int SMEM_LIMIT = 226 * 1024;  // dynamic shared memory of one block (227 KB less the static part)
 
 // Threads a column of the wide kernel (L > REG_L_CAP): a warp up to
-// 32 * WIDE_REGS_LONG lanes, else the fewest (a power of two) that hold the
-// lanes in registers at BLOCK_REGS a thread, at most BLOCK_MAX.
-// ops/fused_matching.py::k1_path mirrors this rule and keep_of's.
-int wide_threads(int L) {
-  if (L <= 32 * WIDE_REGS_LONG) return 32;
-  int t = 32;
-  while (t < BLOCK_MAX && t * BLOCK_REGS < L) t *= 2;
-  return t;
-}
-
-// Where the largest block keeps its column's lanes (the block form's Keep;
-// every smaller block keeps them in registers, BLOCK_REGS a thread).
-enum BlockKeep { REGS = 0, REGS_LONG = 1, SHARED = 2, NONE = 3 };
-
-int keep_of(int L) {
-  if (L <= BLOCK_MAX * BLOCK_REGS) return REGS;
-  if (L <= BLOCK_MAX * BLOCK_REGS_LONG) return REGS_LONG;
-  return (size_t)L * sizeof(float) <= SMEM_LIMIT ? SHARED : NONE;
-}
-
-template <int KEEP>
-using KeepOf = std::conditional_t<KEEP == REGS, KeepRegs<BLOCK_REGS>,
-                                  std::conditional_t<KEEP == REGS_LONG, KeepRegs<BLOCK_REGS_LONG>,
-                                                     std::conditional_t<KEEP == SHARED, KeepShared, KeepNone>>>;
+// 32 * WIDE_REGS_LONG lanes, else a block of block_threads(L), its lanes kept
+// as block_keep(L) says (project_block.cuh).
+// ops/fused_matching.py::k1_path mirrors this rule.
+int wide_threads(int L) { return L <= 32 * WIDE_REGS_LONG ? 32 : block_threads(L); }
 
 __device__ unsigned int g_blocks_done = 0;  // blocks of the running launch that have finished
 
@@ -534,7 +508,7 @@ cudaError_t launch_projection(const Args& p, cudaStream_t s) {
       case 256: return launch_block<256, REGS, KIND, WANT_X>(p, s);
       case 512: return launch_block<512, REGS, KIND, WANT_X>(p, s);
     }
-    switch (keep_of(L)) {
+    switch (block_keep(L)) {
       case REGS: return launch_block<BLOCK_MAX, REGS, KIND, WANT_X>(p, s);
       case REGS_LONG: return launch_block<BLOCK_MAX, REGS_LONG, KIND, WANT_X>(p, s);
       case SHARED: return launch_block<BLOCK_MAX, SHARED, KIND, WANT_X>(p, s);

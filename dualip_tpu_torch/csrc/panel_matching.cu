@@ -39,8 +39,10 @@
 //  * A work item is one panel row of 128 columns (one segment of it on the
 //    compact packing): L lanes x 128 of srow, a and c, and 128 lengths, all
 //    contiguous. An item the ring holds is one work unit; an item wider than
-//    the ring (below) is 16 units of 8 adjacent columns. Units are numbered
-//    tile after tile; the table gives each tile's first unit.
+//    the ring (below) is 16 units of 8 adjacent columns; a tile above
+//    STRETCH_L has none (its own launch of the block form, below, takes it
+//    column by column). Units are numbered tile after tile; the table gives
+//    each tile's first unit.
 //  * Persistent blocks of 160 threads: 4 consumer warps and one producer
 //    warp. Block b takes units b, b + grid, ... (a static schedule that
 //    spreads every tile over all blocks).
@@ -71,12 +73,12 @@
 //    holding the same values, and gives its bits, (obj, reg) included (a
 //    wide unit adds its lane sums and its (obj, reg) terms in another order
 //    than a thread of the ring).
-//  * Wider tiles do not go through the ring (the producer passes their units
-//    with a bare arrival). A wide unit is 8 adjacent columns of one item, 2
-//    a consumer warp, one after the other, each projected by the whole warp
-//    (project_column_warp_any): z formed once from device memory, kept in
-//    registers up to L = 128, in the warp's 2 KB stretch of shared memory up
-//    to L = 512, re-read from device memory above; every reduction a warp
+//  * Wider tiles up to STRETCH_L = 512 do not go through the ring (the
+//    producer passes their units with a bare arrival). A wide unit is 8
+//    adjacent columns of one item, 2 a consumer warp, one after the other,
+//    each projected by the whole warp (project_column_warp_any): z formed
+//    once from device memory, kept in registers up to L = 128, in the warp's
+//    2 KB stretch of shared memory up to L = 512; every reduction a warp
 //    shuffle. The 8 columns of a unit are one 32 B sector of each fp32 lane
 //    row, so each sector read from device memory serves all 8 (the other
 //    warps of the block, and the warp's second column, find it in L1); a
@@ -90,10 +92,27 @@
 //    into the instances that launches with a wide tile take (WIDE): in one
 //    kernel with the ring's code it raised the ring's spills (bf16 carry 128
 //    to 220 B) and slowed tables of narrow tiles by up to 20%.
+//  * A tile above STRETCH_L takes the kernel's block form, a launch of its
+//    own after the ring's, on the same stream: one column a block of
+//    T = block_threads(L) threads (128 to 1024, 8 lanes a thread), with no
+//    ring and no producer, persistent blocks taking the tile's columns in
+//    order. The block keeps z, a and c in registers (at T = 1024 z alone to
+//    16,384 lanes, then z in shared memory, then nowhere: one instance each,
+//    block_keep) and each reduction costs one barrier: project_column_group
+//    over a BlockReduce<T>, the routine of K1's blocks (project_block.cuh).
+//    These tiles hold few real columns, thousands of lanes wide: a warp
+//    walking two of them from device memory, 33 passes each, held the whole
+//    launch while the card sat nearly empty. A column's lanes are read at
+//    b[l*C] as in a wide unit, so the 8 columns of a sector go to 8
+//    neighbouring blocks, and a group of 8 padding columns is written by
+//    whole sectors, an eighth of its lane rows by each column's block. The
+//    ring's blocks of 160 threads with a producer warp cannot take a
+//    __syncthreads reduction, and the block form's code in the ring's
+//    instances would raise their spills, as the wide path's did.
 //  * Each slot of a region is read (by its item's copy, or its column's
-//    warp) and written (by its column's thread or warp) once, so the update
-//    is in place with no second buffer. The column's thread (warp) of
-//    segment 0 also zeroes its ghost lanes.
+//    warp or block) and written (by its column's thread, warp or block)
+//    once, so the update is in place with no second buffer. The column's
+//    thread (warp, block) of segment 0 also zeroes its ghost lanes.
 //  * Tiles in bf16 (a and c) are the TPU kernel's other tile type: the
 //    kernel is instanced for {fp32, bf16} carry x {fp32, bf16} tiles, and a
 //    and c are widened to fp32 where they are read. The widening is exact,
@@ -101,25 +120,32 @@
 //  * Numerics: z, the projection and the emit are those of the per-tile
 //    kernel this replaces, lane by lane (a wide column's lane sums add in
 //    the warp's order, project_block.cuh), and a launch of one tile runs the
-//    same code as the all-tiles launch, so a*x and x are bit for bit those
-//    of a launch per tile. Only the order of the (obj, reg) sums changes:
-//    each thread adds its items in order, each block adds its threads in a
-//    fixed order into its partial, and the last block to finish adds the
-//    partials in block order, as K1 does. Two runs give the same bits.
+//    same code as the all-tiles launch (a tile above STRETCH_L the same
+//    block form), so a*x and x are bit for bit those of a launch per tile.
+//    Only the order of the (obj, reg) sums changes: each thread (block form:
+//    each block) adds its items (columns) in order, each block adds its
+//    threads in a fixed order into its partial, and the last block to finish
+//    adds the partials in block order, as K1 does; each block-form launch
+//    then adds its sums to those of the launches before it. Two runs give
+//    the same bits.
 //
 // Launches of this library must not run concurrently on two streams: the
 // count of finished blocks is one device variable, reset by each launch's
-// last block.
+// last block, and the launches of one call share the partials' scratch in
+// turn.
 //
 // C interface: dualip_panel_project_tiles(...) (a table in device memory) and
 // dualip_panel_project(...) (one tile, its row passed by value) launch on the
 // given stream and return cudaGetLastError(); they allocate nothing and do
-// not synchronise. The grid is worked out, and the kernel's shared-memory
-// attribute set, once per device and kernel instance, at its first launch.
+// not synchronise. The ring's grid is worked out, and its shared-memory
+// attribute set, once per device and kernel instance, at its first launch;
+// the block form's at each launch.
 
 #include <atomic>
+#include <type_traits>
 
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <stddef.h>
 
 #include "project_block.cuh"
@@ -141,7 +167,7 @@ constexpr int WIDE_COLS = 8;           // columns of a wide unit (a 32 B sector 
 constexpr int WIDE_UNITS = C / WIDE_COLS;  // units of a wide item
 constexpr int COLS_PER_WARP = WIDE_COLS / CONSUMER_WARPS;
 constexpr int WIDE_REGS = 4;           // a wide column in registers up to 32 * 4 lanes
-constexpr int STRETCH_L = 512;         // ... in its warp's stretch of shared memory up to 512
+constexpr int STRETCH_L = 512;         // ... in its warp's stretch of shared memory up to 512; above, the block form
 constexpr int RING_L_CAP = 47;         // the largest L that goes through the ring
 
 // Shared memory of a launch: the ring, and the wide columns' stretches.
@@ -180,6 +206,7 @@ struct Args {
   float* x;
   float* partials;  // (gridDim.x, 2)
   float* out;       // (2,)
+  bool add_out;     // block form: out holds the sums of the call's launches before this one; add to them
 };
 
 __device__ __forceinline__ Tile tile_at(const Args& p, int t) { return p.table ? p.table[t] : p.one; }
@@ -330,8 +357,11 @@ struct Column {
   float nig;
 
   // a*srow + nig*c, rounded as two products and a sum (no contraction)
-  __device__ __forceinline__ float z(int l) const {
-    return __fadd_rn(__fmul_rn(load(a + l * C), load(s + l * C)), __fmul_rn(nig, load(c + l * C)));
+  __device__ __forceinline__ float z(int l) const { return z_kept(l, load(a + l * C), load(c + l * C)); }
+
+  // the same with lane l's a and c (widened) read by the caller
+  __device__ __forceinline__ float z_kept(int l, float av, float cv) const {
+    return __fadd_rn(__fmul_rn(av, load(s + l * C)), __fmul_rn(nig, cv));
   }
 
   // lane l of a column of length 0: a*x = 0 and x = 0, a and c not read
@@ -343,9 +373,14 @@ struct Column {
 
   template <bool WANT_X>
   __device__ __forceinline__ void emit(int l, float w, float& cx, float& xx) const {
+    emit_kept<WANT_X>(l, w, load(a + l * C), load(c + l * C), cx, xx);
+  }
+
+  // the same with lane l's a and c (widened) read by the caller
+  template <bool WANT_X>
+  __device__ __forceinline__ void emit_kept(int l, float w, float av, float cv, float& cx, float& xx) const {
     const float xv = (l < len) ? w : 0.f;
-    const float cv = load(c + l * C);
-    store(b + l * C, __fmul_rn(load(a + l * C), xv));
+    store(b + l * C, __fmul_rn(av, xv));
     if (WANT_X) x[l * C] = xv;
     cx += cv * xv;
     xx += xv * xv;
@@ -486,7 +521,9 @@ __device__ __forceinline__ void wide_unit(const Args& p, const Tile& t, const Wh
 }
 
 // Every thread of every block, after thread 0 wrote the block's partial: the
-// last block to arrive adds all partials in block order into out.
+// last block to arrive adds all partials in block order into out (MAY_ADD:
+// to out's sums, where p.add_out says an earlier launch left them there).
+template <bool MAY_ADD>
 __device__ void finish(const Args& p) {
   __shared__ bool last;
   if (threadIdx.x == 0) {
@@ -504,15 +541,20 @@ __device__ void finish(const Args& p) {
   }
   block_sum2(u, v);
   if (threadIdx.x == 0) {
+    if (MAY_ADD && p.add_out) {
+      u = p.out[0] + u;
+      v = p.out[1] + v;
+    }
     p.out[0] = u;
     p.out[1] = v;
     g_blocks_done = 0;
   }
 }
 
-// WIDE: the launch may hold a tile above the ring's cap (else none does).
+// The ring's form: every unit of the launch. WIDE: the launch may hold a
+// tile above the ring's cap (else none does).
 template <typename T, typename TA, bool WANT_X, bool WIDE>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) panel_tiles_kernel(Args p) {
+__device__ __forceinline__ void ring_units(const Args& p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const unsigned full0 = smem_u32(smem), empty0 = full0 + SLOTS * 8;
   unsigned char* ring = smem + BAR_BYTES;
@@ -609,7 +651,106 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) panel_tiles_kernel(Args p
     p.partials[2 * blockIdx.x] = cx;
     p.partials[2 * blockIdx.x + 1] = xx;
   }
-  finish(p);
+  finish<false>(p);
+}
+
+// One real column of the block form, its lanes kept as ``Keep`` says; with
+// BLOCK_REGS lanes a thread or fewer a and c are kept beside them, so that
+// the emit only stores.
+template <int KIND, class Keep, bool WANT_X, typename T, typename TA, class Reduce>
+__device__ __forceinline__ void block_column(int L, const Proj& pr, const Column<T, TA>& col, Reduce& red,
+                                             float* stretch, float& cx, float& xx) {
+  constexpr int N = Keep::n;
+  constexpr bool KEEP_AC = N > 0 && N <= BLOCK_REGS;
+  [[maybe_unused]] float av[KEEP_AC ? N : 1], cv[KEEP_AC ? N : 1];
+  const auto z = [&](int j, int l) {
+    if constexpr (KEEP_AC) {
+      av[j] = load(col.a + l * C);
+      cv[j] = load(col.c + l * C);
+      return col.z_kept(l, av[j], cv[j]);
+    } else {
+      return col.z(l);
+    }
+  };
+  const auto emit = [&](int j, int l, float w) {
+    if constexpr (KEEP_AC) col.template emit_kept<WANT_X>(l, w, av[j], cv[j], cx, xx);
+    else col.template emit<WANT_X>(l, w, cx, xx);
+  };
+  project_column_group<KIND, Keep>(L, pr, red, stretch, z, emit);
+}
+
+// The block form: the launch's one tile (above STRETCH_L), a column a block
+// of BT threads. Block b takes columns b, b + grid, ... in item order and adds
+// their (obj, reg) in that order into its partial.
+template <typename T, typename TA, bool WANT_X, int BT, int KEEP>
+__device__ __forceinline__ void block_columns(const Args& p) {
+  extern __shared__ __align__(128) unsigned char smem[];  // the column's z, where kept in shared memory
+  __shared__ BlockTotals totals;
+  BlockReduce<BT> red(totals);
+  const Tile t = tile_at(p, 0);
+  const Proj pr{t.inequality, t.lo, t.hi, t.has_lo, t.has_hi, t.radius};
+  const float nig = *p.neg_inv_gamma;
+  const int r = threadIdx.x;
+  const long long lanes = (long long)t.L * C;
+  T* const buf = static_cast<T*>(p.buf);
+  float bx = 0.f, bxx = 0.f;
+  for (long long u = blockIdx.x; u < p.n_items; u += gridDim.x) {
+    const long long local = u / C;  // the column's item
+    const int col_i = (int)(u - local * C);
+    const long long row = local / t.q;
+    const int seg = (int)(local - row * t.q);
+    const int* const len = t.len + local * C;
+    T* const b = buf + t.off + (row * t.L2 + (long long)seg * t.L) * C;  // the item's lane 0, column 0
+    T* const ghost = buf + t.off + row * t.L2 * C;  // the buffer row's lane 0
+    float* const x = WANT_X ? p.x + t.x_off + local * lanes : nullptr;
+    if (len[col_i] == 0) {
+      // padding: x = 0 and a*x = 0 on every lane, nothing read. In a group of
+      // 8 such columns each column's block writes an eighth of the group's
+      // lane rows by whole sectors (4 lane rows of the 8 columns a warp
+      // instruction).
+      const int c0 = col_i - col_i % WIDE_COLS;
+      bool group = true;
+#pragma unroll
+      for (int i = 0; i < WIDE_COLS; ++i) group &= len[c0 + i] == 0;
+      const int ci = group ? c0 + r % WIDE_COLS : col_i;
+      const int l0 = group ? col_i % WIDE_COLS + WIDE_COLS * (r / WIDE_COLS) : r;
+      for (int l = l0; l < t.L; l += BT) {
+        store(b + (long long)l * C + ci, 0.f);
+        if (WANT_X) x[(long long)l * C + ci] = 0.f;
+      }
+      if (seg == 0) zero_ghosts(ghost + ci, t.q * t.L, t.L2, l0, BT);
+      continue;
+    }
+    const long long at = local * lanes + col_i;
+    const Column<T, TA> col{static_cast<const TA*>(t.a) + at, static_cast<const TA*>(t.c) + at, b + col_i,
+                            b + col_i, WANT_X ? x + col_i : nullptr, len[col_i], nig};
+    float cx = 0.f, xx = 0.f;
+    float* const stretch = reinterpret_cast<float*>(smem);
+    if (t.kind == CLAMP) clamp_item<T, TA, WANT_X>(t, pr, col, cx, xx, r, BT);
+    else if (t.kind == SIMPLEX) block_column<SIMPLEX, KeepOf<KEEP>, WANT_X>(t.L, pr, col, red, stretch, cx, xx);
+    else block_column<BOXCUT, KeepOf<KEEP>, WANT_X>(t.L, pr, col, red, stretch, cx, xx);
+    red.sum2(cx, xx);
+    bx += cx;
+    bxx += xx;
+    if (seg == 0) zero_ghosts(ghost + col_i, t.q * t.L, t.L2, r, BT);
+  }
+  if (r == 0) {
+    p.partials[2 * blockIdx.x] = bx;
+    p.partials[2 * blockIdx.x + 1] = bxx;
+  }
+  finish<true>(p);
+}
+
+// Threads and blocks an SM of the ring's form (BT = 0) and of the block form.
+constexpr int threads_of(int bt) { return bt ? bt : THREADS; }
+constexpr int blocks_of(int bt) { return bt ? BLOCK_MAX / bt : MIN_BLOCKS; }
+
+// The ring's form (BT = 0), or the block form of BT threads, its lanes kept
+// as KEEP says. One name for both, so a trace reads them as one kernel.
+template <typename T, typename TA, bool WANT_X, bool WIDE, int BT = 0, int KEEP = REGS>
+__global__ void __launch_bounds__(threads_of(BT), blocks_of(BT)) panel_tiles_kernel(Args p) {
+  if constexpr (BT > 0) block_columns<T, TA, WANT_X, BT, KEEP>(p);
+  else ring_units<T, TA, WANT_X, WIDE>(p);
 }
 
 // Blocks a launch may take on the current device: as many as fit on every
@@ -649,42 +790,105 @@ int launch(Args& p, int max_grid, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// The block form of the launch's tile of L lanes (above STRETCH_L), as many
+// blocks as fit on every SM, at most one a column.
+template <typename T, typename TA, bool WANT_X, int BT, int KEEP>
+int launch_block(Args& p, int L, int max_grid, cudaStream_t s) {
+  auto kernel = panel_tiles_kernel<T, TA, WANT_X, false, BT, KEEP>;
+  const size_t smem = KEEP == SHARED ? (size_t)L * sizeof(float) : 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BT, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  long long grid = (long long)sms * per_sm;
+  if (grid > max_grid) grid = max_grid;
+  if (grid > p.n_items) grid = p.n_items;
+  kernel<<<(int)grid, BT, smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, typename TA, bool WANT_X>
-int launch_wide(Args& p, int max_grid, cudaStream_t s) {
-  return p.wide ? launch<T, TA, WANT_X, true>(p, max_grid, s) : launch<T, TA, WANT_X, false>(p, max_grid, s);
+int launch_block_of(Args& p, int L, int max_grid, cudaStream_t s) {
+  switch (block_threads(L)) {
+    case 128: return launch_block<T, TA, WANT_X, 128, REGS>(p, L, max_grid, s);
+    case 256: return launch_block<T, TA, WANT_X, 256, REGS>(p, L, max_grid, s);
+    case 512: return launch_block<T, TA, WANT_X, 512, REGS>(p, L, max_grid, s);
+  }
+  switch (block_keep(L)) {
+    case REGS: return launch_block<T, TA, WANT_X, BLOCK_MAX, REGS>(p, L, max_grid, s);
+    case REGS_LONG: return launch_block<T, TA, WANT_X, BLOCK_MAX, REGS_LONG>(p, L, max_grid, s);
+    case SHARED: return launch_block<T, TA, WANT_X, BLOCK_MAX, SHARED>(p, L, max_grid, s);
+    default: return launch_block<T, TA, WANT_X, BLOCK_MAX, NONE>(p, L, max_grid, s);
+  }
 }
 
-template <typename T, typename TA>
-int launch_x(Args& p, int max_grid, cudaStream_t s) {
-  return p.x != nullptr ? launch_wide<T, TA, true>(p, max_grid, s) : launch_wide<T, TA, false>(p, max_grid, s);
-}
+template <typename V>
+struct Of {  // a type passed by value, to pick a template instance
+  using type = V;
+};
 
-template <typename T>
-int launch_tiles(Args& p, int tile_bytes, int max_grid, cudaStream_t s) {
-  if (tile_bytes == 4) return launch_x<T, float>(p, max_grid, s);
-  if (tile_bytes == 2) return launch_x<T, __nv_bfloat16>(p, max_grid, s);
+// f(Of<carry type>, Of<tile type>, want_x) for the launch's carry bytes (4:
+// float32, 2: bfloat16), tile bytes and K4 (x != nullptr).
+template <class F>
+int typed(int carry_bytes, int tile_bytes, bool want_x, F f) {
+  const auto tiles = [&](auto carry) -> int {
+    const auto x = [&](auto tile) -> int {
+      return want_x ? f(carry, tile, std::true_type{}) : f(carry, tile, std::false_type{});
+    };
+    if (tile_bytes == 4) return x(Of<float>{});
+    if (tile_bytes == 2) return x(Of<__nv_bfloat16>{});
+    return (int)cudaErrorInvalidValue;
+  };
+  if (carry_bytes == 4) return tiles(Of<float>{});
+  if (carry_bytes == 2) return tiles(Of<__nv_bfloat16>{});
   return (int)cudaErrorInvalidValue;
 }
 
+bool bad_launch(const Args& p, int max_grid) { return p.n_items < 1 || p.n_items >= (1ll << 31) || max_grid < 1; }
+
+// The ring's form over p's units.
 int dispatch(Args& p, int carry_bytes, int tile_bytes, int max_grid, cudaStream_t s) {
-  if (p.n_items < 1 || p.n_items >= (1ll << 31) || max_grid < 1) return (int)cudaErrorInvalidValue;
-  if (carry_bytes == 4) return launch_tiles<float>(p, tile_bytes, max_grid, s);
-  if (carry_bytes == 2) return launch_tiles<__nv_bfloat16>(p, tile_bytes, max_grid, s);
-  return (int)cudaErrorInvalidValue;
+  if (bad_launch(p, max_grid)) return (int)cudaErrorInvalidValue;
+  return typed(carry_bytes, tile_bytes, p.x != nullptr, [&](auto t, auto ta, auto want_x) {
+    using T = typename decltype(t)::type;
+    using TA = typename decltype(ta)::type;
+    constexpr bool WANT_X = decltype(want_x)::value;
+    return p.wide ? launch<T, TA, WANT_X, true>(p, max_grid, s) : launch<T, TA, WANT_X, false>(p, max_grid, s);
+  });
+}
+
+// The block form over p's one tile, of L lanes, one unit a column.
+int dispatch_block(Args& p, int L, int carry_bytes, int tile_bytes, int max_grid, cudaStream_t s) {
+  if (L <= STRETCH_L || bad_launch(p, max_grid)) return (int)cudaErrorInvalidValue;
+  return typed(carry_bytes, tile_bytes, p.x != nullptr, [&](auto t, auto ta, auto want_x) {
+    using T = typename decltype(t)::type;
+    using TA = typename decltype(ta)::type;
+    return launch_block_of<T, TA, decltype(want_x)::value>(p, L, max_grid, s);
+  });
 }
 
 }  // namespace
 
 // Every tile of ``table`` (n_tiles rows in device memory, checked by the
-// caller against the layout): n_items work units; wide != 0 if a tile is
-// above the ring's cap (RING_L_CAP). carry_bytes: 4 (float32 buffer) or 2
-// (bfloat16); tile_bytes: the same for every tile's a and c. x == nullptr:
-// K3; else K4. ``partials`` holds ``max_grid`` (obj, reg) pairs; ``out``
-// receives the two sums.
+// caller against the layout): the ring's form over n_items work units (none:
+// no launch); wide != 0 if a tile is above the ring's cap (RING_L_CAP); then
+// the block form on each of the n_blocks tiles above STRETCH_L, one launch
+// each, given by ``blocks`` (host memory) as (table row, L, columns) triples
+// in table order. carry_bytes: 4 (float32 buffer) or 2 (bfloat16);
+// tile_bytes: the same for every tile's a and c. x == nullptr: K3; else K4.
+// ``partials`` holds ``max_grid`` (obj, reg) pairs, used by each launch in
+// turn; ``out`` receives the two sums over all launches.
 extern "C" int dualip_panel_project_tiles(
     void* buf, int carry_bytes, int tile_bytes, const void* table, int n_tiles, long long n_items, int wide,
-    const float* neg_inv_gamma, float* x, float* partials, int max_grid, float* out, void* stream) {
-  if (table == nullptr || n_tiles < 1) return (int)cudaErrorInvalidValue;
+    const long long* blocks, int n_blocks, const float* neg_inv_gamma, float* x, float* partials, int max_grid,
+    float* out, void* stream) {
+  if (table == nullptr || n_tiles < 1 || n_items < 0 || n_blocks < 0 || (n_blocks > 0 && blocks == nullptr) ||
+      n_items + n_blocks == 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   Args p{};
   p.buf = buf;
   p.table = static_cast<const Tile*>(table);
@@ -695,7 +899,23 @@ extern "C" int dualip_panel_project_tiles(
   p.x = x;
   p.partials = partials;
   p.out = out;
-  return dispatch(p, carry_bytes, tile_bytes, max_grid, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_items > 0) {
+    const int e = dispatch(p, carry_bytes, tile_bytes, max_grid, s);
+    if (e != 0) return e;
+  }
+  for (int k = 0; k < n_blocks; ++k) {
+    const long long row = blocks[3 * k], L = blocks[3 * k + 1], columns = blocks[3 * k + 2];
+    if (row < 0 || row >= n_tiles || L > INT_MAX) return (int)cudaErrorInvalidValue;
+    Args q = p;
+    q.table = p.table + row;
+    q.n_tiles = 1;
+    q.n_items = columns;
+    q.add_out = n_items > 0 || k > 0;
+    const int e = dispatch_block(q, (int)L, carry_bytes, tile_bytes, max_grid, s);
+    if (e != 0) return e;
+  }
+  return (int)cudaSuccess;
 }
 
 // One tile, its table row passed by value: region ``off`` of the (n_buf,)
@@ -715,11 +935,16 @@ extern "C" int dualip_panel_project(
   p.table = nullptr;
   p.one = Tile{a, c, length, off, 0, 0, L, L2, q, kind, inequality, has_lo, has_hi, lo, hi, radius};
   p.n_tiles = 1;
-  p.n_items = (long long)KP * q * units_per_item(L);
-  p.wide = !in_ring(L);
   p.neg_inv_gamma = neg_inv_gamma;
   p.x = x;
   p.partials = partials;
   p.out = out;
-  return dispatch(p, carry_bytes, tile_bytes, max_grid, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (L > STRETCH_L) {  // the block form, as in the all-tiles call
+    p.n_items = (long long)KP * q * C;
+    return dispatch_block(p, L, carry_bytes, tile_bytes, max_grid, s);
+  }
+  p.n_items = (long long)KP * q * units_per_item(L);
+  p.wide = !in_ring(L);
+  return dispatch(p, carry_bytes, tile_bytes, max_grid, s);
 }

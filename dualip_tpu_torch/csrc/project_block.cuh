@@ -2,7 +2,8 @@
 // and the panel kernel (panel_matching.cu, K3/K4): the per-column projection
 // of dualip_tpu/ops/pallas_matching.py::_project_block by a group of threads
 // (project_column_group: one thread, one warp for the kernels' wide columns,
-// one block for K1's widest), the same by one thread holding its column in
+// one block for the widest, with the rule that sizes the block), the same by
+// one thread holding its column in
 // registers (project_column, the narrow columns), and the block-wide sum of
 // the per-thread (sum c*x, sum x*x) pairs.
 //
@@ -21,7 +22,10 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math_constants.h>
+#include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace dualip {
 
@@ -568,6 +572,41 @@ __device__ __forceinline__ void project_column_group(int L, const Proj& p, Reduc
     });
   }
 }
+
+// ---------------------------------------------------------------------------
+// A block a column (K1's wide_kernel and K3's block form, columns above 512
+// lanes): the fewest threads, a power of two up to BLOCK_MAX, that hold the
+// lanes in registers at BLOCK_REGS a thread (block_threads); the largest
+// block keeps them as block_keep says. Each kernel takes one instance a keep,
+// so that one keep's registers do not spill another's.
+// ops/fused_matching.py::_block_rule mirrors both.
+constexpr int BLOCK_REGS = 8;         // lanes a thread in registers, a and c kept beside them
+constexpr int BLOCK_REGS_LONG = 16;   // ... z alone, 16 lanes a thread of the largest block, up to 16,384 lanes
+constexpr int BLOCK_MAX = 1024;       // threads of the largest block
+constexpr int SMEM_LIMIT = 226 * 1024;  // dynamic shared memory of one block (227 KB less the static part)
+
+inline int block_threads(int L) {
+  int t = 32;
+  while (t < BLOCK_MAX && t * BLOCK_REGS < L) t *= 2;
+  return t;
+}
+
+// Where the largest block keeps its column's lanes (every smaller block keeps
+// them in registers, BLOCK_REGS a thread): registers, then z alone in
+// registers, then the block's shared memory, then nowhere (z formed again on
+// every pass).
+enum BlockKeep { REGS = 0, REGS_LONG = 1, SHARED = 2, NONE = 3 };
+
+inline int block_keep(int L) {
+  if (L <= BLOCK_MAX * BLOCK_REGS) return REGS;
+  if (L <= BLOCK_MAX * BLOCK_REGS_LONG) return REGS_LONG;
+  return (size_t)L * sizeof(float) <= SMEM_LIMIT ? SHARED : NONE;
+}
+
+template <int KEEP>
+using KeepOf = std::conditional_t<KEEP == REGS, KeepRegs<BLOCK_REGS>,
+                                  std::conditional_t<KEEP == REGS_LONG, KeepRegs<BLOCK_REGS_LONG>,
+                                                     std::conditional_t<KEEP == SHARED, KeepShared, KeepNone>>>;
 
 // One column, one warp, with the lanes kept where they fit: in registers up
 // to 32 * NREG lanes, else in the warp's ``stretch`` of shared memory (room

@@ -71,17 +71,12 @@ class K1Path(NamedTuple):
     keep: str  # where a column's lanes stay between passes: "registers", "shared memory" or "device memory"
 
 
-def k1_path(kind: str, L: int) -> K1Path:
-    """The rule of ``csrc/fused_matching.cu`` (``launch_projection``,
-    ``wide_threads``, ``keep_of``): the elementwise kinds and L <= 64 a
-    thread a column; simplex and box_cut to L = 512 a warp; above, a block of
-    the fewest threads (a power of two, at most 1024) that hold the lanes at
-    8 a thread, then at 16 a thread of 1024 threads, then in the block's
-    shared memory, then nowhere (every pass forms z again)."""
-    if _KIND_CODE[kind] == 0 or L <= REG_L_CAP:
-        return K1Path("thread", 1, "registers")
-    if L <= _WARP_L_CAP:
-        return K1Path("warp", 32, "registers")
+def _block_rule(L: int) -> K1Path:
+    """A block a column of L lanes (``csrc/project_block.cuh``'s
+    ``block_threads``, ``block_keep``): the fewest threads (a power of two,
+    at most 1024) that hold the lanes at 8 a thread, then at 16 a thread of
+    1024 threads, then in the block's shared memory, then nowhere (every pass
+    forms z again)."""
     threads = 32
     while threads < _BLOCK_MAX and threads * _BLOCK_REGS < L:
         threads *= 2
@@ -90,6 +85,17 @@ def k1_path(kind: str, L: int) -> K1Path:
     else:
         keep = "shared memory" if 4 * L <= _SMEM_LIMIT else "device memory"
     return K1Path("block", threads, keep)
+
+
+def k1_path(kind: str, L: int) -> K1Path:
+    """The rule of ``csrc/fused_matching.cu`` (``launch_projection``,
+    ``wide_threads``): the elementwise kinds and L <= 64 a thread a column;
+    simplex and box_cut to L = 512 a warp; above, a block (``_block_rule``)."""
+    if _KIND_CODE[kind] == 0 or L <= REG_L_CAP:
+        return K1Path("thread", 1, "registers")
+    if L <= _WARP_L_CAP:
+        return K1Path("warp", 32, "registers")
+    return _block_rule(L)
 
 
 def _project_block_reference(
@@ -443,6 +449,7 @@ _PANEL_MAX_GRID = 2048  # (obj, reg) partials of the per-device scratch
 
 # Must match csrc/panel_matching.cu.
 PANEL_RING_L_CAP = 47  # the largest L whose items go through the kernel's ring
+PANEL_WARP_L_CAP = 512  # the largest L a warp projects (STRETCH_L); above, the block form
 _PANEL_WIDE_COLS = 8  # columns of a work unit of an item wider than the ring
 
 # One row of the kernel's tile table: csrc/panel_matching.cu's ``struct Tile``.
@@ -457,7 +464,25 @@ assert _TILE_DTYPE.itemsize == 88
 
 
 def _units_per_item(L: int) -> int:
-    return 1 if L <= PANEL_RING_L_CAP else 128 // _PANEL_WIDE_COLS
+    """Work units of one item in the ring's launch: 1 in the ring, 16 of 8
+    columns for the warps, none above (the block form's launch takes the
+    tile column by column)."""
+    if L <= PANEL_RING_L_CAP:
+        return 1
+    return 128 // _PANEL_WIDE_COLS if L <= PANEL_WARP_L_CAP else 0
+
+
+def panel_path(L: int) -> K1Path:
+    """How the panel kernel projects a column of a tile of L lanes, whatever
+    its kind: a thread of the ring to L = 47 (its lanes in registers to
+    L = 32, read again from the ring's shared memory above), a consumer warp
+    to L = 512 (registers to 128 lanes, then the warp's stretch of shared
+    memory), then a block of the block form (``_block_rule``, K1's)."""
+    if L <= PANEL_RING_L_CAP:
+        return K1Path("thread", 1, "registers" if L <= 32 else "shared memory")
+    if L <= PANEL_WARP_L_CAP:
+        return K1Path("warp", 32, "registers" if L <= 128 else "shared memory")
+    return _block_rule(L)
 
 
 class PanelTableTile(NamedTuple):
@@ -486,21 +511,25 @@ class PanelTable(NamedTuple):
     layout).  ``rows`` is the kernel's copy of the table on the tiles' CUDA
     device (None on the CPU).
 
-    The launch's blocks take work units: one per buffer row and segment
+    The ring's launch takes work units: one per buffer row and segment
     (an item) of a tile whose item the kernel's ring holds, and
     ``128 / _PANEL_WIDE_COLS`` per item of a wider tile (L above
-    ``PANEL_RING_L_CAP``, for every carry and tile type; ``panel_unit_where``
-    maps a unit back).  ``wide`` says whether the table holds such a tile:
-    a table without one takes the kernel's instance that has no wide path."""
+    ``PANEL_RING_L_CAP`` up to ``PANEL_WARP_L_CAP``, for every carry and tile
+    type).  ``wide`` says whether the table holds such a tile: a table
+    without one takes the ring's instance that has no wide path.  Each tile
+    above ``PANEL_WARP_L_CAP`` (``blocks``, table order) has no unit there:
+    a launch of the block form follows for each, one unit a column.
+    ``panel_unit_where`` maps a unit of either back."""
 
     tiles: Tuple[PanelTableTile, ...]
     rows: Optional[torch.Tensor]  # (n_tiles * 96,) uint8
     device: torch.device
     tile_dtype: torch.dtype  # of every tile's a and c
-    n_items: int  # work units of a launch
+    n_items: int  # work units of the ring's launch
     n_buf: int  # the end of the last region: the least buffer length
     x_slots: int  # slots of the x buffer
-    wide: bool  # a tile is above PANEL_RING_L_CAP
+    wide: bool  # a tile is above PANEL_RING_L_CAP, up to PANEL_WARP_L_CAP
+    blocks: Tuple[int, ...]  # the tiles above PANEL_WARP_L_CAP, a launch of the block form each
 
 
 def build_panel_table(col_tiles, offsets, packs, kinds) -> PanelTable:
@@ -553,22 +582,41 @@ def build_panel_table(col_tiles, offsets, packs, kinds) -> PanelTable:
     table_rows = torch.from_numpy(rows.view(np.uint8).copy()).to(dev) if dev.type == "cuda" else None
     return PanelTable(
         tiles=tuple(tiles), rows=table_rows, device=dev, tile_dtype=tile_dtype, n_items=first, n_buf=spans[-1][1],
-        x_slots=x_off, wide=any(t.L > PANEL_RING_L_CAP for t in tiles),
+        x_slots=x_off, wide=any(panel_path(t.L).path == "warp" for t in tiles),
+        blocks=tuple(i for i, t in enumerate(tiles) if panel_path(t.L).path == "block"),
     )
 
 
 def panel_unit_where(table: PanelTable, unit: int) -> Tuple[int, int, int, int, int]:
-    """Where work unit ``unit`` of a launch lies: ``(tile index, buffer row,
-    segment, first column, columns)``.  The same map as the kernel's
-    ``TileWalk`` and ``Where`` (csrc/panel_matching.cu)."""
-    if not 0 <= unit < table.n_items:
-        raise ValueError(f"unit {unit} is not one of the launch's {table.n_items}")
+    """Where work unit ``unit`` of a call lies: ``(tile index, buffer row,
+    segment, first column, columns)``.  Units below ``table.n_items`` are the
+    ring's launch's, the same map as the kernel's ``TileWalk`` and ``Where``
+    (csrc/panel_matching.cu); then come the columns of each tile of
+    ``table.blocks`` in turn, a unit a column in item order, as its launch of
+    the block form numbers them (``block_columns``)."""
+    n_block = sum(_panel_columns(table.tiles[i]) for i in table.blocks)
+    if not 0 <= unit < table.n_items + n_block:
+        raise ValueError(f"unit {unit} is not one of the call's {table.n_items + n_block}")
+    if unit >= table.n_items:
+        u = unit - table.n_items
+        for i in table.blocks:
+            t = table.tiles[i]
+            if u < _panel_columns(t):
+                item, col = divmod(u, 128)
+                row, seg = divmod(item, t.q)
+                return i, row, seg, col, 1
+            u -= _panel_columns(t)
     i = max(k for k, t in enumerate(table.tiles) if t.first <= unit)
     t = table.tiles[i]
     per = _units_per_item(t.L)
     item, part = divmod(unit - t.first, per)
     row, seg = divmod(item, t.q)
     return (i, row, seg, part * _PANEL_WIDE_COLS, _PANEL_WIDE_COLS) if per > 1 else (i, row, seg, 0, 128)
+
+
+def _panel_columns(t: PanelTableTile) -> int:
+    """Columns of a tile, padding included: a unit each in the block form."""
+    return t.KP * t.q * 128
 
 
 def fused_panel_project_tiles_reference(
@@ -591,7 +639,7 @@ def fused_panel_project_tiles_reference(
 def _panel_lib():
     lib = _build.load("panel_matching")
     vp, ci, cf, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.dualip_panel_project_tiles.argtypes = [vp, ci, ci, vp, ci, ll, ci, vp, vp, vp, ci, vp, vp]
+    lib.dualip_panel_project_tiles.argtypes = [vp, ci, ci, vp, ci, ll, ci, vp, ci, vp, vp, vp, ci, vp, vp]
     lib.dualip_panel_project.argtypes = (
         [vp, ll, ci, ci, vp, vp, vp, ll] + [ci] * 6 + [cf, cf, ci, ci, cf] + [vp, vp, vp, ci, vp, vp])
     for fn in (lib.dualip_panel_project_tiles, lib.dualip_panel_project):
@@ -602,7 +650,8 @@ def _panel_lib():
 @functools.lru_cache(maxsize=None)
 def _panel_partials(dev: torch.device) -> torch.Tensor:
     """The per-device scratch of the kernel's per-block partials (one launch
-    at a time: the same one-stream restriction as the kernel's counter)."""
+    at a time, the launches of one call in turn: the same one-stream
+    restriction as the kernel's counter)."""
     return torch.empty((_PANEL_MAX_GRID, 2), dtype=torch.float32, device=dev)
 
 
@@ -632,11 +681,13 @@ def fused_panel_project_tiles(
     of each tile's x (KP, q*L, 128) float32, views of one buffer.
 
     a*x and x are bit for bit those of ``fused_panel_project`` tile by tile;
-    the two sums are added in another (fixed) order.  Counts launches in the
+    the two sums are added in another (fixed) order.  On the card a tile
+    above ``PANEL_WARP_L_CAP`` takes a launch of the kernel's block form of
+    its own after the others' (``table.blocks``).  Counts calls in the
     counters ``dualip.ops.fused_panel_project_tiles.enqueued`` (K3) and
-    ``.enqueued_x`` (K4; a CUDA graph's capture enqueues once, and a replay
-    calls no wrapper); CPU
-    calls count nothing."""
+    ``.enqueued_x`` (K4), and in ``.block_tiles`` the tiles a call sends to
+    the block form (a CUDA graph's capture enqueues once, and a replay calls
+    no wrapper); CPU calls count nothing."""
     if buf.dim() != 1:
         raise ValueError(f"buf must be (N,), got shape {tuple(buf.shape)}")
     if buf.device != table.device:
@@ -651,16 +702,18 @@ def fused_panel_project_tiles(
     if dev.type != "cuda":
         raise ValueError(f"fused_panel_project_tiles runs on cuda or cpu tensors, got {dev}")
     nig, x, out = _panel_args(buf, neg_inv_gamma, want_x, table.x_slots)
+    blocks = [v for i in table.blocks for v in (i, table.tiles[i].L, _panel_columns(table.tiles[i]))]
     with torch.cuda.device(dev):
         rc = _panel_lib().dualip_panel_project_tiles(
             buf.data_ptr(), buf.element_size(), table.tiles[0].a.element_size(), table.rows.data_ptr(),
-            len(table.tiles), table.n_items, int(table.wide),
-            nig.data_ptr(), x.data_ptr() if want_x else None, _panel_partials(dev).data_ptr(),
+            len(table.tiles), table.n_items, int(table.wide), (ctypes.c_longlong * len(blocks))(*blocks),
+            len(table.blocks), nig.data_ptr(), x.data_ptr() if want_x else None, _panel_partials(dev).data_ptr(),
             _PANEL_MAX_GRID, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_panel_project_tiles: CUDA error {rc} at launch ({len(table.tiles)} tiles, "
-                           f"{table.n_items} work units)")
+                           f"{table.n_items} work units, {len(table.blocks)} tiles of the block form)")
+    profiling.count("dualip.ops.fused_panel_project_tiles.block_tiles", len(table.blocks))
     if not want_x:
         profiling.count("dualip.ops.fused_panel_project_tiles.enqueued")
         return buf, out[0], out[1]
@@ -695,8 +748,10 @@ def fused_panel_project(
     with ``want_x``.
 
     Counts launches of the kernel in the counters
-    ``dualip.ops.fused_panel_project.enqueued`` (K3) and ``.enqueued_x`` (K4);
-    CPU calls count nothing."""
+    ``dualip.ops.fused_panel_project.enqueued`` (K3) and ``.enqueued_x`` (K4),
+    and in ``.block_tiles`` those of the block form (L above
+    ``PANEL_WARP_L_CAP``, as in the all-tiles call); CPU calls count
+    nothing."""
     KP, L, L2, q = _panel_geometry(a_p, pack)
     if c_p.shape != a_p.shape:
         raise ValueError(f"c_p shape {tuple(c_p.shape)} != a_p shape {tuple(a_p.shape)}")
@@ -737,6 +792,8 @@ def fused_panel_project(
         )
     if rc != 0:
         raise RuntimeError(f"fused_panel_project: CUDA error {rc} at launch (kind={kind}, KP={KP}, L={L}, L2={L2}, q={q})")
+    if panel_path(L).path == "block":
+        profiling.count("dualip.ops.fused_panel_project.block_tiles")
     if want_x:
         profiling.count("dualip.ops.fused_panel_project.enqueued_x")
         return buf, out[0], out[1], x.view(a_p.shape)

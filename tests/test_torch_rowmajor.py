@@ -27,7 +27,7 @@ from dualip_tpu.sparse.rowmajor import _pack_geometry as jax_pack_geometry
 from dualip_tpu.sparse.rowmajor import build_row_layout as jax_build_row_layout
 from dualip_tpu_torch import ComputeArgs, ObjectiveArgs, SolverArgs, run_solver
 from dualip_tpu_torch.checkpoint import save_dual
-from dualip_tpu_torch.ops.fused_matching import PANEL_RING_L_CAP
+from dualip_tpu_torch.ops.fused_matching import PANEL_RING_L_CAP, PANEL_WARP_L_CAP
 from dualip_tpu_torch.objectives.matching import (
     MatchingInputArgs,
     MatchingSolverDualObjectiveFunction,
@@ -178,11 +178,13 @@ def test_panel_table_holds_the_per_tile_arguments(compact):
         L2 = pk[1] if pk else (1 << max(spec.L - 1, 0).bit_length() if spec.L > 1 else 1)
         assert (t.KP, t.L, t.L2, t.q) == (pt.a.shape[0], spec.L, L2, pk[2] if pk else 1)
         assert (t.first, t.x_off) == (first, x_off)
-        # a work unit per item the kernel's ring holds, 16 per item of a wider tile
-        first += t.KP * t.q * (1 if t.L <= PANEL_RING_L_CAP else 16)
+        # a work unit per item the kernel's ring holds, 16 per item of a wider tile a warp projects, none
+        # above (the block form's launch takes it a column a unit)
+        first += t.KP * t.q * (1 if t.L <= PANEL_RING_L_CAP else 16 if t.L <= PANEL_WARP_L_CAP else 0)
         x_off += pt.a.numel()
     assert table.n_items == first and table.x_slots == x_off
-    assert table.wide == any(t.L > PANEL_RING_L_CAP for t in table.tiles)
+    assert table.wide == any(PANEL_RING_L_CAP < t.L <= PANEL_WARP_L_CAP for t in table.tiles)
+    assert table.blocks == tuple(i for i, t in enumerate(table.tiles) if t.L > PANEL_WARP_L_CAP)
     assert table.n_buf == max(t.off + t.KP * t.L2 * 128 for t in table.tiles)
     if compact:
         assert any(t.q > 1 for t in table.tiles)
