@@ -53,6 +53,7 @@ from dualip_tpu_torch.ops.segment_sum import segment_sum_rows
 from dualip_tpu_torch.sparse.bcsc import (
     BlockCSC,
     Tile,
+    TileSpec,
     build_blockcsc,
     build_row_sum_plan,
     device_put_blockcsc,
@@ -521,6 +522,13 @@ def _mesh_device(mesh, device) -> torch.device:
     return mesh.device
 
 
+def _gathered_flat_idx(mesh, spec: TileSpec) -> TileSpec:
+    """``spec`` with the whole tile's ``flat_idx``: every rank's slab (its
+    columns ``[d*K/D, (d+1)*K/D)``) stacked in rank order."""
+    parts = mesh.all_gather(torch.as_tensor(spec.flat_idx, device=mesh.device))
+    return dataclasses.replace(spec, flat_idx=np.concatenate([p.cpu().numpy() for p in parts]))
+
+
 def reduce_parts(mesh, grad, dual_obj, reg):
     """The ranks' (grad, obj, reg) summed by one ``all_reduce`` of one flat
     buffer of m + 2 values; every rank gets the same bits."""
@@ -554,8 +562,13 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
     or ``use_pallas``) and butterfly (plain or ``compact``) layouts.  K is
     padded to ``n_ranks`` (csc), ``n_ranks * pallas_block_k``
     (``use_pallas``) or ``n_ranks * max(pallas_block_k, 128)`` (butterfly),
-    as the JAX package pads it.  ``save_primal`` gathers the ranks' x, so
-    every rank returns the whole primal.
+    as the JAX package pads it.  A csc rank fills only its own columns of
+    every tile (``build_blockcsc(..., shard=(rank, n_ranks))``), and only
+    those are transposed for ``use_pallas``; a butterfly rank builds the whole
+    problem's tiles, which its layout's shape pass reads.  ``save_primal``
+    gathers the ranks' x (and on csc their ``flat_idx``), so every rank
+    returns the whole primal.  An evaluation on a mesh records the device
+    mark ``reduced`` after its ``all_reduce``.
 
     ``tile_cache_dir`` (butterfly with ``keep_col_tiles=False`` and
     ``keep_flat_idx=False``; other layouts ignore it): the device-ready layout
@@ -658,6 +671,8 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
                 tile_cache_dir, self.tile_cache_key, self.device,
                 shard=(mesh.rank, n_shards) if mesh is not None else None)
 
+        # a csc rank fills only its own columns of every tile; the butterfly's shape pass needs them all
+        shard = (mesh.rank, n_shards) if mesh is not None and layout == "csc" else None
         if cached is not None:
             bcsc, self.row_layout = cached
         else:
@@ -671,6 +686,7 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
                 dtype=dtype,
                 # compact: one bucket per distinct degree, no within-tile slot padding
                 bucketing="exact" if compact else "pow2",
+                shard=shard,
             )
             self.row_layout = None
             if layout == "butterfly" and mesh is not None:
@@ -705,7 +721,7 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
         else:
             if use_pallas:
                 bcsc = transpose_tiles(bcsc)
-            if mesh is not None:  # this rank's columns of every tile; the specs stay global
+            if mesh is not None and shard is None:  # this rank's columns of every tile; the specs stay global
                 from dualip_tpu_torch.sparse.rowmajor import _slice_bcsc_cols
 
                 bcsc = _slice_bcsc_cols(bcsc, mesh.rank, n_shards)
@@ -743,6 +759,7 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
         grad, dual_obj, reg, _ = self._local(bcsc, dual_val, g, row_layout=row_layout)
         if self.mesh is not None:
             grad, dual_obj, reg = reduce_parts(self.mesh, grad, dual_obj, reg)
+            profiling.mark("reduced")
         if b_vec is not None:
             return _finalize(grad, dual_obj, reg, dual_val, b_vec)
         return ObjectiveResult(dual_gradient=grad, dual_objective=dual_obj, reg_penalty=reg)
@@ -767,13 +784,15 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
         grad, dual_obj, reg, xs = self._local(
             self.bcsc, dual_val, g, want_primal=True, row_layout=self.row_layout
         )
-        n_shards = 1
+        n_shards, bcsc = 1, self.bcsc
         if self.mesh is not None:
             grad, dual_obj, reg = reduce_parts(self.mesh, grad, dual_obj, reg)
             # the ranks' x in rank order: K is the last axis of (L, K) tiles, the first otherwise
             axis = 1 if (self.use_pallas and self.layout == "csc") else 0
             xs = [torch.cat(self.mesh.all_gather(x), dim=axis) for x in xs]
             n_shards = self.mesh.world_size
+            if self.layout == "csc":  # a rank keeps its own columns' flat_idx: the ranks' in rank order
+                bcsc = dataclasses.replace(bcsc, specs=[_gathered_flat_idx(self.mesh, s) for s in bcsc.specs])
         primal_obj = dual_obj  # c.x before finalization
         if self.b_vec is not None:
             res = _finalize(grad, dual_obj, reg, dual_val, self.b_vec)
@@ -794,7 +813,7 @@ class MatchingSolverDualObjectiveFunction(BaseObjective):
             elif self.use_pallas:
                 x = x.T  # (L, K) transposed-tile form
             xs_kl.append(x)
-        res.primal_var = tiles_values_to_flat(self.bcsc, xs_kl)
+        res.primal_var = tiles_values_to_flat(bcsc, xs_kl)
         return res
 
     def exact_certificate(self, dual_val, gamma: Optional[float] = None) -> dict:

@@ -184,6 +184,15 @@ def uses_graph(device, mesh) -> bool:
     return torch.device(device).type == "cuda" and (mesh is None or mesh.backend() == "nccl")
 
 
+def _iteration_marks(f, device, rows: int) -> Optional[profiling.IterationMarks]:
+    """The device marks of ``f``'s iterations (None off CUDA): with the point
+    ``reduced`` after the evaluation's ``all_reduce`` where ``f`` is sharded
+    over a mesh."""
+    if getattr(f, "mesh", None) is None:
+        return profiling.IterationMarks.for_device(device, rows)
+    return profiling.IterationMarks.for_device(device, rows, reduced=True)
+
+
 def _calc(f, params, dual_val: torch.Tensor, gamma: Optional[torch.Tensor]) -> ObjectiveResult:
     """The objective at ``dual_val``; ``gamma`` is None when the solver has
     none configured, and is then not passed."""
@@ -595,7 +604,7 @@ class AcceleratedGradientDescent:
                 fields_present = runner.fields_present
             else:
                 fields_present = {}
-                marks = profiling.IterationMarks.for_device(dev, self.max_iter)
+                marks = _iteration_marks(f, dev, self.max_iter)
                 body, metrics = self._body(f, params, equality_mask, dtype, carry, fields_present, marks)
                 runner = _EagerLoop(body, carry, torch.zeros((), dtype=torch.long, device=dev), metrics, marks)
             metrics = runner.metrics
@@ -727,7 +736,7 @@ class AcceleratedGradientDescent:
             return g
         del g
         fields_present: dict = {}
-        marks = profiling.IterationMarks.for_device(carry.x.device, self.max_iter)
+        marks = _iteration_marks(f, carry.x.device, self.max_iter)
         body, metrics = self._body(f, params, equality_mask, dtype, carry, fields_present, marks)
         counter = torch.zeros((), dtype=torch.long, device=carry.x.device)
         mesh = getattr(f, "mesh", None)

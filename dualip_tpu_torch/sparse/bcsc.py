@@ -180,19 +180,32 @@ def _build_tile(
     pad_cols_to: int,
     keep_flat_idx: bool,
     dtype,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Tuple[Tile, TileSpec]:
-    lens = A.col_lengths[cols].astype(np.int64)
-    K_valid = len(cols)
-    K = -(-K_valid // pad_cols_to) * pad_cols_to
+    lens = (A.indptr[cols + 1] - A.indptr[cols]).astype(np.int64)  # these columns only: col_lengths diffs all n
+    K = -(-len(cols) // pad_cols_to) * pad_cols_to
     L = int(lens.max())
 
     bf16 = is_bfloat16(dtype)
-    native = None
+    # the whole tile's size picks the fill, so a shard is filled as the whole build fills it;
     # the native fill writes float32 a and c, so it serves float32 and bfloat16 tiles
-    if K_valid * L >= NATIVE_FILL_SLOTS and (bf16 or np.dtype(dtype) == np.float32):
+    use_native = len(cols) * L >= NATIVE_FILL_SLOTS and (bf16 or np.dtype(dtype) == np.float32)
+    K_fill = K
+    if shard is not None:  # columns [d*K/D, (d+1)*K/D) of the tile: real ones, then padding
+        d, D = shard
+        if K % D:
+            raise ValueError(f"tile K={K} not divisible by {D} shards")
+        K_fill = K // D
+        cols, lens = cols[d * K_fill:(d + 1) * K_fill], lens[d * K_fill:(d + 1) * K_fill]
+        profiling.count("dualip.build.shard_columns", K_fill)
+        profiling.count("dualip.build.shard_slots", K_fill * L)
+    K_valid = len(cols)
+
+    native = None
+    if use_native:
         from dualip_tpu_torch.io.native_loader import fill_tile_native
 
-        native = fill_tile_native(A.indptr, A.row_indices, A.data, C.data, cols, K, L, keep_flat_idx)
+        native = fill_tile_native(A.indptr, A.row_indices, A.data, C.data, cols, K_fill, L, keep_flat_idx)
     if native is not None:
         rows, a, c, length, col_ids, flat_idx = native
     else:
@@ -203,21 +216,21 @@ def _build_tile(
         idx_in_col = np.arange(total) - prefix[cols_rep]
         flat = starts[cols_rep] + idx_in_col
 
-        rows = np.zeros((K, L), dtype=np.int32)
-        a = np.zeros((K, L), dtype=np.float32 if bf16 else dtype)
-        c = np.zeros((K, L), dtype=np.float32 if bf16 else dtype)
+        rows = np.zeros((K_fill, L), dtype=np.int32)
+        a = np.zeros((K_fill, L), dtype=np.float32 if bf16 else dtype)
+        c = np.zeros((K_fill, L), dtype=np.float32 if bf16 else dtype)
         rows[cols_rep, idx_in_col] = A.row_indices[flat]
         a[cols_rep, idx_in_col] = A.data[flat]
         c[cols_rep, idx_in_col] = C.data[flat]
 
-        length = np.zeros(K, dtype=np.int32)
+        length = np.zeros(K_fill, dtype=np.int32)
         length[:K_valid] = lens
-        col_ids = np.full(K, -1, dtype=np.int32)
+        col_ids = np.full(K_fill, -1, dtype=np.int32)
         col_ids[:K_valid] = cols
 
         flat_idx = None
         if keep_flat_idx:
-            flat_idx = np.full((K, L), -1, dtype=np.int64)
+            flat_idx = np.full((K_fill, L), -1, dtype=np.int64)
             flat_idx[cols_rep, idx_in_col] = flat
     if bf16:
         a, c = round_bfloat16(a), round_bfloat16(c)
@@ -243,6 +256,7 @@ def build_blockcsc(
     keep_flat_idx: bool = True,
     dtype=np.float32,
     bucketing: str = "pow2",
+    shard: Optional[Tuple[int, int]] = None,
 ) -> BlockCSC:
     """Bucket the columns of same-pattern (A, c) into host projection tiles.
 
@@ -252,6 +266,16 @@ def build_blockcsc(
     layout's column rule).  Empty columns are dropped; columns no entry covers
     get the identity projection.  A bfloat16 ``dtype`` in any of its forms
     rounds a and c (see the module's docstring).
+
+    ``shard=(d, D)`` builds rank d's part of the entity-sharded tiles only:
+    the buckets, the specs' K and L, ``m``, ``n`` and ``nnz`` are the whole
+    build's, and each tile holds columns ``[d*K/D, (d+1)*K/D)`` of the whole
+    build's tile (each K must divide by D: ``pad_cols_to`` a multiple of it),
+    element for element ``rowmajor._slice_bcsc_cols(build_blockcsc(...), d,
+    D)``.  Each spec's ``flat_idx`` is that slab's (K/D, L), still holding
+    global flat positions.  The inputs are only read; the counters
+    ``dualip.build.shard_columns`` and ``dualip.build.shard_slots`` add the
+    columns (real and padding) and slots filled.
     """
     if not same_pattern(A, C):
         raise ValueError("A and c must share the same CSC sparsity pattern")
@@ -284,7 +308,7 @@ def build_blockcsc(
             if len(cols) == 0:
                 continue
             t, s = _build_tile(
-                A, C, cols, entry_key, proj_type, proj_params, pad_cols_to, keep_flat_idx, dtype
+                A, C, cols, entry_key, proj_type, proj_params, pad_cols_to, keep_flat_idx, dtype, shard
             )
             tiles.append(t)
             specs.append(s)

@@ -22,7 +22,10 @@
   stores the card's timer into a table (a kernel node of the CUDA graph);
   in a traced call's drain ``read`` adds the mean intervals ``columns``,
   ``rows`` and ``step`` of its iterations to the store as
-  ``dualip.iter.<interval>``.  The objective calls ``mark(point)``; on the
+  ``dualip.iter.<interval>``.  An objective sharded over a mesh has a fifth
+  mark, ``reduced``, after its ``all_reduce``: the intervals are then
+  ``columns``, ``rows``, ``reduce`` (``rows`` to ``reduced``) and ``step``
+  (``reduced`` to ``end``).  The objective calls ``mark(point)``; on the
   CPU there are no marks and it does nothing.
 
 Tracing is on after ``enable()``, with ``DUALIP_TRACE=1`` at import, or while
@@ -226,32 +229,42 @@ class IterationMarks:
     the start of the step (``start``), after the column layer (the dual's
     scaling and gather or carry-in, the projection and a*x: ``columns``),
     after the row layer (the row sums: ``rows``) and after the iteration's
-    last copy (``end``).  Each mark is the one-thread kernel of
-    ``ops/marks.py``, which stores the card's nanosecond timer into row
-    ``slot`` of a ``(rows, 4)`` table; ``end`` advances the slot.  A CUDA
-    graph captures each mark as one kernel node, so every replay stamps the
-    row of its own iteration.  ``reset`` (a traced call's start) zeroes the
-    slot; ``read``, in the call's drain, adds the mean intervals of its
-    iterations to the store."""
+    last copy (``end``); with ``reduced`` (an objective sharded over a mesh)
+    a fifth, ``reduced``, after the evaluation's ``all_reduce``.  Each mark
+    is the one-thread kernel of ``ops/marks.py``, which stores the card's
+    nanosecond timer into row ``slot`` of a ``(rows, 4)`` table; ``end``
+    advances the slot.  A fifth point is stamped into a second such table,
+    the lower half of one ``(2 * rows, 4)`` allocation.  A CUDA graph
+    captures each mark as one kernel node, so every replay stamps the row of
+    its own iteration.  ``reset`` (a traced call's start) zeroes the slot;
+    ``read``, in the call's drain, adds the mean intervals of its iterations
+    to the store."""
 
     POINTS = ("start", "columns", "rows", "end")
     INTERVALS = ("columns", "rows", "step")  # between consecutive points
+    MESH_POINTS = ("start", "columns", "rows", "reduced", "end")
+    MESH_INTERVALS = ("columns", "rows", "reduce", "step")
 
-    def __init__(self, device, rows: int):
-        self.table = torch.zeros((max(1, rows), 4), dtype=torch.int64, device=device)
+    def __init__(self, device, rows: int, reduced: bool = False):
+        self.points = self.MESH_POINTS if reduced else self.POINTS
+        self.intervals = self.MESH_INTERVALS if reduced else self.INTERVALS
+        self.rows = max(1, rows)
+        tables = -(-len(self.points) // 4)  # the kernel stamps rows of four points
+        self.table = torch.zeros((tables * self.rows, 4), dtype=torch.int64, device=device)
         self.slot = torch.zeros((), dtype=torch.int64, device=device)
         self.seen = set()
 
     @classmethod
-    def for_device(cls, device, rows: int) -> Optional["IterationMarks"]:
+    def for_device(cls, device, rows: int, reduced: bool = False) -> Optional["IterationMarks"]:
         """Marks for ``rows`` iterations on ``device``; None (no marks) off
         CUDA."""
-        return cls(device, rows) if torch.device(device).type == "cuda" else None
+        return cls(device, rows, reduced) if torch.device(device).type == "cuda" else None
 
     def record(self, point: str) -> None:
         from dualip_tpu_torch.ops.marks import stamp
 
-        stamp(self.table, self.slot, self.POINTS.index(point), point == "end")
+        table, column = divmod(self.points.index(point), 4)
+        stamp(self.table[table * self.rows:(table + 1) * self.rows], self.slot, column, point == "end")
         self.seen.add(point)
 
     def reset(self) -> None:
@@ -263,11 +276,12 @@ class IterationMarks:
         of ``dualip.iter.<interval>``; None when a point was never recorded
         (an objective without the column and row marks).  The copy of the
         table waits for the call's work."""
-        if not self.seen.issuperset(self.POINTS) or iterations < 1:
+        if not self.seen.issuperset(self.points) or iterations < 1:
             return None
-        t = self.table.cpu().numpy()[:iterations]  # one copy: the read costs the traced call little
+        t = self.table.cpu().numpy()  # one copy: the read costs the traced call little
+        t = np.concatenate(np.split(t, len(t) // self.rows), axis=1)[:iterations]  # a row of every point
         out = {}
-        for k, name in enumerate(self.INTERVALS):
+        for k, name in enumerate(self.intervals):
             ns = int(np.mean(t[:, k + 1] - t[:, k]))
             out[name] = ns * 1e-6
             STORE._add(Span("dualip.iter." + name, 0, 0, STORE.calls, 0, ns, device=True))

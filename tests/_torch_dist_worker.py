@@ -19,6 +19,7 @@ from dualip_tpu_torch.objectives.matching import (
     MatchingSolverDualObjectiveFunction,
     MatchingSolverDualObjectiveFunctionDistributed,
     matching_tile_cache_key,
+    transpose_tiles,
 )
 from dualip_tpu_torch.objectives.miplib import MIPLIB2017ObjectiveFunction, MIPLIBInputArgs
 from dualip_tpu_torch.optimizers import agd as agd_mod
@@ -27,7 +28,8 @@ from dualip_tpu_torch.parallel import EntityMesh, assemble_global_tiles, local_m
 from dualip_tpu_torch.projections import create_projection_map
 from dualip_tpu_torch.projections.base import ProjectionEntry
 from dualip_tpu_torch.sparse import csc_from_dense
-from dualip_tpu_torch.sparse.bcsc import build_blockcsc
+from dualip_tpu_torch.sparse.bcsc import build_blockcsc, device_put_blockcsc, tiles_values_to_flat
+from dualip_tpu_torch.sparse.rowmajor import _slice_bcsc_cols
 from dualip_tpu_torch.synthetic import generate_synthetic_matching_input_args
 from dualip_tpu_torch.utils import profiling
 
@@ -56,6 +58,11 @@ TILE_CASES = {
     "butterfly": {"layout": "butterfly", "pallas_block_k": 128},
     "compact": {"layout": "butterfly", "pallas_block_k": 128, "compact": True},
 }
+# the csc layouts whose rank-local tiles the tests hold to the whole build's slice, at 2 and 4 ranks
+SHARD_CASES = {
+    "csc": {},
+    "use_pallas": {"use_pallas": True, "pallas_block_k": 32},
+}
 RANDOM_MATCHING = (700, 24, 0.08, 3)  # sources, destinations, sparsity, seed
 CACHE_MATCHING = (500, 20, 0.08, 5)
 
@@ -69,6 +76,59 @@ def golden_args(b: bool = True) -> MatchingInputArgs:
 def random_matching(spec=RANDOM_MATCHING) -> MatchingInputArgs:
     ns, nd, sp, seed = spec
     return generate_synthetic_matching_input_args(ns, nd, sp, rng=np.random.default_rng(seed))
+
+
+def shard_args() -> MatchingInputArgs:
+    """301 columns with empty ones among them, 21 that no entry covers (the
+    ``__identity__`` entry), in tiles whose K leaves the last ranks' slabs
+    padding columns at 2 and 4 ranks."""
+    rng = np.random.default_rng(23)
+    m, n = 24, 301
+    a = ((rng.random((m, n)) < 0.12) * rng.random((m, n))).astype(np.float32)
+    a[:, [0, 7, 150, 299]] = 0.0
+    pm = {"simplex": ProjectionEntry("simplex", {"z": 1.0}, np.arange(280))}
+    return MatchingInputArgs(A=csc_from_dense(a), c=csc_from_dense(-a), projection_map=pm,
+                             b_vec=np.full(m, 0.5, np.float32))
+
+
+def sliced_whole_build(args: MatchingInputArgs, mesh: EntityMesh, use_pallas=False, pallas_block_k=1024):
+    """The host tiles a csc mesh rank kept before it built only its own
+    columns: the whole problem's tiles (transposed for ``use_pallas``), cut
+    to the rank's columns; the specs keep the whole tiles' flat_idx."""
+    pad = mesh.world_size * (pallas_block_k if use_pallas else 1)
+    whole = build_blockcsc(args.A, args.c, args.projection_map, pad_cols_to=pad)
+    return _slice_bcsc_cols(transpose_tiles(whole) if use_pallas else whole, mesh.rank, mesh.world_size)
+
+
+def _primal_from_the_whole_flat_idx(obj, dual) -> np.ndarray:
+    """``calculate(save_primal=True)``'s primal as a csc mesh objective
+    scattered it when its specs held the whole tiles' flat_idx: every rank's x
+    gathered in rank order and scattered through them."""
+    _, _, _, xs = obj._local(obj.bcsc, dual, obj.gamma, want_primal=True)
+    axis = 1 if obj.use_pallas else 0
+    xs = [torch.cat(obj.mesh.all_gather(x), dim=axis).cpu().numpy() for x in xs]
+    return tiles_values_to_flat(obj.bcsc, [x.T if obj.use_pallas else x for x in xs])
+
+
+def own_columns(mesh: EntityMesh, kw: dict) -> dict:
+    """A csc mesh objective built from the rank's own columns: its tiles, its
+    specs' (K, L) and flat_idx, the build's shard counters; a solve on it and
+    on the same objective holding the whole build's slice instead, and the
+    primal at the solve's dual from each (the second scattered as before)."""
+    names = ("dualip.build.shard_columns", "dualip.build.shard_slots")
+    before = [profiling.counter(n) for n in names]
+    obj = MatchingSolverDualObjectiveFunction(shard_args(), gamma=1e-3, mesh=mesh, **kw)
+    out = {"leaves": _rank_leaves(obj), "counters": [profiling.counter(n) - b for n, b in zip(names, before)],
+           "specs": [(s.entry_key, s.K, s.L) for s in obj.bcsc.specs],
+           "flat_idx": [s.flat_idx for s in obj.bcsc.specs]}
+    sliced = MatchingSolverDualObjectiveFunction(shard_args(), gamma=1e-3, mesh=mesh, **kw)
+    sliced.bcsc = device_put_blockcsc(sliced_whole_build(shard_args(), mesh, **kw), mesh.device, row_sum=True)
+    solve = dict(iters=20, initial_step_size=1e-3, max_step_size=1e-1)
+    out["solve"], out["solve_sliced"] = _solve(obj, **solve), _solve(sliced, **solve)
+    dual = torch.as_tensor(out["solve"][2])
+    out["primal"] = np.asarray(obj.calculate(dual, save_primal=True).primal_var)
+    out["primal_sliced"] = _primal_from_the_whole_flat_idx(sliced, dual)
+    return out
 
 
 def random_lp(seed=0, m=12, n=40, sparse=False) -> MIPLIBInputArgs:
@@ -188,7 +248,7 @@ def world8(mesh: EntityMesh) -> dict:
     widest first: every rank of a group does the same work, and a rank leaves
     when no narrower group holds it, so none waits long in a collective."""
     meshes = _sub_meshes(mesh, (2, 4, 8))
-    out = {"golden": {}, "tiles": {}, "lp": {}, "graph": {}}
+    out = {"golden": {}, "tiles": {}, "lp": {}, "graph": {}, "shard": {}}
     inp = random_matching()
     lam = np.random.default_rng(2).normal(size=12).astype(np.float32)
     for ws in (8, 4, 2):
@@ -209,6 +269,9 @@ def world8(mesh: EntityMesh) -> dict:
                     torch.as_tensor(lam), gamma=1e-2)
                 out["lp"][("calculate", sparse, ws)] = (_np(r.dual_gradient), float(r.dual_objective),
                                                         float(r.reg_penalty))
+        if ws in (2, 4):
+            for name, kw in SHARD_CASES.items():
+                out["shard"][(name, ws)] = own_columns(sub, kw)
         if ws == 8:
             A, args = joint_lp()
             lam_j = torch.as_tensor(np.abs(np.random.default_rng(14).normal(size=12)).astype(np.float32))

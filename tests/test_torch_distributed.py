@@ -38,7 +38,10 @@ from dualip_tpu.sparse import csc_from_arrays as jax_csc_from_arrays
 from dualip_tpu_torch.objectives.matching import MatchingSolverDualObjectiveFunction, matching_tile_cache_key
 from dualip_tpu_torch.objectives.miplib import MIPLIB2017ObjectiveFunction
 from dualip_tpu_torch.optimizers.agd import AcceleratedGradientDescent, uses_graph
+from dualip_tpu_torch.objectives.matching import transpose_tiles
 from dualip_tpu_torch.parallel import EntityMesh, default_mesh, run_ranks
+from dualip_tpu_torch.sparse.bcsc import build_blockcsc
+from dualip_tpu_torch.sparse.rowmajor import _slice_bcsc_cols
 from dualip_tpu_torch.synthetic import _cache_path, generate_synthetic_matching_input_args
 
 from tests import _torch_dist_worker as worker
@@ -240,6 +243,63 @@ def test_rank_d_holds_the_jax_packages_shard_d(world8, case):
         for i, rt in enumerate(rl.row_tiles):
             np.testing.assert_array_equal(got[f"rowtile{i}_ids"], np.asarray(rt.row_ids)[d])
             np.testing.assert_array_equal(got[f"rowtile{i}_len"], np.asarray(rt.length)[d])
+
+
+SHARD_IDS = [(name, ws) for name in worker.SHARD_CASES for ws in (2, 4)]
+
+
+@pytest.mark.parametrize("case", SHARD_IDS, ids=[f"{n}-{w}ranks" for n, w in SHARD_IDS])
+def test_a_csc_rank_builds_only_its_own_columns(world8, case):
+    """Rank d's tiles (on its device, (L, K/D) for use_pallas) and its specs'
+    flat_idx equal, element for element, the whole build's tiles cut to its
+    columns; the specs' K and L stay the whole tiles'.  The problem has empty
+    columns, an ``__identity__`` entry and padding columns in the last
+    ranks' slabs."""
+    name, ws = case
+    kw = worker.SHARD_CASES[name]
+    args = worker.shard_args()
+    pad = ws * (kw["pallas_block_k"] if kw.get("use_pallas") else 1)
+    whole = build_blockcsc(args.A, args.c, args.projection_map, pad_cols_to=pad)
+    assert (args.A.col_lengths == 0).any() and "__identity__" in {s.entry_key for s in whole.specs}
+    padding = 0
+    for d in range(ws):
+        got = world8[d]["shard"][case]
+        mine = _slice_bcsc_cols(transpose_tiles(whole) if kw.get("use_pallas") else whole, d, ws)
+        assert got["specs"] == [(s.entry_key, s.K, s.L) for s in whole.specs]
+        for i, (t, s) in enumerate(zip(mine.tiles, whole.specs)):
+            for f in ("rows", "a", "c", "length", "col_ids"):
+                np.testing.assert_array_equal(got["leaves"][f"tile{i}_{f}"], getattr(t, f),
+                                              err_msg=f"rank {d} tile {i} {f}")
+            k = s.K // ws
+            np.testing.assert_array_equal(got["flat_idx"][i], s.flat_idx[d * k:(d + 1) * k])
+            padding += int((np.asarray(t.col_ids) < 0).sum())
+    assert padding > 0
+
+
+@pytest.mark.parametrize("case", SHARD_IDS, ids=[f"{n}-{w}ranks" for n, w in SHARD_IDS])
+def test_a_ranks_shard_counters_count_its_slab(world8, case):
+    """``dualip.build.shard_columns`` and ``.shard_slots``: sum K / D and
+    sum K * L / D over the tiles, on every rank."""
+    ws = case[1]
+    for r in world8[:ws]:
+        got = r["shard"][case]
+        assert got["counters"] == [sum(K for _, K, _ in got["specs"]) // ws,
+                                   sum(K * L for _, K, L in got["specs"]) // ws]
+
+
+@pytest.mark.parametrize("case", SHARD_IDS, ids=[f"{n}-{w}ranks" for n, w in SHARD_IDS])
+def test_a_solve_on_the_ranks_own_columns_gives_the_slices_bits(world8, case):
+    """A sharded solve on the rank-local build gives, bit for bit, the log
+    and dual of the same solve on the whole build's slice, on every rank; the
+    primal that ``save_primal`` scatters through the ranks' own flat_idx is
+    the one scattered through the whole tiles' flat_idx."""
+    ws = case[1]
+    for r in world8[:ws]:
+        got = r["shard"][case]
+        (log, _, dual), (log_sliced, _, dual_sliced) = got["solve"], got["solve_sliced"]
+        assert log == log_sliced and dual.tobytes() == dual_sliced.tobytes()
+        assert got["primal"].tobytes() == got["primal_sliced"].tobytes()
+        assert got["primal"].tobytes() == world8[0]["shard"][case]["primal"].tobytes()
 
 
 def test_assembled_tiles_take_global_column_ids(world8):

@@ -16,11 +16,12 @@ import pytest
 import torch
 
 from dualip_tpu_torch import ComputeArgs, ObjectiveArgs, SolverArgs, build_objective
-from dualip_tpu_torch.objectives.matching import MatchingInputArgs
+from dualip_tpu_torch.objectives.matching import MatchingInputArgs, MatchingSolverDualObjectiveFunction
 from dualip_tpu_torch.ops import _build
 from dualip_tpu_torch.ops import marks as marks_mod
 from dualip_tpu_torch.optimizers import agd as agd_mod
 from dualip_tpu_torch.optimizers.agd import AcceleratedGradientDescent
+from dualip_tpu_torch.parallel import EntityMesh
 from dualip_tpu_torch.projections import create_projection_map
 from dualip_tpu_torch.sparse import csc_from_dense
 from dualip_tpu_torch.utils import profiling
@@ -223,6 +224,76 @@ def test_marks_order_and_graph_counters(store, monkeypatch, layout):
     assert bool((table[:, 1:] >= table[:, :-1]).all()) and int(table.min()) > 0  # every row, in order
 
 
+def _mesh_of_one(monkeypatch) -> EntityMesh:
+    """A mesh of one rank on the CPU with no process group: its all_reduce
+    the identity, its backend NCCL's name (so a capture names it)."""
+    monkeypatch.setattr(EntityMesh, "all_reduce_", lambda self, t: t)
+    monkeypatch.setattr(EntityMesh, "backend", lambda self: "nccl")
+    return EntityMesh(group=None, rank=0, world_size=1, device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["one device", "mesh"])
+def test_a_mesh_adds_the_reduced_mark(store, monkeypatch, sharded):
+    """On a mesh each iteration stamps five points, ``reduced`` after the
+    evaluation's all_reduce, the fifth into a second table of four, and a
+    traced call reads four intervals (``reduce`` between ``rows`` and
+    ``reduced``); without one, four points into one table and three
+    intervals, as before the mesh had a mark."""
+    monkeypatch.setattr(marks_mod, "stamp", _fake_stamp)
+    monkeypatch.setattr(profiling.IterationMarks, "for_device",
+                        classmethod(lambda cls, dev, rows, reduced=False: cls(dev, rows, reduced)))
+    monkeypatch.setattr(agd_mod._Graph, "_capture", _emulated_capture)
+    seen = []
+    real = profiling.IterationMarks.record
+    monkeypatch.setattr(profiling.IterationMarks, "record", lambda self, p: (seen.append(p), real(self, p)))
+    where = {"mesh": _mesh_of_one(monkeypatch)} if sharded else {"device": "cpu"}
+    obj = MatchingSolverDualObjectiveFunction(_problem(), gamma=1e-3, use_pallas=True, pallas_block_k=8, **where)
+    profiling.enable()
+    solver = _solver(max_iter=4)
+    for graph in (False, True):
+        solver._maximize(obj, torch.zeros(6), 0, None, graph=graph)
+    points = profiling.IterationMarks.MESH_POINTS if sharded else profiling.IterationMarks.POINTS
+    assert len(points) == (5 if sharded else 4) and seen == list(points) * 8
+    intervals = ["columns", "rows", "reduce", "step"] if sharded else ["columns", "rows", "step"]
+    assert sorted(k for k in profiling.STORE.aggregates if k.startswith("dualip.iter.")) == \
+        sorted("dualip.iter." + k for k in intervals)
+    for k in intervals:
+        assert profiling.aggregate("dualip.iter." + k).count == 2
+    table = solver._jit_cache[next(iter(solver._jit_cache))].marks.table
+    assert tuple(table.shape) == ((8, 4) if sharded else (4, 4))
+    stamped = np.concatenate(np.split(table.numpy(), len(table) // 4, axis=0), axis=1)[:, :len(points)]
+    assert (stamped[:, 1:] >= stamped[:, :-1]).all() and stamped.min() > 0
+
+
+def test_marks_read_each_point_from_its_table(store, monkeypatch):
+    """The mean intervals between consecutive points, the fifth point read
+    from the second table: the stamps of three iterations by hand."""
+    clock = [0]
+
+    def stamp(table, slot, point, advance):
+        table[int(slot) % table.shape[0], point] = clock[0]
+        if advance:
+            slot += 1
+
+    monkeypatch.setattr(marks_mod, "stamp", stamp)
+    marks = profiling.IterationMarks("cpu", 3, reduced=True)
+    steps = {"start": 1000, "columns": 4000, "rows": 2000, "reduced": 30, "end": 100}
+    for it in range(3):
+        for point in marks.points:
+            clock[0] += steps[point] * (it + 1)
+            marks.record(point)
+    got = marks.read(3)
+    assert got == pytest.approx({"columns": 8e-3, "rows": 4e-3, "reduce": 6e-5, "step": 2e-4})
+    assert profiling.aggregate("dualip.iter.reduce").total_ns == 60
+    assert profiling.IterationMarks("cpu", 3).read(3) is None  # no point recorded
+
+
+def test_layer_reduce_ms_reads_the_mean_reduce_interval(store):
+    for ms in (0.02, 0.04):
+        _fill(profiling.STORE, "dualip.iter.reduce", 0, ms)
+    assert _reader("layer_reduce_ms")(None) == pytest.approx(0.03)
+
+
 def _reader(name):
     path = ROOT / "gpubench" / "metrics" / f"{name}.py"
     spec = importlib.util.spec_from_file_location(f"test_metric_{name}", path)
@@ -262,7 +333,7 @@ def test_readers_from_a_hand_filled_store(store):
                                  "layer_step_ms": 0.15, "build_tiles_s": 2.0, "build_rows_s": 2.5})
 
 
-@pytest.mark.parametrize("name", ["call_host_ms", "layer_columns_ms", "build_rows_s"])
+@pytest.mark.parametrize("name", ["call_host_ms", "layer_columns_ms", "build_rows_s", "layer_reduce_ms"])
 def test_readers_find_nothing_in_an_empty_store(store, monkeypatch, name):
     assert _reader(name)(None) is None
     monkeypatch.delattr(profiling, "STORE")  # a program without the store
